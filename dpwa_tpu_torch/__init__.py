@@ -1,0 +1,9 @@
+"""dpwa_tpu_torch: the PyTorch/CUDA port of dpwa_tpu's gossip trainer.
+
+The stacked virtual-peer path runs here on one NVIDIA Hopper card: every
+peer's replica sits on a leading ``[n_peers, ...]`` axis of one flat
+parameter buffer, and the gossip exchange is a hand-written CUDA kernel
+(:mod:`dpwa_tpu_torch.ops.merge`).  The package imports torch, numpy and
+yaml, never jax or anything of ``dpwa_tpu``.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,197 @@
+"""CIFAR ResNets (the port of :mod:`dpwa_tpu.models.resnet`).
+
+Module and parameter names mirror the Flax model's, so a parameter's name
+here is its Flax key path: ``BasicBlock_3.Conv_2.kernel`` is
+``params/BasicBlock_3/Conv_2/kernel`` there.  The layout inside a leaf is
+PyTorch's (conv kernels OIHW, the Dense kernel ``[out, in]``);
+:mod:`dpwa_tpu_torch.convert` carries parameters across.
+
+The public call takes NHWC ``[B, H, W, 3]`` as the Flax model does and
+computes in NCHW inside.  What matches Flax, and why it matters:
+
+- ``Conv`` pads ``SAME``: for a stride-2 3×3 conv on an even size that is
+  (0, 1) on H and W, not PyTorch's symmetric ``padding=1``.
+- ``GroupNorm`` uses 16 channels per group, epsilon 1e-6, and the variance
+  ``E[x²] − E[x]²`` (Flax's ``use_fast_variance``), in float32.
+- ``dtype`` is the compute type of convolutions and norms (bf16 compute,
+  float32 parameters); the final Dense layer computes in float32.
+
+ImageNet ResNet-50 and ``norm='batch'`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv`` without bias: SAME padding, kernel OIHW."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 strides: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.strides = strides
+        self.dtype = dtype
+        self.kernel = nn.Parameter(
+            torch.empty(features, in_features, kernel_size, kernel_size)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.shape[-1]
+        ph = _same_pads(x.shape[-2], k, self.strides)
+        pw = _same_pads(x.shape[-1], k, self.strides)
+        x = x.to(self.dtype)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            padding = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            padding = 0
+        return F.conv2d(x, self.kernel.to(self.dtype), stride=self.strides,
+                        padding=padding)
+
+
+class GroupNorm(nn.Module):
+    """Flax ``nn.GroupNorm(num_groups=None, group_size=16)`` on NCHW."""
+
+    def __init__(self, features: int, group_size: int = 16,
+                 epsilon: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if features % group_size:
+            raise ValueError(f"{features} channels do not split into groups of {group_size}")
+        self.groups = features // group_size
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        xg = x.float().reshape(b, self.groups, c // self.groups, h, w)
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.epsilon)
+        mul = mul * self.scale.reshape(1, self.groups, c // self.groups, 1, 1)
+        y = (xg - mean) * mul + self.bias.reshape(1, self.groups, c // self.groups, 1, 1)
+        return y.reshape(b, c, h, w).to(self.dtype)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense`` in float32; kernel ``[out, in]``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.float(), self.kernel, self.bias)
+
+
+class BasicBlock(nn.Module):
+    """3×3 + 3×3 residual block (ResNet-20/32/44/56 family)."""
+
+    def __init__(self, in_features: int, filters: int, strides: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, filters, 3, strides, dtype)
+        self.GroupNorm_0 = GroupNorm(filters, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, 3, 1, dtype)
+        self.GroupNorm_1 = GroupNorm(filters, dtype=dtype)
+        # Flax projects the residual when its shape differs from the output.
+        if strides != 1 or in_features != filters:
+            self.Conv_2 = Conv(in_features, filters, 1, strides, dtype)
+            self.GroupNorm_2 = GroupNorm(filters, dtype=dtype)
+        else:
+            self.Conv_2 = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        y = self.GroupNorm_1(self.Conv_1(y))
+        residual = x if self.Conv_2 is None else self.GroupNorm_2(self.Conv_2(x))
+        return F.relu(y + residual)
+
+
+class CifarResNet(nn.Module):
+    """CIFAR-style ResNet: 3×3 stem, 3 stages of n blocks at 16/32/64."""
+
+    def __init__(self, depth: int = 20, num_classes: int = 10,
+                 norm_type: str = "group", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if (depth - 2) % 6 != 0:
+            raise ValueError("CIFAR ResNet depth must be 6n+2")
+        if norm_type != "group":
+            raise NotImplementedError(
+                f"norm_type={norm_type!r}: only 'group' is ported (BatchNorm's "
+                "model state waits for the with_state train step)"
+            )
+        self.dtype = dtype
+        n = (depth - 2) // 6
+        self.Conv_0 = Conv(3, 16, 3, 1, dtype)
+        self.GroupNorm_0 = GroupNorm(16, dtype=dtype)
+        in_features, index = 16, 0
+        for stage, filters in enumerate((16, 32, 64)):
+            for block in range(n):
+                strides = 2 if stage > 0 and block == 0 else 1
+                self.add_module(
+                    f"BasicBlock_{index}",
+                    BasicBlock(in_features, filters, strides, dtype),
+                )
+                in_features, index = filters, index + 1
+        self.n_blocks = index
+        self.Dense_0 = Dense(64, num_classes)
+        for name, p in self.named_parameters():
+            if name.endswith("kernel"):
+                _lecun_normal_(p, None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: NHWC ``[B, H, W, 3]`` → logits ``[B, num_classes]``."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        for i in range(self.n_blocks):
+            x = getattr(self, f"BasicBlock_{i}")(x)
+        return self.Dense_0(x.mean(dim=(2, 3)))
+
+
+def ResNet20(**kw) -> CifarResNet:
+    return CifarResNet(depth=20, **kw)
+
+
+def ResNet56(**kw) -> CifarResNet:
+    return CifarResNet(depth=56, **kw)
+
+
+def _lecun_normal_(kernel: torch.Tensor, generator: torch.Generator | None) -> None:
+    # Flax's default kernel init: truncated normal in ±2σ with
+    # σ = sqrt(1 / fan_in) / 0.8796…, fan_in the input features times the
+    # receptive field (the kernel's size per output feature).
+    std = math.sqrt(1.0 / kernel[0].numel()) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def init(model: nn.Module, generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """Fresh parameters for ``model`` as a new ``{name: tensor}`` dict on
+    the CPU, as Flax's ``model.init`` makes them: lecun-normal Conv and
+    Dense kernels, unit norm scales, zero biases.  The module itself is
+    left as it is."""
+    params = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        t = torch.zeros(p.shape, dtype=torch.float32)
+        if leaf == "kernel":
+            _lecun_normal_(t, generator)
+        elif leaf == "scale":
+            t.fill_(1.0)
+        params[name] = t
+    return params

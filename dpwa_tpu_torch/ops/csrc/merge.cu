@@ -1,0 +1,235 @@
+// Gossip merge kernels for Hopper (sm_90a), bound to Python with ctypes
+// (dpwa_tpu_torch/ops/merge.py).  Both compute, per element,
+//
+//     x' = (1 - a) * x + a * y,   y = the partner's value
+//
+// in float32 with one fused multiply-add, in the form XLA's CPU backend
+// emits for the reference's `(1 - a) * x + a * y`
+// (dpwa_tpu/parallel/stacked.py), so the results are the reference's bit
+// for bit:
+//
+//   f32 wire   fmaf(a, y, __fmul_rn(1 - a, x))   the own product rounded
+//   bf16 wire  fmaf(1 - a, x, __fmul_rn(a, y))   y rounded to bf16 first;
+//                                                here XLA fuses the other
+//                                                product
+//
+// The intrinsics pin each form: left to nvcc's --fmad=true, the
+// contraction could fuse either product and change the last bit.
+//
+// B1  dpwa_pair_merge_f32 replaces dpwa_tpu/ops/merge.py::_pair_merge_impl
+//     (entry pallas_pair_merge).  In place over explicit pair lists: for pair
+//     k with rows L = left[k], R = right[k],
+//         x[L] <- lerp(alpha[L], x[L], x[R]),  x[R] <- lerp(alpha[R], x[R], x[L])
+//     both from the pre-merge values.  A pad pair (L == R) is skipped, so a
+//     row that sits the round out stays bit-identical.
+// B2  dpwa_gather_merge_f32 replaces dpwa_tpu/ops/merge.py::pallas_pairwise_merge.
+//     Out of place: out[i] <- lerp(alpha[i], x[i], x[partner[i]]).
+//
+// What bounds them on the card: device-memory bytes.  B1 moves 2*rows*d*4
+// bytes (each touched row read once and written once, the floor for any
+// merge); B2 moves 3*n*d*4 (own row, partner row, output row).  Both do 3
+// flops per element, about 0.4 flop per byte, far under the H100's float32
+// ridge of some 20 flops per byte, so the arithmetic is free and only the
+// bytes count.
+//
+// What the design does about it: every thread moves 16-byte float4 words,
+// neighbouring threads on neighbouring addresses, in a grid-stride loop over
+// the row, so each warp issues fully coalesced 512-byte transactions.
+// Nothing is reused, so there is no shared memory and no staging: a value
+// is loaded into a register, merged and stored.  The pair (B1) or peer (B2)
+// index comes from blockIdx.y and each block loads its own row indices and
+// alphas from device arrays, which stand in for the TPU kernels' scalar
+// prefetch: one compiled kernel serves every pairing of a schedule pool, and
+// a step only passes another row of the pool already resident on the card.
+// Rows of different pairs are disjoint, so the in-place update of B1 has no
+// aliasing hazard.  A row whose start is not 16-byte aligned takes up to
+// three scalar head elements first; the ragged tail (d not a multiple of 4)
+// is masked the same way.  Where rows do not share one alignment (a row
+// stride that is not a multiple of 4 floats) the scalar form runs instead.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+// Blocks along a row at most; a longer row is covered by the grid-stride
+// loop.  With 8 pairs this still puts ~16k blocks in flight.
+constexpr int64_t kMaxBlocksPerRow = 2048;
+
+// (1 - a) * x + a * y with y the partner's value as it came over the wire.
+template <bool kBf16>
+__device__ __forceinline__ float lerp(float a, float x, float y) {
+  if (kBf16) {
+    const float yw = __bfloat162float(__float2bfloat16_rn(y));
+    return fmaf(__fsub_rn(1.f, a), x, __fmul_rn(a, yw));
+  }
+  return fmaf(a, y, __fmul_rn(__fsub_rn(1.f, a), x));
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void merge_pair(float al, float ar, float& l, float& r) {
+  const float nl = lerp<kBf16>(al, l, r);
+  const float nr = lerp<kBf16>(ar, r, l);
+  l = nl;
+  r = nr;
+}
+
+// Elements of a row that the scalar edges cover: [0, head) and [tail0, d).
+__device__ __forceinline__ bool edge_index(int64_t t, int64_t head, int64_t tail0,
+                                           int64_t d, int64_t* j) {
+  if (t < head) {
+    *j = t;
+    return true;
+  }
+  const int64_t k = tail0 + (t - head);
+  *j = k;
+  return k < d;
+}
+
+template <bool kBf16, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+pair_merge_kernel(float* x, int64_t ld, int64_t d, int64_t head,
+                  const int* __restrict__ left, const int* __restrict__ right,
+                  const float* __restrict__ alpha) {
+  const int k = blockIdx.y;
+  const int l = __ldg(left + k);
+  const int r = __ldg(right + k);
+  if (l == r) return;  // pad self-pair: exact no-op
+  const float al = __ldg(alpha + l);
+  const float ar = __ldg(alpha + r);
+  float* xl = x + static_cast<int64_t>(l) * ld;
+  float* xr = x + static_cast<int64_t>(r) * ld;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const int64_t n4 = (d - head) >> 2;
+    float4* vl = reinterpret_cast<float4*>(xl + head);
+    float4* vr = reinterpret_cast<float4*>(xr + head);
+    for (int64_t i = t0; i < n4; i += stride) {
+      float4 a = vl[i];
+      float4 b = vr[i];
+      merge_pair<kBf16>(al, ar, a.x, b.x);
+      merge_pair<kBf16>(al, ar, a.y, b.y);
+      merge_pair<kBf16>(al, ar, a.z, b.z);
+      merge_pair<kBf16>(al, ar, a.w, b.w);
+      vl[i] = a;
+      vr[i] = b;
+    }
+    int64_t j;
+    if (edge_index(t0, head, head + (n4 << 2), d, &j)) {
+      merge_pair<kBf16>(al, ar, xl[j], xr[j]);
+    }
+  } else {
+    for (int64_t j = t0; j < d; j += stride) {
+      merge_pair<kBf16>(al, ar, xl[j], xr[j]);
+    }
+  }
+}
+
+template <bool kBf16, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_merge_kernel(const float* __restrict__ x, int64_t ld_x,
+                    float* __restrict__ out, int64_t ld_out, int64_t d,
+                    int64_t head, const int* __restrict__ partner,
+                    const float* __restrict__ alpha) {
+  const int i = blockIdx.y;
+  const int p = __ldg(partner + i);
+  const float a = __ldg(alpha + i);
+  const float* xs = x + static_cast<int64_t>(i) * ld_x;
+  const float* xp = x + static_cast<int64_t>(p) * ld_x;
+  float* o = out + static_cast<int64_t>(i) * ld_out;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const int64_t n4 = (d - head) >> 2;
+    const float4* vs = reinterpret_cast<const float4*>(xs + head);
+    const float4* vp = reinterpret_cast<const float4*>(xp + head);
+    float4* vo = reinterpret_cast<float4*>(o + head);
+    for (int64_t q = t0; q < n4; q += stride) {
+      const float4 s = __ldg(vs + q);
+      const float4 y = __ldg(vp + q);
+      float4 m;
+      m.x = lerp<kBf16>(a, s.x, y.x);
+      m.y = lerp<kBf16>(a, s.y, y.y);
+      m.z = lerp<kBf16>(a, s.z, y.z);
+      m.w = lerp<kBf16>(a, s.w, y.w);
+      vo[q] = m;
+    }
+    int64_t j;
+    if (edge_index(t0, head, head + (n4 << 2), d, &j)) {
+      o[j] = lerp<kBf16>(a, xs[j], xp[j]);
+    }
+  } else {
+    for (int64_t j = t0; j < d; j += stride) {
+      o[j] = lerp<kBf16>(a, xs[j], xp[j]);
+    }
+  }
+}
+
+// Scalar elements before the first 16-byte boundary of a row starting at p.
+int64_t head_of(const void* p, int64_t d) {
+  const int64_t h = ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 4;
+  return h < d ? h : d;
+}
+
+dim3 grid_for(int64_t work, int rows) {
+  int64_t bx = (work + kThreads - 1) / kThreads;
+  if (bx < 1) bx = 1;
+  if (bx > kMaxBlocksPerRow) bx = kMaxBlocksPerRow;
+  return dim3(static_cast<unsigned>(bx), static_cast<unsigned>(rows));
+}
+
+}  // namespace
+
+extern "C" {
+
+// B1.  x: [n, ld] float32 rows (the first d columns merge); left/right:
+// int32[n_pairs]; alpha: float32[n].  Returns the cudaError_t of the launch.
+int dpwa_pair_merge_f32(float* x, int64_t ld, int64_t d, const int* left,
+                        const int* right, int n_pairs, const float* alpha,
+                        int bf16_wire, void* stream) {
+  if (n_pairs <= 0 || d <= 0) return 0;
+  const bool vec = ld % 4 == 0;
+  const int64_t head = vec ? head_of(x, d) : 0;
+  const dim3 grid = grid_for(vec ? (d - head) / 4 + 1 : d, n_pairs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_wire) {
+    if (vec) pair_merge_kernel<true, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+    else     pair_merge_kernel<true, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+  } else {
+    if (vec) pair_merge_kernel<false, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+    else     pair_merge_kernel<false, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2.  x: [n, ld_x] float32; out: [n, ld_out] float32 (no overlap with x);
+// partner: int32[n]; alpha: float32[n].  Returns the launch's cudaError_t.
+int dpwa_gather_merge_f32(const float* x, int64_t ld_x, float* out,
+                          int64_t ld_out, int64_t d, int n,
+                          const int* partner, const float* alpha,
+                          int bf16_wire, void* stream) {
+  if (n <= 0 || d <= 0) return 0;
+  const bool vec = ld_x % 4 == 0 && ld_out % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) ==
+                       (reinterpret_cast<uintptr_t>(out) & 15);
+  const int64_t head = vec ? head_of(x, d) : 0;
+  const dim3 grid = grid_for(vec ? (d - head) / 4 + 1 : d, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_wire) {
+    if (vec) gather_merge_kernel<true, true><<<grid, kThreads, 0, s>>>(x, ld_x, out, ld_out, d, head, partner, alpha);
+    else     gather_merge_kernel<true, false><<<grid, kThreads, 0, s>>>(x, ld_x, out, ld_out, d, head, partner, alpha);
+  } else {
+    if (vec) gather_merge_kernel<false, true><<<grid, kThreads, 0, s>>>(x, ld_x, out, ld_out, d, head, partner, alpha);
+    else     gather_merge_kernel<false, false><<<grid, kThreads, 0, s>>>(x, ld_x, out, ld_out, d, head, partner, alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* dpwa_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

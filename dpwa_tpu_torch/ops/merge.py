@@ -1,0 +1,315 @@
+"""Pairwise-average merge ops: ``x_i ← (1−α_i)·x_i + α_i·x_{partner(i)}``.
+
+The port of :mod:`dpwa_tpu.ops.merge`.  Two kernels, hand-written in CUDA
+for Hopper (``csrc/merge.cu``), each beside its plain PyTorch version:
+
+- :func:`pair_merge_` (B1, replaces ``pallas_pair_merge``) merges both rows
+  of every pair of an involution in place: one read and one write per
+  element, the floor for any merge.  The stacked train step's pairwise
+  exchange is one launch of it.
+- :func:`gather_merge` (B2, replaces ``pallas_pairwise_merge``) is the
+  out-of-place gather form, for pull maps that are not involutions.
+
+A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
+tensor it launches the kernel or raises; nothing falls back.  Each launch
+adds one to the wrapper's ``launches`` count.
+
+Arithmetic: every form computes one fused multiply-add in float32, as
+XLA's CPU backend does for the reference's ``(1−α)·x + α·y``:
+``fma(α, y, (1−α)·x)`` on the f32 wire, ``fma(1−α, x, α·bf16(y))`` on the
+bf16 wire (there XLA fuses the other product).  ``torch.addcmul`` on the
+CPU gives the same bits.  A form with two roundings misses the reference's
+last bit on a large share of elements at α = 0.3; at α = 0.5 every form
+agrees.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y: pairs (B1) or peers (B2)
+
+
+def involution_pairs(
+    partner, *, pad_to: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host helper: (left, right) pair row-lists from an involution.
+
+    Fixed points (``partner[i] == i`` — peers sitting this round out) are
+    dropped: with the in-place :func:`pair_merge_` an unlisted row is
+    simply left untouched, which is exactly the α=0 self-merge semantics.
+    ``pad_to`` pads the lists to a fixed length by repeating fixed-point
+    rows as no-op self-pairs, so every entry of a schedule pool can share
+    one shape; padding is only ever needed when fixed points exist, so a
+    pad row is always available.
+    """
+    p = np.asarray(partner)
+    (n,) = p.shape
+    if not np.array_equal(p[p], np.arange(n)):
+        raise ValueError("partner is not an involution")
+    left = np.flatnonzero(np.arange(n) < p)
+    right = p[left]
+    if pad_to is not None:
+        if len(left) > pad_to:
+            raise ValueError(f"{len(left)} pairs cannot pad to {pad_to}")
+        deficit = pad_to - len(left)
+        if deficit:
+            fixed = np.flatnonzero(p == np.arange(n))
+            if fixed.size == 0:
+                raise ValueError(
+                    "cannot pad a perfect matching: no fixed-point row is "
+                    "available for no-op self-pairs"
+                )
+            pad = np.resize(fixed, deficit)
+            left = np.concatenate([left, pad])
+            right = np.concatenate([right, pad])
+    return left.astype(np.int32), right.astype(np.int32)
+
+
+def _lerp(
+    a: torch.Tensor, x: torch.Tensor, y: torch.Tensor, wire_bf16: bool
+) -> torch.Tensor:
+    """``(1 − a)·x + a·y`` in the reference's float32 form (``addcmul`` is
+    one fused multiply-add on the CPU): ``fma(a, y, (1 − a)·x)``, or on the
+    bf16 wire ``fma(1 − a, x, a·bf16(y))``, with ``y`` rounded to nearest
+    even bf16 — what would have arrived over the fabric."""
+    if wire_bf16:
+        y = y.to(torch.bfloat16).to(torch.float32)
+        return torch.addcmul(a * y, 1.0 - a, x)
+    return torch.addcmul((1.0 - a) * x, a, y)
+
+
+def torch_pairwise_merge(
+    x: torch.Tensor,
+    partner: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    wire_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`gather_merge`: out-of-place
+    ``(1−α_i)·x_i + α_i·x[partner[i]]`` over ``x`` of shape ``[n, d]``."""
+    a = alpha.to(torch.float32)[:, None]
+    return _lerp(a, x, x[partner.long()], wire_bf16)
+
+
+def torch_pair_merge_(
+    x: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    wire_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain version of :func:`pair_merge_`: merge rows ``left[k]`` and
+    ``right[k]`` of ``x`` (``[n, d]``) in place, both from the pre-merge
+    values.  Pad pairs (``left[k] == right[k]``) leave their row
+    bit-identical.  Returns ``x``."""
+    left, right = left.long(), right.long()
+    alpha = alpha.to(torch.float32)
+    pad = (left == right)[:, None]
+    a_l, a_r = alpha[left][:, None], alpha[right][:, None]
+    x_l, x_r = x[left], x[right]
+    new_l = torch.where(pad, x_l, _lerp(a_l, x_l, x_r, wire_bf16))
+    new_r = torch.where(pad, x_r, _lerp(a_r, x_r, x_l, wire_bf16))
+    x[left] = new_l
+    x[right] = new_r
+    return x
+
+
+_VOID = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, built and loaded at the first launch."""
+    from dpwa_tpu_torch.ops import _build
+
+    lib = _build.load("merge.cu")
+    lib.dpwa_pair_merge_f32.argtypes = [
+        _VOID, _I64, _I64, _VOID, _VOID, _INT, _VOID, _INT, _VOID,
+    ]
+    lib.dpwa_pair_merge_f32.restype = _INT
+    lib.dpwa_gather_merge_f32.argtypes = [
+        _VOID, _I64, _VOID, _I64, _I64, _INT, _VOID, _VOID, _INT, _VOID,
+    ]
+    lib.dpwa_gather_merge_f32.restype = _INT
+    lib.dpwa_cuda_error_string.argtypes = [_INT]
+    lib.dpwa_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = lib.dpwa_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def _check_rows(x: torch.Tensor, name: str) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [n, d], got shape {tuple(x.shape)}")
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name}: x rows must be contiguous (stride(1) == 1)")
+    if x.shape[0] > 1 and x.stride(0) < x.shape[1]:
+        raise ValueError(f"{name}: x rows must not overlap (stride(0) >= d)")
+
+
+def _check_index(t: torch.Tensor, length: int, device, name: str) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != length:
+        raise ValueError(
+            f"{name} must be int32[{length}], got {t.dtype}{list(t.shape)}"
+        )
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def _empty_rows_like(x: torch.Tensor) -> torch.Tensor:
+    # An [n, d] output whose rows start at the same offset within 16 bytes
+    # as x's and sit a multiple of 32 floats apart, so B2 moves float4 words
+    # whatever d is (the caching allocator aligns the base to 512 bytes).
+    n, d = x.shape
+    head = (x.data_ptr() % 16) // 4
+    ld = -(-(d + head) // 32) * 32
+    buf = torch.empty(n, ld, dtype=x.dtype, device=x.device)
+    return buf[:, head:head + d]
+
+
+def _check_alpha(alpha: torch.Tensor, n: int, device) -> None:
+    if alpha.dtype != torch.float32 or tuple(alpha.shape) != (n,):
+        raise ValueError(
+            f"alpha must be float32[{n}], got {alpha.dtype}{list(alpha.shape)}"
+        )
+    if alpha.device != device or not alpha.is_contiguous():
+        raise ValueError(f"alpha must be contiguous on {device}")
+
+
+def pair_merge_(
+    x: torch.Tensor,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    wire_bf16: bool = False,
+) -> torch.Tensor:
+    """B1: in-place pair merge over explicit pair lists.
+
+    For pair k with rows ``L = left[k]``, ``R = right[k]``::
+
+        x[L] ← (1−α[L])·x[L] + α[L]·x[R]
+        x[R] ← (1−α[R])·x[R] + α[R]·x[L]
+
+    both from the pre-merge values, in float32; ``wire_bf16`` rounds the
+    partner's value to bf16 first.  Rows in neither list, and pad pairs
+    ``L == R``, stay bit-identical.  ``x`` is float32 ``[n, d]`` with
+    contiguous rows (a column slice of a wider buffer is fine); ``left`` and
+    ``right`` are int32, ``alpha`` float32 ``[n]``.  The lists must name
+    disjoint rows in ``[0, n)`` except for pads: they are device data the
+    kernel reads as given, so :func:`involution_pairs` (or the transport's
+    pool, built from it) is where they are checked.  Returns ``x``.
+    """
+    if x.device.type == "cpu":
+        return torch_pair_merge_(x, left, right, alpha, wire_bf16=wire_bf16)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_merge_: unsupported device {x.device}")
+    _check_rows(x, "pair_merge_")
+    n, d = x.shape
+    k = left.shape[0] if left.dim() == 1 else 0
+    _check_index(left, k, x.device, "left")
+    _check_index(right, k, x.device, "right")
+    _check_alpha(alpha, n, x.device)
+    if k > _MAX_GRID_Y:
+        raise ValueError(f"pair_merge_: {k} pairs exceed {_MAX_GRID_Y}")
+    if k == 0 or d == 0:
+        return x
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_pair_merge_f32(
+            x.data_ptr(), x.stride(0), d, left.data_ptr(), right.data_ptr(),
+            k, alpha.data_ptr(), int(wire_bf16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "pair_merge_", err)
+    pair_merge_.launches += 1
+    return x
+
+
+def gather_merge(
+    x: torch.Tensor,
+    partner: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    wire_bf16: bool = False,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """B2: out-of-place gather merge
+    ``out[i] = (1−α_i)·x[i] + α_i·x[partner[i]]`` over float32 ``x``
+    ``[n, d]`` (contiguous rows); ``partner`` int32 ``[n]`` with values in
+    ``[0, n)`` (not checked on the card, as for :func:`pair_merge_`),
+    ``alpha`` float32 ``[n]``.  ``out`` (float32 ``[n, d]``, contiguous rows,
+    not overlapping ``x``) is allocated when not given, with rows laid out
+    so that the kernel can move 16-byte words.  Returns ``out``."""
+    if x.device.type == "cpu":
+        merged = torch_pairwise_merge(x, partner, alpha, wire_bf16=wire_bf16)
+        if out is None:
+            return merged
+        return out.copy_(merged)
+    if x.device.type != "cuda":
+        raise ValueError(f"gather_merge: unsupported device {x.device}")
+    _check_rows(x, "gather_merge")
+    n, d = x.shape
+    _check_index(partner, n, x.device, "partner")
+    _check_alpha(alpha, n, x.device)
+    if n > _MAX_GRID_Y:
+        raise ValueError(f"gather_merge: {n} peers exceed {_MAX_GRID_Y}")
+    if out is None:
+        out = _empty_rows_like(x)
+    else:
+        _check_rows(out, "gather_merge out")
+        if out.shape != x.shape or out.device != x.device:
+            raise ValueError("gather_merge: out must match x's shape and device")
+        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+            raise ValueError("gather_merge: out must not share x's storage")
+    if n == 0 or d == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_gather_merge_f32(
+            x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), d, n,
+            partner.data_ptr(), alpha.data_ptr(), int(wire_bf16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "gather_merge", err)
+    gather_merge.launches += 1
+    return out
+
+
+pair_merge_.launches = 0
+gather_merge.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's ``launches`` count to 0."""
+    pair_merge_.launches = 0
+    gather_merge.launches = 0
+
+
+def pairwise_merge(
+    x: torch.Tensor,
+    partner: torch.Tensor,
+    alpha: torch.Tensor,
+    *,
+    wire_bf16: bool = False,
+) -> torch.Tensor:
+    """Functional (non-mutating) merge keyed by ``partner``: B2 for a CUDA
+    tensor, its plain version for a CPU one.  The in-place form over an
+    involution's pair lists is :func:`pair_merge_`."""
+    partner = partner.to(device=x.device, dtype=torch.int32).contiguous()
+    alpha = alpha.to(device=x.device, dtype=torch.float32).contiguous()
+    return gather_merge(x, partner, alpha, wire_bf16=wire_bf16)

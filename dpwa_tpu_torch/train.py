@@ -1,0 +1,61 @@
+"""Training helpers of the stacked gossip loop (the port of the parts of
+:mod:`dpwa_tpu.train` the stacked path uses).
+
+The stacked train step itself is
+:func:`dpwa_tpu_torch.parallel.stacked.make_stacked_train_step`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import torch
+
+from dpwa_tpu_torch.utils.devices import resolve_device
+from dpwa_tpu_torch.utils.pytree import FlatParams
+
+Params = Mapping[str, torch.Tensor]
+
+
+def init_params_per_peer(
+    init_fn: Callable[[torch.Generator], Params],
+    generator: torch.Generator,
+    n_peers: int,
+    device=None,
+) -> FlatParams:
+    """Independent random init per peer (a diverged cold start): peer i's
+    parameters are the i-th draw of ``init_fn`` from the one ``generator``
+    (e.g. ``lambda g: resnet.init(model, g)``), stacked into a
+    :class:`FlatParams` on ``device`` (the CUDA card by default)."""
+    device = resolve_device(device)
+    peers = [init_fn(generator) for _ in range(n_peers)]
+    stacked = {name: torch.stack([p[name] for p in peers]) for name in peers[0]}
+    return FlatParams.stack(stacked, device=device)
+
+
+def softmax_cross_entropy_with_integer_labels(
+    logits: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    """Per-example ``logsumexp(logits) − logits[label]``, as optax."""
+    picked = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
+def make_gossip_eval_fn(apply_fn: Callable[[Params, torch.Tensor], torch.Tensor]):
+    """``eval_fn(stacked_params, x, y) -> accuracy[n]``: every peer's
+    replica on the same test set, the peers vmapped.  ``stacked_params`` is
+    a :class:`FlatParams` or ``{name: [n, *shape]}``."""
+
+    def one(params, x, y):
+        logits = apply_fn(params, x)
+        return (logits.argmax(-1) == y).to(torch.float32).mean()
+
+    per_peer = torch.func.vmap(one, in_dims=(0, None, None))
+
+    def eval_fn(stacked_params, x, y):
+        if isinstance(stacked_params, FlatParams):
+            stacked_params = stacked_params.views()
+        with torch.no_grad():
+            return per_peer(stacked_params, x, y)
+
+    return eval_fn

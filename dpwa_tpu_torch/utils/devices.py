@@ -1,0 +1,24 @@
+"""Device selection: the port runs on the card unless told otherwise."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a :class:`torch.device`; None means the CUDA card.
+
+    With no card and no explicit device this raises: a run that asked for
+    nothing must not carry on on the CPU and report CPU numbers as the
+    card's.  Pass ``device="cpu"`` to run on the CPU on purpose."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "port on the CPU explicitly"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device

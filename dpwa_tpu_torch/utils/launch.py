@@ -1,0 +1,85 @@
+"""Transport selection for the examples (the port of
+:mod:`dpwa_tpu.utils.launch`).
+
+Only the ``stacked`` transport is ported: every peer on ONE device as a
+stacked leading axis.  ``ici`` (one device per peer) and ``tcp`` (one
+process per peer) raise until their ports land.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import NamedTuple, Optional
+
+
+class TransportBundle(NamedTuple):
+    transport: object
+    init_state: object  # (stacked_params, opt, transport, ...) -> state
+    make_step: object  # (loss_fn, opt, transport, ...) -> step_fn
+    config: object  # the EFFECTIVE config (overrides applied)
+    device: object  # the torch.device everything lives on
+
+
+def add_transport_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument(
+        "--transport", choices=("stacked",), default="stacked",
+        help="'stacked': all peers on ONE device as a stacked axis (the "
+        "only transport ported so far)",
+    )
+    ap.add_argument(
+        "--device", default=None,
+        help="torch device (default: the CUDA card; 'cpu' runs the plain "
+        "merges on the CPU on purpose)",
+    )
+    ap.add_argument(
+        "--wire-dtype", default=None, choices=("f32", "bf16"),
+        help="override protocol.wire_dtype (bf16: the partner's replica is "
+        "rounded to bf16, as if shipped at half the bytes)",
+    )
+    ap.add_argument(
+        "--mode", default=None, choices=("pairwise", "pull"),
+        help="override protocol.mode (pull: one-sided pull maps)",
+    )
+
+
+def apply_overrides(cfg, wire_dtype: Optional[str] = None, mode: Optional[str] = None):
+    """``cfg`` with ``protocol.wire_dtype`` / ``protocol.mode`` overridden
+    (None = unchanged); ``dataclasses.replace`` re-runs validation."""
+    changes = {k: v for k, v in (("wire_dtype", wire_dtype), ("mode", mode)) if v is not None}
+    if not changes:
+        return cfg
+    return dataclasses.replace(
+        cfg, protocol=dataclasses.replace(cfg.protocol, **changes)
+    )
+
+
+def build_transport(
+    cfg,
+    transport: str = "stacked",
+    device=None,
+    wire_dtype: Optional[str] = None,
+    mode: Optional[str] = None,
+) -> TransportBundle:
+    """Construct the transport on ``device`` (the CUDA card by default,
+    raising without one); returns a :class:`TransportBundle`."""
+    if transport != "stacked":
+        raise NotImplementedError(
+            f"transport {transport!r} is not ported to dpwa_tpu_torch yet; "
+            "use 'stacked'"
+        )
+    from dpwa_tpu_torch.parallel.stacked import (
+        StackedTransport,
+        init_stacked_state,
+        make_stacked_train_step,
+    )
+
+    cfg = apply_overrides(cfg, wire_dtype, mode)
+    t = StackedTransport(cfg, device=device)
+    return TransportBundle(
+        transport=t,
+        init_state=init_stacked_state,
+        make_step=make_stacked_train_step,
+        config=cfg,
+        device=t.device,
+    )
