@@ -78,19 +78,13 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
-def row_layout(torch, cpu: "torch.Tensor", layout: str, device):
-    """``cpu`` ([n, d]) on the card in one of the row layouts the kernels
-    take: ``padded`` — rows padded to 32 floats, the flat parameter
-    buffer's layout (the main path); ``contiguous`` — packed rows, whose
-    starts are not all 16-byte aligned when d % 4 != 0 (the scalar form);
-    ``offset`` — a column slice starting 3 floats into the padded rows."""
+def padded_rows(torch, cpu: "torch.Tensor", device):
+    """``cpu`` ([n, d]) on the card with its rows padded to 32 floats: the
+    flat parameter buffer's layout, which the main path gives the kernels.
+    The other row layouts the kernels take are in tests/test_torch_card.py."""
     n, d = cpu.shape
-    if layout == "contiguous":
-        return cpu.to(device)
-    lead = 3 if layout == "offset" else 0
-    ld = -(-(d + lead) // 32) * 32
-    buf = torch.zeros(n, ld, dtype=torch.float32, device=device)
-    view = buf[:, lead:lead + d]
+    buf = torch.zeros(n, -(-d // 32) * 32, dtype=torch.float32, device=device)
+    view = buf[:, :d]
     view.copy_(cpu)
     return view
 
@@ -123,19 +117,15 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     for d in (MAIN_D, BIG_D):
         for map_name, perm in maps.items():
             for a_name, a_np in alphas.items():
-                for layout in ("padded",) + (
-                    ("contiguous", "offset") if d == MAIN_D else ()
-                ):
-                    wires = (False, True) if a_name == "random" else (False,)
-                    for wire in wires:
-                        cases.append((d, map_name, perm, a_name, a_np, layout, wire))
+                for wire in (False, True) if a_name == "random" else (False,):
+                    cases.append((d, map_name, perm, a_name, a_np, wire))
     max_err, n_checked = 0.0, 0
     gen = torch.Generator().manual_seed(7)
     base = {d: torch.randn(n, d, generator=gen) for d in (MAIN_D, BIG_D)}
-    for d, map_name, perm, a_name, a_np, layout, wire in cases:
+    for d, map_name, perm, a_name, a_np, wire in cases:
         x_cpu = base[d].clone()
         alpha = torch.from_numpy(a_np)
-        x = row_layout(torch, x_cpu, layout, device)
+        x = padded_rows(torch, x_cpu, device)
         if kind == "b1":
             left, right = merge.involution_pairs(perm, pad_to=n // 2 if map_name == "padded" else None)
             left_t, right_t = torch.from_numpy(left), torch.from_numpy(right)
@@ -157,7 +147,7 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(
                 f"{kind} differs from its plain version: d={d} map={map_name} "
-                f"alpha={a_name} layout={layout} bf16_wire={wire} "
+                f"alpha={a_name} bf16_wire={wire} "
                 f"max_abs_err={err}"
             )
         max_err = max(max_err, err)
@@ -170,7 +160,7 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     a_np = alphas["random"]
     for d in (MAIN_D, BIG_D):
         gen = torch.Generator().manual_seed(11)
-        x = row_layout(torch, torch.randn(n, d, generator=gen), "padded", device)
+        x = padded_rows(torch, torch.randn(n, d, generator=gen), device)
         alpha = torch.from_numpy(a_np).to(device)
         partner64 = torch.from_numpy(perm.astype(np.int64)).to(device)
         y = x[partner64]  # pre-gathered rows for the library yardstick
@@ -257,8 +247,9 @@ def main(argv=None) -> int:
 
     if "card_tests" in phases:
         # The repository's card tests: each kernel against its plain version
-        # in every row layout, and 4-peer ResNet-8 steps on the card against
-        # the same steps on the CPU (the small-input reference).
+        # in the row layouts the main path does not give it (packed rows,
+        # column slices), the wrappers' argument checks, and 4-peer ResNet-8
+        # steps on the card against the same steps on the CPU.
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",

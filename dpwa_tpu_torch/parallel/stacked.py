@@ -83,19 +83,25 @@ def stacked_gossip_exchange(
     interp,
     pool: DevicePool | None = None,
     columns: Columns | None = None,
+    out: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, ExchangeInfo]:
-    """One gossip round over the float32 ``[n, d]`` stacked buffer ``x``,
-    **in place**: returns ``x`` merged, and the round's
-    :class:`ExchangeInfo`.
+    """One gossip round over the float32 ``[n, d]`` stacked buffer ``x``:
+    returns the merged replicas and the round's :class:`ExchangeInfo`.
 
     ``meta`` holds ``[n]`` float32 clocks and losses; ``step`` (an int)
     selects the pool row.  ``columns`` restricts the merge to column ranges
     ``[lo, hi)`` (the others stay bit-identical); None merges every column.
     ``pool`` is the schedule's :class:`DevicePool` on ``x``'s device (built
-    here when not given).  A pull round merges out of place (B2) and copies
-    the result back into ``x``."""
+    here when not given).
+
+    A pairwise round merges ``x`` in place (B1) and returns it.  A pull
+    round merges out of place (B2): into ``out`` (``[n, d]``, not sharing
+    ``x``'s storage), which it returns with ``x`` left as it was; without
+    ``out``, or under ``columns``, it copies the result back into ``x``."""
     if pool is None:
         pool = DevicePool(schedule, x.device)
+    if out is not None and (schedule.mode != "pull" or columns is not None):
+        raise ValueError("out is only for a pull round over every column")
     branch = schedule.branch(step)
     partner = pool.partner[branch]
     remote = PeerMeta(meta.clock[partner], meta.loss[partner])
@@ -103,6 +109,9 @@ def stacked_gossip_exchange(
     alpha = torch.where(participated, interp(meta, remote), 0.0)
     alpha = alpha.to(torch.float32).contiguous()
     wire_bf16 = schedule.wire_dtype == "bf16"
+    info = ExchangeInfo(partner, alpha, participated)
+    if out is not None:
+        return gather_merge(x, partner, alpha, wire_bf16=wire_bf16, out=out), info
     ranges = [(0, x.shape[1])] if columns is None else columns
     for lo, hi in ranges:
         part = x[:, lo:hi]
@@ -113,7 +122,7 @@ def stacked_gossip_exchange(
                 part, pool.left[branch], pool.right[branch], alpha,
                 wire_bf16=wire_bf16,
             )
-    return x, ExchangeInfo(partner, alpha, participated)
+    return x, info
 
 
 class StackedTransport:
@@ -146,6 +155,22 @@ class StackedTransport:
             x, meta, int(step), schedule=self.schedule, interp=self.interp,
             pool=self.pool, columns=columns,
         )
+
+    def exchange_params(
+        self, params: FlatParams, meta: PeerMeta, step: int,
+        columns: Columns | None = None,
+    ) -> ExchangeInfo:
+        """One gossip round over a :class:`FlatParams` holder, in place.  A
+        pull round over every column writes B2's result into the holder's
+        spare buffer and swaps it in, so it neither allocates nor copies."""
+        if self.schedule.mode == "pull" and columns is None:
+            _, info = stacked_gossip_exchange(
+                params.flat, meta, int(step), schedule=self.schedule,
+                interp=self.interp, pool=self.pool, out=params.spare_flat(),
+            )
+            params.swap()
+            return info
+        return self.exchange(params.flat, meta, step, columns)[1]
 
 
 @dataclasses.dataclass
@@ -243,14 +268,14 @@ def make_stacked_train_step(
         clock = state.clock + 1.0
         if overlap:
             prev = state.loss if state.loss is not None else torch.zeros_like(clock)
-            _, info = transport.exchange(
-                params.flat, PeerMeta(clock, prev), state.step, columns
+            info = transport.exchange_params(
+                params, PeerMeta(clock, prev), state.step, columns
             )
             params.buffer.add_(updates)
         else:
             params.buffer.add_(updates)
-            _, info = transport.exchange(
-                params.flat, PeerMeta(clock, losses), state.step, columns
+            info = transport.exchange_params(
+                params, PeerMeta(clock, losses), state.step, columns
             )
         state.clock, state.step, state.loss = clock, state.step + 1, losses
         return state, losses, info

@@ -69,6 +69,7 @@ class FlatParams:
         self.size = start
         self.ld = -(-max(start, 1) // ROW_ALIGN) * ROW_ALIGN
         self.buffer = torch.zeros(self.n_peers, self.ld, dtype=dtype, device=device)
+        self._spare: torch.Tensor | None = None
 
     @classmethod
     def stack(cls, tensors: Mapping[str, torch.Tensor], *, device=None) -> "FlatParams":
@@ -90,6 +91,22 @@ class FlatParams:
     def flat(self) -> torch.Tensor:
         """The ``[n, P]`` parameter matrix (a view of the padded buffer)."""
         return self.buffer[:, : self.size]
+
+    def spare_flat(self) -> torch.Tensor:
+        """The ``[n, P]`` view of a second buffer laid out like this one
+        (allocated at the first call), for an out-of-place pass over
+        :attr:`flat` whose result :meth:`swap` then makes the parameters."""
+        if self._spare is None:
+            self._spare = torch.zeros_like(self.buffer)
+        return self._spare[:, : self.size]
+
+    def swap(self) -> None:
+        """Exchange the parameter buffer and the spare one: what was written
+        into :meth:`spare_flat` becomes :attr:`flat`, with no copy.  Views
+        taken before the swap keep pointing at the old buffer."""
+        if self._spare is None:
+            raise RuntimeError("swap() before spare_flat()")
+        self.buffer, self._spare = self._spare, self.buffer
 
     def views(self) -> Dict[str, torch.Tensor]:
         """``{name: [n, *shape]}`` views into the buffer, in leaf order."""

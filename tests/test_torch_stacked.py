@@ -83,6 +83,25 @@ def test_exchange_columns_leave_the_rest_bit_identical():
     changed = (x != before).any(dim=0)
     assert changed[10:20].all() and changed[50]
     assert not changed[:10].any() and not changed[20:50].any() and not changed[51:].any()
+    with pytest.raises(ValueError, match="pull round"):
+        stacked.stacked_gossip_exchange(
+            x, meta, 0, schedule=t.schedule, interp=t.interp, out=torch.empty_like(x)
+        )
+
+
+def test_pull_exchange_into_out_leaves_x_and_matches_copy_back():
+    cfg = make_local_config(4, schedule="ring", mode="pull", factor=0.3)
+    t = stacked.StackedTransport(cfg, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 100)).astype(np.float32))
+    before = x.clone()
+    meta = PeerMeta(torch.ones(4), torch.ones(4))
+    out = torch.empty_like(x)
+    merged, _ = stacked.stacked_gossip_exchange(
+        x, meta, 1, schedule=t.schedule, interp=t.interp, out=out
+    )
+    assert merged is out and torch.equal(x, before)
+    copied, _ = t.exchange(x, meta, 1)
+    assert copied is x and torch.equal(x, out)
 
 
 def _resnet8_case(n=4, b=4, hw=16, steps=3, seed=0):
@@ -99,16 +118,21 @@ def _resnet8_case(n=4, b=4, hw=16, steps=3, seed=0):
     return model, ref_params, batches
 
 
-@pytest.mark.parametrize("variant", ["plain", "overlap", "exchange_filter"])
+@pytest.mark.parametrize(
+    "variant", ["plain", "overlap", "exchange_filter", "pull", "pull_overlap"]
+)
 def test_train_step_matches_reference(variant):
     n = 4
     ref_model, ref_params, batches = _resnet8_case(n)
-    overlap = variant == "overlap"
+    overlap = variant.endswith("overlap")
+    mode = "pull" if variant.startswith("pull") else "pairwise"
     ref_filter = port_filter = None
     if variant == "exchange_filter":
         ref_filter = lambda p: p.startswith("params/BasicBlock_0/") or "/Dense_0/" in p
         port_filter = lambda name: name.startswith("BasicBlock_0.") or "Dense_0." in name
-    ref_cfg, cfg = _both_configs(n, schedule="ring", interpolation="loss", factor=0.9)
+    ref_cfg, cfg = _both_configs(
+        n, schedule="ring", mode=mode, interpolation="loss", factor=0.9
+    )
 
     ref_t = ref_stacked.StackedTransport(ref_cfg)
     ref_opt = optax.sgd(0.1, momentum=0.9)
@@ -152,7 +176,8 @@ def test_train_step_matches_reference(variant):
     jax.tree.map(
         lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6), got, want
     )
-    assert merge.pair_merge_.launches == 0  # CPU tensors take the plain version
+    # CPU tensors take the plain versions
+    assert merge.pair_merge_.launches == 0 and merge.gather_merge.launches == 0
 
 
 def test_init_state_and_step_guards():

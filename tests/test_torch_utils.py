@@ -91,6 +91,20 @@ def test_flat_params_views_layout_and_ranges():
         pytree.FlatParams(["b", "a"], [(1,), (1,)], 1)
 
 
+def test_flat_params_swap_adopts_the_spare_buffer():
+    flat = pytree.FlatParams.stack({k: v.float() for k, v in _tree().items()})
+    with pytest.raises(RuntimeError, match="spare"):
+        flat.swap()
+    old = flat.buffer
+    spare = flat.spare_flat()
+    assert spare.shape == flat.flat.shape and spare.stride() == flat.flat.stride()
+    spare.copy_(flat.flat * 2.0)
+    flat.swap()
+    assert torch.equal(flat.views()["b.kernel"], 2.0 * _tree()["b.kernel"])
+    assert torch.equal(flat.buffer[:, flat.size:], torch.zeros(1, 14))  # pads stay 0
+    assert flat.spare_flat().data_ptr() == old.data_ptr()  # the old buffer is the spare
+
+
 def test_partition_combine_and_wire_bytes_match_reference():
     tree = {k: v[0] for k, v in _tree().items()}
     jtree = {k: jnp.asarray(v.numpy()) for k, v in tree.items()}
