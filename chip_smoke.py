@@ -6,21 +6,31 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``dpwa_tpu_torch/ops/csrc`` (set-up
-time), holds each kernel bit for bit against its plain PyTorch version on a
-CPU copy of the same inputs at the main path's shapes, times each on the
-card, runs the card tests, then drives the main path —
-``dpwa_tpu_torch.examples.cifar10``: 8 peers, ResNet-20 at full width, ring
-gossip on the CIFAR-10 fixture — pairwise (B1), in pull mode (B2) and once
-more under the profiler, and checks that every exchange went through the
-kernels.  One JSON line per
-phase; the kernel table and the card's name and power limit come on the
-lines before the last, and the last line is the result.  Any failed phase
-exits nonzero without a result line, as does a machine without a CUDA card.
+time, one ``nvcc`` per source, all started together), holds the merge
+kernels bit for bit against their plain PyTorch versions on a CPU copy of
+the same inputs and the flash-attention kernels against theirs on the card
+within a stated tolerance, at the main paths' shapes, times each on the
+card, and runs the card tests.  Then it drives the two main paths and
+checks that they went through the kernels:
+
+- ``dpwa_tpu_torch.examples.cifar10``: 8 peers, ResNet-20 at full width,
+  ring gossip on the CIFAR-10 fixture — pairwise (B1), in pull mode (B2)
+  and once more under the profiler;
+- ``dpwa_tpu_torch.examples.llama_lora``: 4 peers at Llama-3-8B width with
+  the depth cut to 2 layers, LoRA rank 8, T = 2048, the random schedule,
+  Adam, the LoRA-only exchange (B1) and flash attention (B5) — once timed
+  and once under the profiler.
+
+One JSON line per phase; the kernel table and the card's name and power
+limit come on the lines before the last, and the last line is the result.
+Any failed phase exits nonzero without a result line, as does a machine
+without a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -36,7 +46,20 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAIN_D = 272474  # ResNet-20's parameters per peer: the main path's row
 BIG_D = 24 * 2**20  # bench.py's default exchange size
 N_PEERS = 8
-ALL_PHASES = ("b1", "b2", "card_tests", "train", "train_pull", "profile")
+ALL_PHASES = (
+    "b1", "b2", "b5", "card_tests", "train", "train_pull", "profile",
+    "train_llama", "profile_llama",
+)
+# The Llama path: 4 peers of Llama-3-8B width, 2 layers, batch 1, T 2048.
+LLAMA_PEERS, LLAMA_LAYERS, LLAMA_T, LLAMA_STEPS = 4, 2, 2048, 6
+# B5 at the path's shapes ([n·B, T, H, D] q, [n·B, T, KV, D] k and v) and
+# two more: non-causal, and a shorter T with full (ungrouped) k and v.
+B5_CASES = (
+    ("main", 4, 2048, 32, 8, True),
+    ("non_causal", 4, 2048, 32, 8, False),
+    ("short_full_kv", 4, 384, 32, 32, True),
+)
+B5_TOL = {"fwd": 1e-5, "bwd": 1e-4}  # normwise: max|Δ| / max(1, max|plain|)
 
 
 def emit(obj) -> None:
@@ -80,7 +103,7 @@ def time_ms(torch, fn, iters: int, flush) -> float:
 
 def padded_rows(torch, cpu: "torch.Tensor", device):
     """``cpu`` ([n, d]) on the card with its rows padded to 32 floats: the
-    flat parameter buffer's layout, which the main path gives the kernels.
+    flat parameter buffer's layout, which the ResNet path gives the kernels.
     The other row layouts the kernels take are in tests/test_torch_card.py."""
     n, d = cpu.shape
     buf = torch.zeros(n, -(-d // 32) * 32, dtype=torch.float32, device=device)
@@ -89,9 +112,69 @@ def padded_rows(torch, cpu: "torch.Tensor", device):
     return view
 
 
+def llama_config():
+    """The Llama path's model: Llama-3-8B width, LoRA rank 8, depth cut."""
+    from dpwa_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.llama3_8b_config(lora_rank=8), n_layers=LLAMA_LAYERS)
+
+
+def llama_lora_layout() -> tuple[int, int]:
+    """(row stride, LoRA width) of the Llama path's flat buffer: its rows
+    hold the whole model (about 1.49e9 floats) with the LoRA leaves placed
+    first, in one column range of that width, which B1 merges."""
+    from dpwa_tpu_torch.models import llama
+    from dpwa_tpu_torch.utils.pytree import ROW_ALIGN
+
+    shapes = llama.param_shapes(llama.Llama(llama_config()))
+    size = sum(math.prod(shape) for shape in shapes.values())
+    width = sum(math.prod(shape) for name, shape in shapes.items() if llama.lora_filter(name))
+    return -(-size // ROW_ALIGN) * ROW_ALIGN, width
+
+
+def llama_lora_rows(torch, cpu: "torch.Tensor", device):
+    """``cpu`` ([LLAMA_PEERS, width]) on the card as the Llama path gives it
+    to B1: the LoRA column range of its flat buffer.  Only the storage up to
+    the last row's slice is allocated (18 GB)."""
+    ld, width = llama_lora_layout()
+    if tuple(cpu.shape) != (LLAMA_PEERS, width):
+        raise ValueError(f"llama_lora_rows: {tuple(cpu.shape)} is not [{LLAMA_PEERS}, {width}]")
+    view = torch.empty_strided(cpu.shape, (ld, 1), dtype=torch.float32, device=device)
+    view.copy_(cpu)
+    return view
+
+
+def sat_out_rows(perm) -> list[int]:
+    """The rows that sit the round out: the fixed points of ``perm``."""
+    return [i for i, p in enumerate(perm) if p == i]
+
+
+def poison(x: "torch.Tensor", rows) -> None:
+    """Put inf, -inf, NaN, -0.0 and 3e38 at both ends of ``rows``."""
+    bad = x.new_tensor([math.inf, -math.inf, math.nan, -0.0, 3.0e38])
+    for i in rows:
+        x[i, :5] = bad
+        x[i, -5:] = bad
+
+
+def nan_equal(torch, got, want) -> tuple[bool, float]:
+    """(equal, max_abs_err): every element has the same bits, or both are
+    NaN (the card and the CPU make NaNs with different payloads)."""
+    both_nan = got.isnan() & want.isnan()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | both_nan
+    diff = (got - want).abs()
+    diff[both_nan | (got == want)] = 0.0
+    return bool(same.all()), float(diff.max())
+
+
 def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     """B1 (kind "b1") or B2 (kind "b2"): bit-equality against the plain
-    version on CPU copies, then times at both sizes."""
+    version on CPU copies, then times.  B2 and B1 at the ResNet path's
+    padded ``[8, 272474]`` rows and at ``[8, 24·2^20]``; B1 also at the
+    Llama path's ``[4, 1310720]`` LoRA column slice.  B1 runs as both main
+    paths run it, with ``self_pairs``: a row that sits the round out gets
+    α = 0 and is merged with itself, which must turn the inf and NaN put
+    into it here into NaN (``1·x + 0·x``, as the reference computes it)."""
     import numpy as np
 
     from dpwa_tpu_torch.parallel import schedules
@@ -102,38 +185,56 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
         maps = {
             "ring_even": schedules._ring_even(n),
             "ring_odd": schedules._ring_odd(n),
-            "padded": np.array([1, 0, 2, 3, 5, 4, 6, 7]),
+            "sat_out": np.array([1, 0, 2, 3, 5, 4, 6, 7]),
         }
+        layouts = {MAIN_D: padded_rows, BIG_D: padded_rows}
+        llama_maps = {"full": np.array([1, 0, 3, 2]), "sat_out": np.array([1, 0, 2, 3])}
     else:
         maps = {
             "pull_plus": schedules._ring_pull(n, 0),
             "pull_minus": schedules._ring_pull(n, 1),
         }
+        layouts = {MAIN_D: padded_rows, BIG_D: padded_rows}
+        llama_maps = {}
     alphas = {
         "0.5": np.full(n, 0.5, np.float32),
         "random": rng.uniform(0.0, 1.0, n).astype(np.float32),
     }
     cases = []
-    for d in (MAIN_D, BIG_D):
+    for d in layouts:
         for map_name, perm in maps.items():
             for a_name, a_np in alphas.items():
                 for wire in (False, True) if a_name == "random" else (False,):
-                    cases.append((d, map_name, perm, a_name, a_np, wire))
+                    cases.append((n, d, layouts[d], map_name, perm, a_name, a_np, wire))
+    if llama_maps:
+        lora_w = llama_lora_layout()[1]
+        a_np = alphas["random"][:LLAMA_PEERS]
+        for map_name, perm in llama_maps.items():
+            for wire in (False, True):
+                cases.append((LLAMA_PEERS, lora_w, llama_lora_rows, map_name, perm,
+                              "random", a_np, wire))
     max_err, n_checked = 0.0, 0
     gen = torch.Generator().manual_seed(7)
-    base = {d: torch.randn(n, d, generator=gen) for d in (MAIN_D, BIG_D)}
-    for d, map_name, perm, a_name, a_np, wire in cases:
-        x_cpu = base[d].clone()
-        alpha = torch.from_numpy(a_np)
-        x = padded_rows(torch, x_cpu, device)
+    base = {}
+    for rows, d, layout, map_name, perm, a_name, a_np, wire in cases:
+        if (rows, d) not in base:
+            base[rows, d] = torch.randn(rows, d, generator=gen)
+        x_cpu = base[rows, d].clone()
+        alpha = torch.from_numpy(a_np.copy())
+        sat_out = sat_out_rows(perm) if kind == "b1" else []
+        alpha[sat_out] = 0.0  # the exchange's α for a peer that sits out
+        poison(x_cpu, sat_out)
+        x = layout(torch, x_cpu, device)
         if kind == "b1":
-            left, right = merge.involution_pairs(perm, pad_to=n // 2 if map_name == "padded" else None)
+            left, right = merge.involution_pairs(perm, self_pairs=True)
             left_t, right_t = torch.from_numpy(left), torch.from_numpy(right)
             merge.pair_merge_(
                 x, left_t.to(device), right_t.to(device), alpha.to(device),
-                wire_bf16=wire,
+                wire_bf16=wire, self_pairs=True,
             )
-            want = merge.torch_pair_merge_(x_cpu, left_t, right_t, alpha, wire_bf16=wire)
+            want = merge.torch_pair_merge_(
+                x_cpu, left_t, right_t, alpha, wire_bf16=wire, self_pairs=True
+            )
             got = x
         else:
             partner = torch.from_numpy(perm.astype(np.int32))
@@ -143,56 +244,138 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
             want = merge.torch_pairwise_merge(x_cpu, partner, alpha, wire_bf16=wire)
         torch.cuda.synchronize()
         got = got.cpu()
-        err = (got - want).abs().max().item()
-        if not torch.equal(got, want):
+        del x
+        same, err = nan_equal(torch, got, want)
+        if not same:
             raise AssertionError(
-                f"{kind} differs from its plain version: d={d} map={map_name} "
-                f"alpha={a_name} bf16_wire={wire} "
-                f"max_abs_err={err}"
+                f"{kind} differs from its plain version: shape=[{rows}, {d}] "
+                f"map={map_name} alpha={a_name} bf16_wire={wire} max_abs_err={err}"
             )
+        if sat_out and not bool(got[sat_out][:, :3].isnan().all()):
+            raise AssertionError(f"b1 [{rows}, {d}]: a sat-out inf did not become NaN")
         max_err = max(max_err, err)
         n_checked += 1
     del base
+    torch.cuda.empty_cache()
 
     timings = {}
     map_name = next(iter(maps))
-    perm = maps[map_name]
-    a_np = alphas["random"]
-    for d in (MAIN_D, BIG_D):
+    timed = [(n, d, layouts[d], maps[map_name]) for d in layouts]
+    if llama_maps:
+        timed.append((LLAMA_PEERS, lora_w, llama_lora_rows, llama_maps["full"]))
+    for rows, d, layout, perm in timed:
         gen = torch.Generator().manual_seed(11)
-        x = padded_rows(torch, torch.randn(n, d, generator=gen), device)
-        alpha = torch.from_numpy(a_np).to(device)
+        x = layout(torch, torch.randn(rows, d, generator=gen), device)
+        alpha = torch.from_numpy(alphas["random"][:rows]).to(device)
         partner64 = torch.from_numpy(perm.astype(np.int64)).to(device)
         y = x[partner64]  # pre-gathered rows for the library yardstick
         lib_out = torch.empty_like(y)
         if kind == "b1":
-            left, right = (torch.from_numpy(v).to(device) for v in merge.involution_pairs(perm))
-            rows = 2 * int((left != right).sum())
-            kernel = lambda: merge.pair_merge_(x, left, right, alpha)
-            plain = lambda: merge.torch_pair_merge_(x, left, right, alpha)
-            n_bytes = 2 * rows * d * 4
-            flops = 3 * rows * d
+            left, right = (
+                torch.from_numpy(v).to(device)
+                for v in merge.involution_pairs(perm, self_pairs=True)
+            )
+            touched = int(torch.unique(torch.cat([left, right])).numel())
+            kernel = lambda: merge.pair_merge_(x, left, right, alpha, self_pairs=True)
+            plain = lambda: merge.torch_pair_merge_(x, left, right, alpha, self_pairs=True)
+            n_bytes = 2 * touched * d * 4
+            flops = 3 * touched * d
         else:
             partner = partner64.to(torch.int32)
             out = merge.gather_merge(x, partner, alpha)
             kernel = lambda: merge.gather_merge(x, partner, alpha, out=out)
             plain = lambda: merge.torch_pairwise_merge(x, partner, alpha)
-            n_bytes = 2 * n * d * 4  # x read once, out written once
-            flops = 3 * n * d
+            n_bytes = 2 * rows * d * 4  # x read once, out written once
+            flops = 3 * rows * d
         library = lambda: torch.lerp(x, y, alpha[:, None], out=lib_out)
-        iters = 30 if d == MAIN_D else 10
+        iters = 10 if d == BIG_D else 30
         ms = time_ms(torch, kernel, iters, flush)
         plain_ms = time_ms(torch, plain, iters, flush)
         library_ms = time_ms(torch, library, iters, flush)
         b_ms, b_by = bound_ms(n_bytes, flops)
-        timings[d] = {
+        key = "llama" if layout is llama_lora_rows else d
+        timings[key] = {
+            "shape": [rows, d], "row_stride": x.stride(0),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
             "gb_per_s": n_bytes / (ms * 1e-3) / 1e9,
         }
         del x, y, lib_out
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"cases": n_checked, "max_abs_err": max_err, "timings": timings}
+
+
+def flash_checks(torch, fa, device, flush) -> dict:
+    """B5: forward (o, lse) and backward (dq, dk, dv) against the plain
+    versions on the same card tensors (TF32 off), then times at the main
+    path's shape: the kernels, the plain versions, and SDPA's forward and
+    backward on the same values (k and v pre-expanded to every head, in
+    SDPA's [B, H, T, D] layout) as the library yardstick."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases, timings = {}, {}
+    for name, b, t, h, kv, causal in B5_CASES:
+        q, do = (torch.randn(b, t, h, 128, device=device, generator=gen) for _ in range(2))
+        k, v = (torch.randn(b, t, kv, 128, device=device, generator=gen) for _ in range(2))
+        o, lse = fa.flash_attn_fwd(q, k, v, causal=causal)
+        grads = fa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = fa.torch_flash_attn_fwd(q, k, v, causal=causal)
+        want = dict(zip(("dq", "dk", "dv"), fa.torch_flash_attn_bwd(
+            q, k, v, want_o, want_lse, do, causal=causal)))
+        got = {"o": o, "lse": lse, **dict(zip(("dq", "dk", "dv"), grads))}
+        want.update(o=want_o, lse=want_lse)
+        errs = {}
+        for key in got:
+            diff = (got[key] - want[key]).abs().max().item()
+            scale = max(1.0, want[key].abs().max().item())
+            errs[key] = {"max_abs_err": diff, "normwise": diff / scale}
+            tol = B5_TOL["fwd" if key in ("o", "lse") else "bwd"]
+            if not diff / scale <= tol:
+                raise AssertionError(
+                    f"b5 {name}: {key} normwise error {diff / scale} > {tol} "
+                    f"(max_abs_err {diff})"
+                )
+        cases[name] = {"shape_q": [b, t, h, 128], "kv_heads": kv, "causal": causal, "errors": errs}
+        del want, want_o, want_lse, grads
+        if name == "main":
+            ke, ve = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
+            qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, ke, ve))
+            dos = do.transpose(1, 2).contiguous()
+
+            def sdpa():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+            sdpa_bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+            plain_o, plain_lse = fa.torch_flash_attn_fwd(q, k, v, causal=causal)
+            flops = 2 * b * h * t * t * 128  # causal: QKᵀ and PV over half the square
+            qb, kvb = b * t * h * 128 * 4, b * t * kv * 128 * 4
+            lse_b = b * h * t * 4
+            for kind, kernel, plain, library, fl, nb in (
+                ("fwd", lambda: fa.flash_attn_fwd(q, k, v, causal=causal),
+                 lambda: fa.torch_flash_attn_fwd(q, k, v, causal=causal), sdpa,
+                 flops, 2 * qb + 2 * kvb + lse_b),
+                ("bwd", lambda: fa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal),
+                 lambda: fa.torch_flash_attn_bwd(q, k, v, plain_o, plain_lse, do, causal=causal),
+                 sdpa_bwd, 2.5 * flops, 4 * qb + 4 * kvb + lse_b),
+            ):
+                ms = time_ms(torch, kernel, 10, flush)
+                b_ms, b_by = bound_ms(nb, fl)
+                timings[kind] = {
+                    "ms": ms, "plain_ms": time_ms(torch, plain, 3, flush),
+                    "library_ms": time_ms(torch, library, 10, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "flops": fl, "bytes": nb,
+                    "tflops_per_s": fl / (ms * 1e-3) / 1e12,
+                }
+            del qs, ks, vs, dos, out, ke, ve, plain_o, plain_lse
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    max_err = max(e["max_abs_err"] for c in cases.values() for e in c["errors"].values())
+    return {"cases": cases, "max_abs_err": max_err, "tolerance": B5_TOL, "timings": timings}
 
 
 def main(argv=None) -> int:
@@ -213,6 +396,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
     from dpwa_tpu_torch.ops import _build, merge
+    from dpwa_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,6 +426,10 @@ def main(argv=None) -> int:
         res = kernel_checks(torch, merge, device, flush, kind_name)
         results[kind_name] = res
         emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **res})
+    if "b5" in phases:
+        t0 = time.perf_counter()
+        results["b5"] = flash_checks(torch, fa, device, flush)
+        emit({"phase": "b5", "seconds": time.perf_counter() - t0, **results["b5"]})
     del flush
     torch.cuda.empty_cache()
 
@@ -310,6 +498,58 @@ def main(argv=None) -> int:
             "profile": res["profile"],
         })
 
+    from dpwa_tpu_torch.examples import llama_lora
+
+    for phase, steps, profile in (
+        ("train_llama", LLAMA_STEPS, False),
+        # The Llama path again under torch.profiler: where its device time
+        # goes, and how much of the wall time the card idles.
+        ("profile_llama", 4, True),
+    ):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        mcfg = llama_config()
+        merge.reset_launch_counts()  # count the main path's launches only
+        fa.reset_launch_counts()
+        res = llama_lora.run(
+            mcfg, peers=LLAMA_PEERS, steps=steps, batch_size=1, seq_len=LLAMA_T,
+            lr=1e-3, log_every=1, profile=profile,
+        )
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+            "flash_attn_fwd": fa.flash_attn_fwd.launches,
+            "flash_attn_bwd": fa.flash_attn_bwd.launches,
+        }
+        torch.cuda.empty_cache()
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        if res["device"] != kind or res["final_step"] != steps:
+            raise AssertionError(f"{phase}: ran on {res['device']} for {res['final_step']} steps")
+        want = {
+            "pair_merge_": res["lora_column_ranges"] * steps, "gather_merge": 0,
+            "flash_attn_fwd": LLAMA_LAYERS * steps, "flash_attn_bwd": LLAMA_LAYERS * steps,
+        }
+        if launches != want:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}, expected {want}")
+        if not res["frozen_unchanged"]:
+            raise AssertionError(f"{phase}: a frozen base weight changed")
+        main_launches[phase] = launches
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "n_peers": LLAMA_PEERS, "n_layers": LLAMA_LAYERS, "seq_len": LLAMA_T,
+            "steps_per_sec": res["steps_per_sec"], "losses": losses,
+            "launches": launches, "lora_column_ranges": res["lora_column_ranges"],
+            "flat_layout": "LoRA leaves grouped in the leading columns",
+            "payload_bytes": res["payload_bytes"],
+            "model_bytes_per_peer": res["model_bytes_per_peer"],
+            "frozen_unchanged": res["frozen_unchanged"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "init_peak_mem_bytes": res["init_peak_mem_bytes"], "profile": res["profile"],
+        })
+
     kernels = []
     for kind_name, name, phase, replaces in (
         ("b1", "pair_merge_", "train", "dpwa_tpu/ops/merge.py:342"),
@@ -323,11 +563,29 @@ def main(argv=None) -> int:
             "source": "dpwa_tpu_torch/ops/csrc/merge.cu", "replaces": replaces,
             "launches": main_launches.get(phase, {}).get(name),
             "launches_phase": phase,
+            "launches_llama": main_launches.get("train_llama", {}).get(name),
             "max_abs_err": results[kind_name]["max_abs_err"],
             "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
             "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
             "library_ms": at_main["library_ms"], "at_shape": [N_PEERS, MAIN_D],
+            # B1 at the Llama path's LoRA column slice (1 launch per step there)
+            "at_llama": results[kind_name]["timings"].get("llama"),
         })
+    if "b5" in results:
+        for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):
+            at_main = results["b5"]["timings"][kind_name]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "dpwa_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": "dpwa_tpu/ops/ulysses.py:115",
+                "launches": main_launches.get("train_llama", {}).get(name),
+                "launches_phase": "train_llama",
+                "max_abs_err": results["b5"]["max_abs_err"],
+                "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
+                "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+                "library_ms": at_main["library_ms"],
+                "at_shape": [*B5_CASES[0][1:4], 128], "kv_heads": B5_CASES[0][4],
+            })
     emit({"kernels": kernels})
     print(name_limit, flush=True)
     emit({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Carry ResNet parameters between the Flax layout and the port's.
+"""Carry parameters between the Flax models and the port's.
 
-Flax keeps a conv kernel as HWIO and a Dense kernel as ``[in, out]``; the
+ResNet (:func:`flax_to_torch`, :func:`torch_to_flax`): Flax keeps a conv kernel as HWIO and a Dense kernel as ``[in, out]``; the
 port's modules (:mod:`dpwa_tpu_torch.models.resnet`) keep OIHW and
 ``[out, in]``.  Names map one to one: the Flax key path
 ``params/BasicBlock_0/Conv_0/kernel`` is the port's
@@ -8,6 +8,11 @@ port's modules (:mod:`dpwa_tpu_torch.models.resnet`) keep OIHW and
 tests can hand the same parameters to both packages and compare the
 updated ones.  A leading peer axis (``stacked=True``) rides along
 untouched.
+
+Llama (:func:`flax_llama_to_torch`, :func:`torch_llama_to_flax`): the port
+keeps Flax's layouts (kernels ``[in, out]``, the embedding ``[vocab, d]``),
+so only the names change, ``params/layer_0/attn/wq/lora_a`` ↔
+``layer_0.attn.wq.lora_a``, with or without a leading peer axis.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping
 
 import numpy as np
+
+from dpwa_tpu_torch.utils.pytree import leaf_order
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> Dict[tuple, Any]:
@@ -60,4 +67,26 @@ def torch_to_flax(named: Mapping[str, Any], *, stacked: bool = False) -> Dict[st
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = _carry(name, value, lead, _TO_FLAX)
+    return {"params": params}
+
+
+def flax_llama_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax Llama variables (``{"params": {...}}`` or the params dict) →
+    ``{port name: array}`` (writable copies) in the reference's leaf order,
+    ``embed.embedding``, ``final_norm.scale``, ``layer_0.…``,
+    ``lm_head.kernel``."""
+    params = variables.get("params", variables)
+    named = {".".join(path): value for path, value in _flatten(params).items()}
+    return {name: np.array(named[name], order="C") for name in leaf_order(named)}
+
+
+def torch_llama_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{port name: array}`` → Flax Llama variables ``{"params": {...}}``."""
+    params: Dict[str, Any] = {}
+    for name in leaf_order(named):
+        node = params
+        *parents, leaf = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.array(named[name], order="C")
     return {"params": params}

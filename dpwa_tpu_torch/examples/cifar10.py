@@ -71,51 +71,6 @@ def synthetic_cifar(n_train=4096, n_test=512, seed=0):
     return x_tr, y_tr, x_te, y_te
 
 
-def _tracer(device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities)
-
-
-def _breakdown(prof, wall_s: float, steps: int, top: int = 8) -> dict:
-    """Per-step device time from a profiler trace: busy time (the union of
-    every kernel's and copy's interval on the card), the idle share of the
-    wall window, and the kernels that take the most time."""
-    from torch.autograd import DeviceType
-
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        count, total = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (count + 1, total + e.time_range.elapsed_us())
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    steps = max(steps, 1)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    return {
-        "steps": steps,
-        "wall_ms_per_step": wall_s * 1e3 / steps,
-        "device_busy_ms_per_step": busy_us / 1e3 / steps,
-        "device_idle_share": 1.0 - busy_us / (wall_s * 1e6) if wall_s > 0 else None,
-        "device_ops_per_step": len(spans) / steps,
-        "merge_ms_per_step": sum(
-            t for name, (_, t) in by_name.items() if "merge_kernel" in name
-        ) / 1e3 / steps,
-        "top": [
-            {"name": name[:80], "per_step": count / steps, "ms_per_step": t / 1e3 / steps}
-            for name, (count, t) in ranked[:top]
-        ],
-    }
-
-
 def main(argv=None) -> dict:
     """Train, print the rate and accuracy, and return them with the
     per-step mean losses."""
@@ -149,6 +104,7 @@ def main(argv=None) -> dict:
         make_gossip_eval_fn,
         softmax_cross_entropy_with_integer_labels,
     )
+    from dpwa_tpu_torch.utils import trace
     from dpwa_tpu_torch.utils.pytree import tree_wire_bytes
 
     bundle = build_transport(
@@ -206,7 +162,7 @@ def main(argv=None) -> dict:
     state, losses, _ = step_fn(state, next(batches))
     step_losses = [losses.mean()]
     sync()
-    tracer = _tracer(device) if args.profile else contextlib.nullcontext()
+    tracer = trace.tracer(device) if args.profile else contextlib.nullcontext()
     with tracer:
         t0 = time.perf_counter()
         for _ in range(1, args.steps):
@@ -243,7 +199,7 @@ def main(argv=None) -> dict:
         "accuracy": accs,
         "payload_bytes": payload,
         "final_step": state.step,
-        "profile": _breakdown(tracer, dt, args.steps - 1) if args.profile else None,
+        "profile": trace.breakdown(tracer, dt, args.steps - 1) if args.profile else None,
     }
 
 

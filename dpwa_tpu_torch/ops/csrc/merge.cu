@@ -20,8 +20,12 @@
 //     (entry pallas_pair_merge).  In place over explicit pair lists: for pair
 //     k with rows L = left[k], R = right[k],
 //         x[L] <- lerp(alpha[L], x[L], x[R]),  x[R] <- lerp(alpha[R], x[R], x[L])
-//     both from the pre-merge values.  A pad pair (L == R) is skipped, so a
-//     row that sits the round out stays bit-identical.
+//     both from the pre-merge values.  A pair with L == R is either a pad,
+//     skipped so the row stays bit-identical (merge_self = 0), or a row that
+//     sits the round out, merged with itself at its alpha of 0 as the
+//     reference's stacked exchange merges it: 1*x + 0*x, which turns an inf
+//     into a NaN (merge_self = 1).  Both lanes of a self-pair write the same
+//     value to the same address.
 // B2  dpwa_gather_merge_f32 replaces dpwa_tpu/ops/merge.py::pallas_pairwise_merge.
 //     Out of place: out[i] <- lerp(alpha[i], x[i], x[partner[i]]).
 //
@@ -92,11 +96,11 @@ template <bool kBf16, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 pair_merge_kernel(float* x, int64_t ld, int64_t d, int64_t head,
                   const int* __restrict__ left, const int* __restrict__ right,
-                  const float* __restrict__ alpha) {
+                  const float* __restrict__ alpha, int merge_self) {
   const int k = blockIdx.y;
   const int l = __ldg(left + k);
   const int r = __ldg(right + k);
-  if (l == r) return;  // pad self-pair: exact no-op
+  if (l == r && !merge_self) return;  // pad self-pair: exact no-op
   const float al = __ldg(alpha + l);
   const float ar = __ldg(alpha + r);
   float* xl = x + static_cast<int64_t>(l) * ld;
@@ -186,21 +190,22 @@ dim3 grid_for(int64_t work, int rows) {
 extern "C" {
 
 // B1.  x: [n, ld] float32 rows (the first d columns merge); left/right:
-// int32[n_pairs]; alpha: float32[n].  Returns the cudaError_t of the launch.
+// int32[n_pairs]; alpha: float32[n]; merge_self: whether an L == R pair is
+// merged (1) or skipped as a pad (0).  Returns the cudaError_t of the launch.
 int dpwa_pair_merge_f32(float* x, int64_t ld, int64_t d, const int* left,
                         const int* right, int n_pairs, const float* alpha,
-                        int bf16_wire, void* stream) {
+                        int bf16_wire, int merge_self, void* stream) {
   if (n_pairs <= 0 || d <= 0) return 0;
   const bool vec = ld % 4 == 0;
   const int64_t head = vec ? head_of(x, d) : 0;
   const dim3 grid = grid_for(vec ? (d - head) / 4 + 1 : d, n_pairs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_wire) {
-    if (vec) pair_merge_kernel<true, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
-    else     pair_merge_kernel<true, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+    if (vec) pair_merge_kernel<true, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha, merge_self);
+    else     pair_merge_kernel<true, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha, merge_self);
   } else {
-    if (vec) pair_merge_kernel<false, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
-    else     pair_merge_kernel<false, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha);
+    if (vec) pair_merge_kernel<false, true><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha, merge_self);
+    else     pair_merge_kernel<false, false><<<grid, kThreads, 0, s>>>(x, ld, d, head, left, right, alpha, merge_self);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,17 +35,22 @@ _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y: pairs (B1) or peers (B2)
 
 
 def involution_pairs(
-    partner, *, pad_to: int | None = None
+    partner, *, pad_to: int | None = None, self_pairs: bool = False
 ) -> tuple[np.ndarray, np.ndarray]:
     """Host helper: (left, right) pair row-lists from an involution.
 
     Fixed points (``partner[i] == i`` — peers sitting this round out) are
-    dropped: with the in-place :func:`pair_merge_` an unlisted row is
-    simply left untouched, which is exactly the α=0 self-merge semantics.
-    ``pad_to`` pads the lists to a fixed length by repeating fixed-point
-    rows as no-op self-pairs, so every entry of a schedule pool can share
-    one shape; padding is only ever needed when fixed points exist, so a
-    pad row is always available.
+    dropped by default: with the in-place :func:`pair_merge_` an unlisted
+    row is simply left untouched.  ``pad_to`` pads the lists to a fixed
+    length by repeating fixed-point rows as no-op self-pairs, so every
+    entry of a schedule pool can share one shape; padding is only ever
+    needed when fixed points exist, so a pad row is always available.
+
+    ``self_pairs=True`` lists each fixed point ``i`` as a pair ``(i, i)``
+    after the real pairs instead, for :func:`pair_merge_` with
+    ``self_pairs=True`` to merge it with itself at its α of 0, as the
+    stacked exchange of the reference does (``1·x + 0·x``: an inf becomes
+    NaN).  The lists then cannot be padded.
     """
     p = np.asarray(partner)
     (n,) = p.shape
@@ -53,6 +58,12 @@ def involution_pairs(
         raise ValueError("partner is not an involution")
     left = np.flatnonzero(np.arange(n) < p)
     right = p[left]
+    if self_pairs:
+        if pad_to is not None:
+            raise ValueError("self_pairs lists cannot be padded")
+        fixed = np.flatnonzero(p == np.arange(n))
+        left = np.concatenate([left, fixed])
+        right = np.concatenate([right, fixed])
     if pad_to is not None:
         if len(left) > pad_to:
             raise ValueError(f"{len(left)} pairs cannot pad to {pad_to}")
@@ -103,14 +114,16 @@ def torch_pair_merge_(
     alpha: torch.Tensor,
     *,
     wire_bf16: bool = False,
+    self_pairs: bool = False,
 ) -> torch.Tensor:
     """Plain version of :func:`pair_merge_`: merge rows ``left[k]`` and
     ``right[k]`` of ``x`` (``[n, d]``) in place, both from the pre-merge
-    values.  Pad pairs (``left[k] == right[k]``) leave their row
-    bit-identical.  Returns ``x``."""
+    values.  Pairs ``left[k] == right[k]`` are pads that leave their row
+    bit-identical, or with ``self_pairs`` rows merged with themselves.
+    Returns ``x``."""
     left, right = left.long(), right.long()
     alpha = alpha.to(torch.float32)
-    pad = (left == right)[:, None]
+    pad = ((left == right) & (not self_pairs))[:, None]
     a_l, a_r = alpha[left][:, None], alpha[right][:, None]
     x_l, x_r = x[left], x[right]
     new_l = torch.where(pad, x_l, _lerp(a_l, x_l, x_r, wire_bf16))
@@ -132,7 +145,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("merge.cu")
     lib.dpwa_pair_merge_f32.argtypes = [
-        _VOID, _I64, _I64, _VOID, _VOID, _INT, _VOID, _INT, _VOID,
+        _VOID, _I64, _I64, _VOID, _VOID, _INT, _VOID, _INT, _INT, _VOID,
     ]
     lib.dpwa_pair_merge_f32.restype = _INT
     lib.dpwa_gather_merge_f32.argtypes = [
@@ -197,6 +210,7 @@ def pair_merge_(
     alpha: torch.Tensor,
     *,
     wire_bf16: bool = False,
+    self_pairs: bool = False,
 ) -> torch.Tensor:
     """B1: in-place pair merge over explicit pair lists.
 
@@ -206,8 +220,10 @@ def pair_merge_(
         x[R] ← (1−α[R])·x[R] + α[R]·x[L]
 
     both from the pre-merge values, in float32; ``wire_bf16`` rounds the
-    partner's value to bf16 first.  Rows in neither list, and pad pairs
-    ``L == R``, stay bit-identical.  ``x`` is float32 ``[n, d]`` with
+    partner's value to bf16 first.  Rows in neither list stay
+    bit-identical, and so do pad pairs ``L == R`` — unless ``self_pairs``,
+    which merges such a row with itself (at α = 0, ``1·x + 0·x``: the
+    stacked exchange's sat-out row, where an inf becomes NaN).  ``x`` is float32 ``[n, d]`` with
     contiguous rows (a column slice of a wider buffer is fine); ``left`` and
     ``right`` are int32, ``alpha`` float32 ``[n]``.  The lists must name
     disjoint rows in ``[0, n)`` except for pads: they are device data the
@@ -215,7 +231,9 @@ def pair_merge_(
     pool, built from it) is where they are checked.  Returns ``x``.
     """
     if x.device.type == "cpu":
-        return torch_pair_merge_(x, left, right, alpha, wire_bf16=wire_bf16)
+        return torch_pair_merge_(
+            x, left, right, alpha, wire_bf16=wire_bf16, self_pairs=self_pairs
+        )
     if x.device.type != "cuda":
         raise ValueError(f"pair_merge_: unsupported device {x.device}")
     _check_rows(x, "pair_merge_")
@@ -232,7 +250,7 @@ def pair_merge_(
     with torch.cuda.device(x.device):
         err = lib.dpwa_pair_merge_f32(
             x.data_ptr(), x.stride(0), d, left.data_ptr(), right.data_ptr(),
-            k, alpha.data_ptr(), int(wire_bf16),
+            k, alpha.data_ptr(), int(wire_bf16), int(self_pairs),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _check_launch(lib, "pair_merge_", err)

@@ -5,13 +5,25 @@ examples use, elementwise and per peer, so one call updates every peer's
 replica.  Updates run in place on the optimizer state; the caller adds the
 returned updates to the parameters (``optax.apply_updates``).
 
-Optax Adam (the MNIST example's optimizer) is not ported yet.
+- :func:`sgd` — ``optax.sgd`` (with or without momentum);
+- :func:`adam` — ``optax.adam``;
+- :func:`lora_optimizer` — the reference's ``lora_optimizer``
+  (``optax.multi_transform`` of an optimizer on the LoRA leaves and
+  ``set_to_zero`` on the rest): a :class:`Masked` optimizer whose state and
+  updates cover only the trainable leaves.  The stacked train step takes
+  gradients of those leaves alone, and never adds to the frozen ones, so
+  they stay bit-identical to their initial values.
+
+Every optimizer has a ``trainable`` name predicate, None when every leaf
+trains; the flat buffer places the leaves it selects first.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 
@@ -23,6 +35,7 @@ class SGD:
 
     lr: float
     momentum: float | None = None
+    trainable = None  # every leaf trains (see Masked)
 
     def init(self, params: torch.Tensor) -> torch.Tensor | None:
         """The optimizer state for ``params``: the zero trace, or None."""
@@ -38,3 +51,78 @@ class SGD:
 
 def sgd(lr: float, momentum: float | None = None) -> SGD:
     return SGD(lr, momentum)
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's first and second moments (``[n, P]``) and its step count."""
+
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr)`` with optax's defaults b1 = 0.9, b2 = 0.999,
+    eps = 1e-8 and eps_root = 0: the moments ``m ← (1−b1)·g + b1·m`` and
+    ``v ← (1−b2)·g² + b2·v``, bias-corrected by ``1 − b^t`` in float32 with
+    an int32 count ``t``, and the update ``−lr · m̂ / (√(v̂ + eps_root) +
+    eps)``."""
+
+    lr: float
+    trainable = None  # every leaf trains (see Masked)
+    b1 = 0.9
+    b2 = 0.999
+    eps = 1e-8
+    eps_root = 0.0
+
+    def init(self, params: torch.Tensor) -> AdamState:
+        """Zero moments shaped like ``params`` and a count of 0."""
+        return AdamState(torch.zeros_like(params), torch.zeros_like(params))
+
+    def update_(self, grads: torch.Tensor, state: AdamState) -> torch.Tensor:
+        """Advance ``state`` in place by ``grads``; return the updates."""
+        # optax's ``(1 − b)·g + b·m``, each product rounded (XLA does not
+        # fuse these into one FMA).
+        state.mu.mul_(self.b1).add_(grads * (1.0 - self.b1))
+        state.nu.mul_(self.b2).add_(grads.square().mul_(1.0 - self.b2))
+        state.count = min(state.count + 1, 2**31 - 1)  # optax's safe_increment
+        # optax: ``1 - decay ** count`` with the count cast to float32.
+        t = np.float32(state.count)
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
+        denom = (state.nu / bc2).add_(self.eps_root).sqrt_().add_(self.eps)
+        return (state.mu / bc1).div_(denom).mul_(-self.lr)
+
+
+def adam(lr: float) -> Adam:
+    return Adam(lr)
+
+
+@dataclasses.dataclass(frozen=True)
+class Masked:
+    """An optimizer over the leaves whose name ``trainable`` selects, the
+    rest frozen (``set_to_zero``).  Its state and its updates are ``[n, T]``
+    over the trainable leaves alone, packed in the flat buffer's order
+    (:meth:`~dpwa_tpu_torch.utils.pytree.FlatParams.pack`); the frozen
+    leaves get neither state nor gradients, which is what the reference's
+    exact-zero updates leave them with."""
+
+    base: Any
+    trainable: Callable[[str], bool]
+
+    def init(self, params: torch.Tensor) -> Any:
+        """The base optimizer's state for the packed trainable ``[n, T]``."""
+        return self.base.init(params)
+
+    def update_(self, grads: torch.Tensor, state: Any) -> torch.Tensor:
+        """The base optimizer's update of the packed trainable gradients."""
+        return self.base.update_(grads, state)
+
+
+def lora_optimizer(base_opt, is_lora: Callable[[str], bool]) -> Masked:
+    """The reference's ``lora_optimizer(base_opt, params)``: train the
+    leaves ``is_lora`` selects (``models.llama.lora_filter``) with
+    ``base_opt`` and hard-freeze the rest."""
+    return Masked(base_opt, is_lora)

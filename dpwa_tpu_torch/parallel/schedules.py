@@ -7,12 +7,13 @@ step selects one pool row.  Pairwise pools are involutions (``perm[perm[i]]
 pools are one-sided maps with no self-pulls.  The pool builders are plain
 numpy and give the reference's pools exactly.
 
-Only periodic selection is ported: the row at ``step`` is
-``branch_map[step % period]``.  Everything that needs a counter-based
-threefry draw — the ``random`` schedule's per-step pool draw,
-``fetch_probability < 1``, ``drop_probability > 0`` and the int8 wire's
-stochastic rounding — raises :class:`NotImplementedError` in
-:func:`build_schedule` until the threefry port lands.
+A periodic schedule's row at ``step`` is ``branch_map[step % period]``;
+the ``random`` schedule draws its row i.i.d. per step from the threefry
+stream of :func:`pool_branch_draw` (:mod:`dpwa_tpu_torch.utils.prng`,
+bit-equal to the reference's ``jax.random`` draw).  The other threefry
+draws — ``fetch_probability < 1``, ``drop_probability > 0`` and the int8
+wire's stochastic rounding — raise :class:`NotImplementedError` in
+:func:`build_schedule` until they are ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,29 @@ from typing import Optional
 import numpy as np
 
 from dpwa_tpu_torch.config import DpwaConfig
+from dpwa_tpu_torch.utils import prng
+from dpwa_tpu_torch.utils import tags as _tags
+
+
+def _pair_key(seed: int, step: int, pair_id: int, tag: int) -> prng.Key:
+    """The reference's ``_pair_key``: ``key(seed)`` with step, pair id and
+    tag folded in, in that order (step and pair id as int32)."""
+    k = prng.fold_in(prng.key(seed), step)
+    return prng.fold_in(prng.fold_in(k, pair_id), tag)
+
+
+def pool_branch_draw(seed: int, step: int, pool_size: int, periodic: bool) -> int:
+    """Pool index in effect at ``step``: ``step % pool_size`` for a
+    periodic schedule, else an i.i.d. draw in ``[0, pool_size)`` from the
+    pool-branch threefry stream (tag 2), as the reference draws it."""
+    step = int(step)
+    if not -(2**31) <= step < 2**31:
+        raise ValueError(f"step {step} does not fit int32")
+    if periodic or pool_size <= 1:
+        return step % pool_size
+    return prng.randint(
+        _pair_key(seed, step, 0, _tags.TAG_POOL_BRANCH), 0, pool_size
+    )
 
 
 def is_involution(perm: np.ndarray) -> bool:
@@ -232,13 +256,9 @@ class Schedule:
         return self.name != "random"
 
     def branch(self, step: int) -> int:
-        """Pool row in effect at ``step``."""
-        if not (self.periodic or self.pool_size <= 1):
-            raise NotImplementedError(
-                "the random schedule draws its pool row per step from "
-                "threefry, which is not ported yet"
-            )
-        idx = int(step) % self.period
+        """Pool row in effect at ``step`` (cyclic, or the random schedule's
+        per-step threefry draw)."""
+        idx = pool_branch_draw(self.seed, step, self.period, self.periodic)
         return int(self.branch_map[idx]) if self.branch_map is not None else idx
 
     def pair_id(self, i: int, partner: int):
@@ -259,15 +279,14 @@ class Schedule:
         and no fault injection (the only ported case), iff it is paired."""
         if self.fetch_probability < 1.0 or self.drop_probability > 0.0:
             raise NotImplementedError(
-                "participation draws need threefry, which is not ported yet"
+                "participation draws need threefry's uniform draw, which is "
+                "not ported yet"
             )
         return self.partner(step, i) != i
 
 
 def _threefry_settings(proto) -> list[str]:
     needs = []
-    if proto.schedule == "random":
-        needs.append("schedule: random")
     if proto.fetch_probability < 1.0:
         needs.append(f"fetch_probability: {proto.fetch_probability}")
     if proto.drop_probability > 0.0:
@@ -281,13 +300,13 @@ def build_schedule(config: DpwaConfig) -> Schedule:
     """Materialize the pairing/pull pool described by ``config.protocol``.
 
     Raises :class:`NotImplementedError` for settings that need threefry
-    draws (see the module docstring)."""
+    draws not ported yet (see the module docstring)."""
     proto = config.protocol
     needs = _threefry_settings(proto)
     if needs:
         raise NotImplementedError(
-            f"{', '.join(needs)} need(s) counter-based threefry draws, which "
-            f"dpwa_tpu_torch does not port yet"
+            f"{', '.join(needs)} need(s) counter-based threefry draws that "
+            f"dpwa_tpu_torch does not port yet (uniform, the int8 wire's rounding)"
         )
     n = config.n_peers
     pull = proto.mode == "pull"
@@ -296,6 +315,11 @@ def build_schedule(config: DpwaConfig) -> Schedule:
     elif pull:
         if proto.schedule == "ring":
             pool = np.stack([_ring_pull(n, 0), _ring_pull(n, 1)])
+        elif proto.schedule == "random":
+            rng = np.random.default_rng(proto.seed)
+            pool = np.stack(
+                [_random_pull(n, rng) for _ in range(proto.resolved_pool_size(n))]
+            )
         elif proto.schedule == "hierarchical":
             group = proto.group_size or _auto_group_size(n)
             pool = _hierarchical_pull_pool(n, group, proto.inter_period)
@@ -307,6 +331,11 @@ def build_schedule(config: DpwaConfig) -> Schedule:
             raise ValueError(proto.schedule)
     elif proto.schedule == "ring":
         pool = np.stack([_ring_even(n), _ring_odd(n)])
+    elif proto.schedule == "random":
+        rng = np.random.default_rng(proto.seed)
+        pool = np.stack(
+            [_random_matching(n, rng) for _ in range(proto.resolved_pool_size(n))]
+        )
     elif proto.schedule == "hierarchical":
         group = proto.group_size or _auto_group_size(n)
         pool = _hierarchical_pool(n, group, proto.inter_period)

@@ -50,10 +50,13 @@ class DevicePool:
     """A schedule's pool resident on the device.
 
     ``partner`` is the ``[K, n]`` int32 pool; for a pairwise schedule
-    ``left``/``right`` are each row's pair lists (:func:`involution_pairs`),
-    padded with no-op self-pairs to one length ``[K, k]``.  Built from the
-    host pool, which :func:`~dpwa_tpu_torch.parallel.schedules.build_schedule`
-    has already checked, so the kernels' row indices are valid."""
+    ``left``/``right`` hold each row's pair lists (:func:`involution_pairs`
+    with ``self_pairs``: the real pairs, then every peer that sits the
+    round out as a pair ``(i, i)``), zero-filled to one length ``[K, k]``;
+    :meth:`pairs` gives a row's lists cut to their length, which stays on
+    the host.  Built from the host pool, which
+    :func:`~dpwa_tpu_torch.parallel.schedules.build_schedule` has already
+    checked, so the kernels' row indices are valid."""
 
     def __init__(self, schedule: schedules.Schedule, device):
         pool = np.asarray(schedule.pool)
@@ -63,15 +66,22 @@ class DevicePool:
         self.partner = torch.as_tensor(pool, dtype=torch.int32, device=device)
         self.me = torch.arange(n, device=device)
         self.left = self.right = None
+        self.counts: list[int] = []
         if schedule.mode == "pairwise":
-            k = max(int(np.sum(np.arange(n) < row)) for row in pool)
-            lists = [involution_pairs(row, pad_to=k) for row in pool]
-            self.left = torch.as_tensor(
-                np.stack([lr[0] for lr in lists]), dtype=torch.int32, device=device
-            )
-            self.right = torch.as_tensor(
-                np.stack([lr[1] for lr in lists]), dtype=torch.int32, device=device
-            )
+            lists = [involution_pairs(row, self_pairs=True) for row in pool]
+            self.counts = [len(left) for left, _ in lists]
+            k = max(self.counts)
+            left = np.zeros((len(pool), k), np.int32)
+            right = np.zeros((len(pool), k), np.int32)
+            for row, (lo, ro) in enumerate(lists):
+                left[row, : len(lo)], right[row, : len(ro)] = lo, ro
+            self.left = torch.as_tensor(left, device=device)
+            self.right = torch.as_tensor(right, device=device)
+
+    def pairs(self, branch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pool row ``branch``'s (left, right) pair lists on the device."""
+        k = self.counts[branch]
+        return self.left[branch, :k], self.right[branch, :k]
 
 
 def stacked_gossip_exchange(
@@ -94,7 +104,9 @@ def stacked_gossip_exchange(
     ``pool`` is the schedule's :class:`DevicePool` on ``x``'s device (built
     here when not given).
 
-    A pairwise round merges ``x`` in place (B1) and returns it.  A pull
+    A pairwise round merges ``x`` in place (B1) and returns it; a peer that
+    sits the round out is merged with itself at α = 0, as the reference
+    merges it (finite values stay bit-identical, an inf becomes NaN).  A pull
     round merges out of place (B2): into ``out`` (``[n, d]``, not sharing
     ``x``'s storage), which it returns with ``x`` left as it was; without
     ``out``, or under ``columns``, it copies the result back into ``x``."""
@@ -118,9 +130,9 @@ def stacked_gossip_exchange(
         if schedule.mode == "pull":
             part.copy_(gather_merge(part, partner, alpha, wire_bf16=wire_bf16))
         else:
+            left, right = pool.pairs(branch)
             pair_merge_(
-                part, pool.left[branch], pool.right[branch], alpha,
-                wire_bf16=wire_bf16,
+                part, left, right, alpha, wire_bf16=wire_bf16, self_pairs=True
             )
     return x, info
 
@@ -194,26 +206,44 @@ def init_stacked_state(
     transport: StackedTransport,
     stacked_model_state: Any = None,
 ) -> StackedTrainState:
-    """Training state on the transport's device from peer-stacked params
-    (a :class:`FlatParams` or ``{name: [n, *shape]}``), copied: the train
-    step updates the state in place, so it must not alias tensors the
-    caller still holds."""
+    """Training state on the transport's device from peer-stacked params.
+
+    The optimizer's ``trainable`` leaves (all for an unmasked one) go in
+    the leading columns of the flat buffer, so its state, its updates and a
+    matching exchange filter each cover one column range; the state holds
+    the trainable leaves only.  A :class:`FlatParams` already laid out so
+    (built with ``first=optimizer.trainable``, as
+    :func:`~dpwa_tpu_torch.train.init_params_per_peer` does) on the
+    transport's device becomes the state's buffer, updated in place by the
+    train step: the caller hands it over, as the reference donates its
+    state.  Anything else (``{name: [n, *shape]}``, another layout) is
+    copied into a new buffer."""
     if stacked_model_state is not None:
         raise NotImplementedError(
             "model state (BatchNorm statistics) is not ported yet"
         )
     n = transport.config.n_peers
+    trainable = optimizer.trainable
     if isinstance(stacked_params, FlatParams):
-        stacked_params = stacked_params.views()
-    leading = {int(v.shape[0]) for v in stacked_params.values()}
+        leading = {stacked_params.n_peers}
+    else:
+        leading = {int(v.shape[0]) for v in stacked_params.values()}
     if leading != {n}:
         raise ValueError(
             f"stacked params must have leading peer axis {n}, got {leading}"
         )
-    params = FlatParams.stack(stacked_params, device=transport.device)
+    params = stacked_params
+    if not (
+        isinstance(params, FlatParams)
+        and params.first is trainable
+        and params.buffer.device == transport.device
+    ):
+        if isinstance(params, FlatParams):
+            params = params.views()
+        params = FlatParams.stack(params, device=transport.device, first=trainable)
     return StackedTrainState(
         params=params,
-        opt_state=optimizer.init(params.buffer),
+        opt_state=optimizer.init(params.pack(params.views(), trainable)),
         clock=torch.zeros(n, dtype=torch.float32, device=transport.device),
         step=0,
         loss=torch.zeros(n, dtype=torch.float32, device=transport.device),
@@ -244,13 +274,25 @@ def make_stacked_train_step(
     parameters (their column ranges of the flat buffer); the rest train
     locally and never move.  ``overlap=True`` exchanges the PRE-update
     replicas with the previous step's losses as metadata and adds this
-    step's updates to the merged result, as the reference does."""
+    step's updates to the merged result, as the reference does.
+
+    With a masked optimizer (one whose ``trainable`` name predicate is not
+    None, such as :func:`~dpwa_tpu_torch.optim.lora_optimizer`) the
+    gradient is taken with respect to the trainable leaves alone: the
+    frozen ones get no gradient, no optimizer state and no update, and stay
+    bit-identical — the reference computes their gradients and multiplies
+    them by zero."""
     if with_state:
         raise NotImplementedError(
             "with_state=True (BatchNorm statistics as merged model state) is "
             "not ported yet"
         )
-    per_peer = torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    trainable = optimizer.trainable  # None: every leaf
+
+    def split_loss(train, frozen, batch):
+        return loss_fn({**frozen, **train}, batch)
+
+    per_peer = torch.func.vmap(torch.func.grad_and_value(split_loss))
 
     def train_step(state: StackedTrainState, batch):
         if state.model_state is not None:
@@ -262,18 +304,21 @@ def make_stacked_train_step(
         columns = (
             None if exchange_filter is None else params.column_ranges(exchange_filter)
         )
-        grads, losses = per_peer(params.views(), batch)
+        views = params.views()
+        train = {k: v for k, v in views.items() if trainable is None or trainable(k)}
+        frozen = {k: v for k, v in views.items() if k not in train}
+        grads, losses = per_peer(train, frozen, batch)
+        updates = optimizer.update_(params.pack(grads, trainable), state.opt_state)
         losses = losses.to(torch.float32)
-        updates = optimizer.update_(params.flatten_like(grads), state.opt_state)
         clock = state.clock + 1.0
         if overlap:
             prev = state.loss if state.loss is not None else torch.zeros_like(clock)
             info = transport.exchange_params(
                 params, PeerMeta(clock, prev), state.step, columns
             )
-            params.buffer.add_(updates)
+            params.add_(updates, trainable)
         else:
-            params.buffer.add_(updates)
+            params.add_(updates, trainable)
             info = transport.exchange_params(
                 params, PeerMeta(clock, losses), state.step, columns
             )

@@ -12,7 +12,7 @@ from typing import Callable, Mapping
 import torch
 
 from dpwa_tpu_torch.utils.devices import resolve_device
-from dpwa_tpu_torch.utils.pytree import FlatParams
+from dpwa_tpu_torch.utils.pytree import FlatParams, NamePredicate, leaf_order
 
 Params = Mapping[str, torch.Tensor]
 
@@ -22,15 +22,32 @@ def init_params_per_peer(
     generator: torch.Generator,
     n_peers: int,
     device=None,
+    first: NamePredicate | None = None,
 ) -> FlatParams:
     """Independent random init per peer (a diverged cold start): peer i's
     parameters are the i-th draw of ``init_fn`` from the one ``generator``
-    (e.g. ``lambda g: resnet.init(model, g)``), stacked into a
-    :class:`FlatParams` on ``device`` (the CUDA card by default)."""
+    (e.g. ``lambda g: resnet.init(model, g)``, or ``llama.init`` with a
+    generator on the card), written row by row into a :class:`FlatParams`
+    on ``device`` (the CUDA card by default), so that at most one peer's
+    draw exists beside the stacked buffer.  ``first`` places the leaves it
+    selects in the leading columns: pass the optimizer's ``trainable``, and
+    :func:`~dpwa_tpu_torch.parallel.stacked.init_stacked_state` takes the
+    buffer over as it is."""
     device = resolve_device(device)
-    peers = [init_fn(generator) for _ in range(n_peers)]
-    stacked = {name: torch.stack([p[name] for p in peers]) for name in peers[0]}
-    return FlatParams.stack(stacked, device=device)
+    flat = None
+    for i in range(n_peers):
+        peer = init_fn(generator)
+        if flat is None:
+            names = leaf_order(peer)
+            flat = FlatParams(
+                names, [tuple(peer[k].shape) for k in names], n_peers,
+                device=device, dtype=peer[names[0]].dtype, first=first,
+            )
+        views = flat.views()
+        for name, value in peer.items():
+            views[name][i].copy_(value)
+        del peer
+    return flat
 
 
 def softmax_cross_entropy_with_integer_labels(

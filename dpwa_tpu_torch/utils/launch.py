@@ -23,9 +23,9 @@ class TransportBundle(NamedTuple):
 
 def add_transport_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
-        "--transport", choices=("stacked",), default="stacked",
+        "--transport", choices=("stacked", "ici", "tcp"), default="stacked",
         help="'stacked': all peers on ONE device as a stacked axis (the "
-        "only transport ported so far)",
+        "only transport ported so far; 'ici' and 'tcp' raise)",
     )
     ap.add_argument(
         "--device", default=None,

@@ -8,10 +8,12 @@ exchange is one kernel launch over ``[n, P]``:
 - :class:`FlatParams` holds the buffer and hands out named ``[n, *shape]``
   views of it.  Leaves sit in the order ``jax.tree_util.tree_flatten`` gives
   the reference's params (keys sorted level by level), so column ranges
-  correspond leaf for leaf.  Rows are padded to a multiple of
-  :data:`ROW_ALIGN` floats (zeros that every elementwise pass keeps at
-  zero) so that each row starts on a 128-byte boundary and the kernels can
-  move 16-byte words.
+  correspond leaf for leaf — unless a ``first`` predicate places the
+  leaves it selects (say the LoRA adapters) ahead of the rest, each group
+  in that order, so that an exchange or an optimizer over them covers ONE
+  column range.  Rows are padded to a multiple of :data:`ROW_ALIGN` floats
+  (zeros that every elementwise pass keeps at zero) so that each row
+  starts on a 128-byte boundary and the kernels can move 16-byte words.
 - :func:`partition` / :func:`combine` split a ``{name: tensor}`` dict by a
   predicate on the name, as the reference does by key path.
 - :func:`tree_wire_bytes` is the bytes one exchange ships.
@@ -43,7 +45,9 @@ class FlatParams:
 
     ``flat`` is the ``[n, P]`` view the optimizer and the exchange work on
     (row stride :attr:`ld` ≥ P); :meth:`views` gives the named
-    ``[n, *shape]`` views of it.  The buffer is updated in place.
+    ``[n, *shape]`` views of it, always in leaf order.  ``first`` (a name
+    predicate) places the leaves it selects in the leading columns.  The
+    buffer is updated in place.
     """
 
     def __init__(
@@ -54,34 +58,45 @@ class FlatParams:
         *,
         device=None,
         dtype: torch.dtype = torch.float32,
+        first: NamePredicate | None = None,
     ):
         if list(names) != leaf_order(names):
             raise ValueError("names must be in leaf order (see leaf_order)")
         self.names = tuple(names)
         self.shapes = tuple(tuple(int(s) for s in shape) for shape in shapes)
         self.n_peers = int(n_peers)
+        self.first = first
         sizes = [int(torch.Size(shape).numel()) for shape in self.shapes]
-        self.offsets = []
+        # Column order: the ``first`` leaves, then the rest, each in leaf order.
+        self.placed = sorted(
+            range(len(self.names)),
+            key=lambda i: first is None or not first(self.names[i]),
+        )
+        self.offsets = [(0, 0)] * len(self.names)
         start = 0
-        for size in sizes:
-            self.offsets.append((start, start + size))
-            start += size
+        for i in self.placed:
+            self.offsets[i] = (start, start + sizes[i])
+            start += sizes[i]
         self.size = start
         self.ld = -(-max(start, 1) // ROW_ALIGN) * ROW_ALIGN
         self.buffer = torch.zeros(self.n_peers, self.ld, dtype=dtype, device=device)
         self._spare: torch.Tensor | None = None
 
     @classmethod
-    def stack(cls, tensors: Mapping[str, torch.Tensor], *, device=None) -> "FlatParams":
+    def stack(
+        cls, tensors: Mapping[str, torch.Tensor], *, device=None,
+        first: NamePredicate | None = None,
+    ) -> "FlatParams":
         """A new holder filled from ``{name: [n, *shape]}`` tensors (copied)."""
         names = leaf_order(tensors)
-        first = tensors[names[0]]
+        lead = tensors[names[0]]
         flat = cls(
             names,
             [tuple(tensors[k].shape[1:]) for k in names],
-            first.shape[0],
-            device=device if device is not None else first.device,
-            dtype=first.dtype,
+            lead.shape[0],
+            device=device if device is not None else lead.device,
+            dtype=lead.dtype,
+            first=first,
         )
         for name, view in flat.views().items():
             view.copy_(tensors[name])
@@ -115,20 +130,43 @@ class FlatParams:
             for name, shape, (lo, hi) in zip(self.names, self.shapes, self.offsets)
         }
 
-    def flatten_like(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """``{name: [n, *shape]}`` (e.g. gradients) packed into a new
-        padded ``[n, ld]`` buffer laid out like this one."""
-        out = torch.zeros_like(self.buffer)
-        out[:, : self.size] = torch.cat(
-            [tensors[name].reshape(self.n_peers, -1) for name in self.names], dim=1
+    def pack(
+        self, tensors: Mapping[str, torch.Tensor], pred: NamePredicate | None = None
+    ) -> torch.Tensor:
+        """The leaves of ``{name: [n, *shape]}`` that ``pred`` selects (all
+        when None) as one new ``[n, T]`` tensor, in column order: the
+        layout of :meth:`add_` and of an optimizer over those leaves."""
+        return torch.cat(
+            [
+                tensors[self.names[i]].reshape(self.n_peers, -1)
+                for i in self.placed
+                if pred is None or pred(self.names[i])
+            ],
+            dim=1,
         )
-        return out
+
+    def add_(self, packed: torch.Tensor, pred: NamePredicate | None = None) -> None:
+        """Add a :meth:`pack`-laid-out ``[n, T]`` tensor (e.g. updates) to
+        the leaves ``pred`` selects, in place; the other columns are not
+        touched."""
+        ranges = self.column_ranges(pred)
+        width = sum(hi - lo for lo, hi in ranges)
+        if packed.shape != (self.n_peers, width):
+            raise ValueError(
+                f"packed is {tuple(packed.shape)}, expected ({self.n_peers}, {width}) columns"
+            )
+        start = 0
+        for lo, hi in ranges:
+            self.buffer[:, lo:hi].add_(packed[:, start : start + hi - lo])
+            start += hi - lo
 
     def column_ranges(self, pred: NamePredicate | None = None) -> list[Tuple[int, int]]:
         """Column ranges ``[lo, hi)`` of the leaves whose name matches
-        ``pred`` (all leaves when None), adjacent leaves merged."""
+        ``pred`` (all leaves when None), in column order, adjacent leaves
+        merged."""
         ranges: list[Tuple[int, int]] = []
-        for name, (lo, hi) in zip(self.names, self.offsets):
+        for i in self.placed:
+            name, (lo, hi) = self.names[i], self.offsets[i]
             if pred is not None and not pred(name):
                 continue
             if ranges and ranges[-1][1] == lo:

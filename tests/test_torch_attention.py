@@ -1,0 +1,149 @@
+"""The port's single-device attention against the reference's.
+
+``dpwa_tpu_torch.ops.ulysses.single_device_attention`` — its dense branch,
+and its flash branch (B5's autograd path, which on CPU tensors runs the
+kernels' plain versions) — against ``dpwa_tpu.ops.ulysses.
+single_device_attention(impl="dense")`` on float32 inputs made with numpy:
+outputs at rtol 1e-5 / atol 1e-6, and the gradients of a scalar loss with
+respect to q, k and v against ``jax.grad`` at rtol 1e-4 / atol 1e-6.
+
+The flash branch's backward takes ``Δ = rowsum(dO∘O)``, as the kernels do,
+where autodiff takes ``rowsum(P∘dP)``: equal in exact arithmetic, a few
+ulps of the O(√D)-sized ``dP`` apart in float32.  A gradient that cancels
+to zero (the first query row of a causal mask has one key, so its dQ is 0)
+then comes out at a few 1e-6 instead (dP is about 11 here, so its ulps
+are about 1e-6, summed over the keys): the flash branch's gradients are
+held at rtol 1e-4 / atol 1e-5.  The CUDA kernels themselves run on the card
+(``tests/test_torch_card.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpwa_tpu.ops.ulysses import single_device_attention as ref_attention
+from dpwa_tpu_torch.ops import flash_attention
+from dpwa_tpu_torch.ops.ulysses import single_device_attention
+
+B, H, D = 2, 4, 128
+
+
+def _inputs(t, kv, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, t, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, t, kv, D)).astype(np.float32)
+    v = rng.standard_normal((B, t, kv, D)).astype(np.float32)
+    w = rng.standard_normal((B, t, H, D)).astype(np.float32)
+    return q, k, v, w
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv", [4, 2, 1])
+@pytest.mark.parametrize("t", [128, 256])
+def test_attention_and_gradients_match_reference(t, kv, causal, impl):
+    q, k, v, w = _inputs(t, kv)
+
+    def ref_loss(q, k, v):
+        return jnp.sum(ref_attention(q, k, v, causal=causal, impl="dense") * w)
+
+    want = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=causal, impl="dense"))
+    want_grads = jax.grad(ref_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    flash_attention.reset_launch_counts()
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = single_device_attention(tq, tk, tv, causal=causal, impl=impl)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-5, atol=1e-6)
+    (out * torch.from_numpy(w)).sum().backward()
+    atol = 1e-6 if impl == "dense" else 1e-5
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=atol)
+    # CPU tensors take the plain versions: no kernel launch.
+    assert flash_attention.flash_attn_fwd.launches == 0
+    assert flash_attention.flash_attn_bwd.launches == 0
+
+
+def test_vmapped_grad_makes_one_call_per_pass(monkeypatch):
+    """Under ``vmap(grad(...))`` over 3 peers the flash branch makes ONE
+    forward and ONE backward call with the peer axis folded into the
+    batch, and gives the dense branch's gradients."""
+    n, t, kv = 3, 128, 2
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, B, t, h, D)).astype(np.float32))
+               for h in (H, kv, kv))
+    w = torch.from_numpy(rng.standard_normal((B, t, H, D)).astype(np.float32))
+    calls = []
+    fwd, bwd = flash_attention.torch_flash_attn_fwd, flash_attention.torch_flash_attn_bwd
+
+    def spy_fwd(q, k, v, *, causal):
+        calls.append(("fwd", tuple(q.shape), tuple(k.shape)))
+        return fwd(q, k, v, causal=causal)
+
+    def spy_bwd(q, k, v, o, lse, do, *, causal):
+        calls.append(("bwd", tuple(q.shape), tuple(k.shape)))
+        return bwd(q, k, v, o, lse, do, causal=causal)
+
+    monkeypatch.setattr(flash_attention, "torch_flash_attn_fwd", spy_fwd)
+    monkeypatch.setattr(flash_attention, "torch_flash_attn_bwd", spy_bwd)
+
+    def loss(q, k, v, impl):
+        return (single_device_attention(q, k, v, causal=True, impl=impl) * w).sum()
+
+    grads = {
+        impl: torch.func.vmap(
+            torch.func.grad(loss, argnums=(0, 1, 2)), in_dims=(0, 0, 0, None)
+        )(q, k, v, impl)
+        for impl in ("flash", "dense")
+    }
+    assert calls == [
+        ("fwd", (n * B, t, H, D), (n * B, t, kv, D)),
+        ("bwd", (n * B, t, H, D), (n * B, t, kv, D)),
+    ]
+    for a, b in zip(grads["flash"], grads["dense"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_auto_takes_the_dense_branch_on_the_cpu(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the flash branch ran on CPU tensors under auto")
+
+    monkeypatch.setattr(flash_attention, "torch_flash_attn_fwd", refuse)
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(128, 2))
+    out = single_device_attention(q, k, v, causal=True, impl="auto")
+    assert out.shape == q.shape
+    with pytest.raises(ValueError, match="impl"):
+        single_device_attention(q, k, v, causal=True, impl="xla")
+
+
+def test_plain_lse_is_the_rows_logsumexp():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(128, 1, seed=2))
+    o, lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=True)
+    ke = k.repeat_interleave(H, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q, ke) / D ** 0.5
+    s = s.masked_fill(~torch.ones(128, 128, dtype=torch.bool).tril(), float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-6)
+    assert lse.shape == (B, H, 128) and o.shape == q.shape
+
+
+@pytest.mark.parametrize(
+    "shapes, match",
+    [
+        (((1, 128, 4, 96), (1, 128, 4, 96)), "head dim"),
+        (((1, 128, 4, 64), (1, 128, 4, 64)), "head dim"),
+        (((1, 192, 4, 128), (1, 192, 4, 128)), "multiple of 128"),
+        (((1, 128, 4, 128), (1, 128, 3, 128)), "kv heads"),
+        (((1, 128, 4, 128), (1, 256, 4, 128)), "k and v"),
+    ],
+)
+def test_kernel_shape_checks(shapes, match):
+    """What the wrappers check before a launch (pure shape logic, so it
+    runs here; the card tests drive the wrappers themselves)."""
+    qs, ks = shapes
+    q, k = torch.zeros(qs), torch.zeros(ks)
+    with pytest.raises(ValueError, match=match):
+        flash_attention._check_qkv(q, k, k, "flash_attn_fwd")
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention._check_qkv(q.double(), k, k, "flash_attn_fwd")

@@ -7,9 +7,10 @@ up JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
-The kernels are held bit for bit against their plain versions on a CPU copy
-of the same inputs; the train step on the card against the same steps on
-the CPU (TF32 off).
+The merge kernels are held bit for bit against their plain versions on a
+CPU copy of the same inputs; the flash-attention kernels (B5) against their
+plain versions on the card (TF32 off), within a stated tolerance; the
+train steps on the card against the same steps on the CPU (TF32 off).
 """
 
 import numpy as np
@@ -17,9 +18,9 @@ import pytest
 import torch
 
 from dpwa_tpu_torch.config import make_local_config
-from dpwa_tpu_torch.models import resnet
-from dpwa_tpu_torch.ops import merge
-from dpwa_tpu_torch.optim import sgd
+from dpwa_tpu_torch.models import llama, resnet
+from dpwa_tpu_torch.ops import flash_attention, merge
+from dpwa_tpu_torch.optim import adam, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
 from dpwa_tpu_torch.train import (
     init_params_per_peer,
@@ -70,6 +71,39 @@ def test_kernels_bit_equal_to_plain(cuda_device, layout, wire_bf16):
     want = merge.torch_pairwise_merge(base, partner, alpha, wire_bf16=wire_bf16)
     assert torch.equal(got.cpu(), want)
     assert merge.pair_merge_.launches == 1 and merge.gather_merge.launches == 1
+
+
+@pytest.mark.parametrize("wire_bf16", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "offset"])
+def test_pair_merge_self_pairs_bit_equal_to_plain(cuda_device, layout, wire_bf16):
+    """B1 as the stacked exchange calls it: the rows that sit the round out
+    listed as self-pairs at α = 0 and merged with themselves, so their inf
+    and NaN come out NaN.  Equal to the plain version bit for bit, except
+    that a NaN may carry another payload on the card."""
+    d = 4099
+    gen = torch.Generator().manual_seed(5)
+    base = torch.randn(N, d, generator=gen)
+    alpha = torch.rand(N, generator=gen)
+    fixed = np.flatnonzero(WITH_FIXED == np.arange(N))
+    alpha[fixed] = 0.0
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan"), -0.0, 3.0e38])
+    base[fixed, :5] = bad
+    base[fixed, -5:] = bad
+    lead = 3 if layout == "offset" else 0
+    buf = torch.zeros(N, d + lead + 29, device=cuda_device)
+    x = buf[:, lead:lead + d]
+    x.copy_(base)
+    left, right = (torch.from_numpy(v) for v in merge.involution_pairs(WITH_FIXED, self_pairs=True))
+    merge.reset_launch_counts()
+    merge.pair_merge_(x, left.to(cuda_device), right.to(cuda_device), alpha.to(cuda_device),
+                      wire_bf16=wire_bf16, self_pairs=True)
+    want = merge.torch_pair_merge_(base.clone(), left, right, alpha,
+                                   wire_bf16=wire_bf16, self_pairs=True)
+    got = x.cpu()
+    both_nan = got.isnan() & want.isnan()
+    assert bool(((got.view(torch.int32) == want.view(torch.int32)) | both_nan).all())
+    assert bool(got[fixed][:, :3].isnan().all()) and bool(got[fixed][:, -5:-2].isnan().all())
+    assert merge.pair_merge_.launches == 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
@@ -135,3 +169,124 @@ def test_train_step_on_card_matches_cpu(cuda_device, mode):
     assert cpu_launches == 0 and gpu_launches == steps
     torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(gpu_p, cpu_p, rtol=1e-3, atol=1e-4)
+
+
+def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest absolute difference over the larger of 1 and the
+    largest magnitude of ``want``: the normwise error ``chip_smoke.py``
+    also states."""
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+FWD_TOL, BWD_TOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("kv", [4, 1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 384])
+def test_flash_attention_kernels_match_plain(cuda_device, t, causal, kv):
+    """B5's forward (o, lse) and backward (dq, dk, dv) against the plain
+    versions on the same card tensors, TF32 off: normwise error (max |Δ| /
+    max(1, max |plain|)) at most 1e-5 forward and 1e-4 backward — the two
+    sum in different orders, and the backward's Δ = rowsum(dO∘O) cancels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(t + kv)
+    b, h, d = 2, 4, 128
+    q, do = (torch.randn(b, t, h, d, generator=gen).to(cuda_device) for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    flash_attention.reset_launch_counts()
+    o, lse = flash_attention.flash_attn_fwd(q, k, v, causal=causal)
+    grads = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=causal)
+    assert max_rel_err(o, want_o) <= FWD_TOL
+    assert max_rel_err(lse, want_lse) <= FWD_TOL
+    want = flash_attention.torch_flash_attn_bwd(q, k, v, want_o, want_lse, do, causal=causal)
+    for got, ref in zip(grads, want):
+        assert got.shape == ref.shape
+        assert max_rel_err(got, ref) <= BWD_TOL
+    assert flash_attention.flash_attn_fwd.launches == 1
+    assert flash_attention.flash_attn_bwd.launches == 1
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 128, 4, 128, device=cuda_device)
+    k = torch.zeros(1, 128, 2, 128, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attn_fwd(q.double(), k, k, causal=True)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attn_fwd(q, k.cpu(), k, causal=True)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        flash_attention.flash_attn_fwd(q[:, :64], k[:, :64], k[:, :64], causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attn_fwd(q[..., :32], k[..., :32], k[..., :32], causal=True)
+
+
+LLAMA_KW = dict(
+    vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+    d_ff=384, max_seq_len=128, lora_rank=4,
+)
+
+
+def test_llama_lora_step_on_card_matches_cpu(cuda_device):
+    """Three steps of a 2-peer LoRA fine-tune at head_dim 128, T 128: on
+    the card (attention through B5, the exchange through B1) and on the CPU
+    (the dense attention, the plain merge), from the same parameters and
+    batches, TF32 off.  Losses within rtol 1e-4; LoRA leaves within rtol
+    1e-3 / atol 1e-5 on 99 % of their elements and atol 1e-4 on all (Adam
+    takes steps of size lr whatever the gradient's size, so a gradient that
+    nearly cancels moves its element by lr times its relative error); the
+    frozen leaves bit-identical to where they started."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, steps = 2, 3
+    model = llama.Llama(llama.LlamaConfig(**LLAMA_KW))
+    init = llama.init(model, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    params = {
+        k: torch.stack([v, v + 0.01 * torch.randn(v.shape, generator=gen)])
+        for k, v in init.items()
+    }
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(steps):
+        toks = rng.integers(0, LLAMA_KW["vocab_size"], (n, 1, 129))
+        batches.append((torch.from_numpy(toks[..., :-1]), torch.from_numpy(toks[..., 1:])))
+    results = []
+    for device in ("cpu", cuda_device):
+        cfg = make_local_config(n, schedule="random", pool_size=16)
+        t = stacked.StackedTransport(cfg, device=device)
+        opt = lora_optimizer(adam(1e-3), llama.lora_filter)
+
+        def loss_fn(p, batch):
+            logits = llama.apply(model, p, batch[0])
+            return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean()
+
+        state = stacked.init_stacked_state(params, opt, t)
+        step = stacked.make_stacked_train_step(
+            loss_fn, opt, t, exchange_filter=llama.lora_filter
+        )
+        merge.reset_launch_counts()
+        flash_attention.reset_launch_counts()
+        losses = []
+        for x, y in batches:
+            state, loss, _ = step(state, (x.to(device), y.to(device)))
+            losses.append(loss.cpu())
+        launches = (
+            flash_attention.flash_attn_fwd.launches,
+            flash_attention.flash_attn_bwd.launches,
+            merge.pair_merge_.launches,
+        )
+        views = {k: v.cpu() for k, v in state.params.views().items()}
+        results.append((torch.stack(losses), views, launches))
+    (cpu_l, cpu_p, cpu_n), (gpu_l, gpu_p, gpu_n) = results
+    assert cpu_n == (0, 0, 0)
+    assert gpu_n == (LLAMA_KW["n_layers"] * steps, LLAMA_KW["n_layers"] * steps, steps)
+    torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
+    for name, want in cpu_p.items():
+        got = gpu_p[name]
+        if llama.lora_filter(name):
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+            loose = (got - want).abs() > 1e-5 + 1e-3 * want.abs()
+            assert loose.float().mean().item() < 0.01
+        else:
+            assert torch.equal(got, params[name]) and torch.equal(want, params[name])

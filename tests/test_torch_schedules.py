@@ -1,5 +1,7 @@
 """The port's gossip schedules against the reference: pools, branch maps and
-the pool row of every step are equal; settings that need threefry raise."""
+the pool row of every step are equal (the random schedule's per-step
+threefry draw included); settings that need threefry draws the port does
+not have yet raise."""
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ def _build(module, cfg_fn, n, **kw):
         dict(schedule="exponential"),
         dict(schedule="hierarchical"),
         dict(schedule="hierarchical", group_size=2, inter_period=3),
+        dict(schedule="random", pool_size=16, seed=5),
     ],
 )
 def test_pools_and_branches_equal(n, mode, kw):
@@ -57,7 +60,7 @@ def test_pools_and_branches_equal(n, mode, kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(schedule="random"),
+        dict(schedule="random", fetch_probability=0.5),
         dict(schedule="ring", fetch_probability=0.5),
         dict(schedule="ring", drop_probability=0.1),
         dict(schedule="ring", wire_dtype="int8"),

@@ -84,11 +84,33 @@ def test_flat_params_views_layout_and_ranges():
     assert flat.column_ranges() == [(0, 18)]
     assert flat.column_ranges(lambda n: n.endswith("kernel")) == [(5, 15)]
     assert flat.column_ranges(lambda n: n != "a.kernel") == [(0, 5), (9, 18)]
-    packed = flat.flatten_like({k: v.float() for k, v in _tree().items()})
-    assert packed.shape == flat.buffer.shape and torch.equal(packed[:, 18:], torch.zeros(1, 14))
+    packed = flat.pack({k: v.float() for k, v in _tree().items()})
+    assert packed.shape == flat.flat.shape
     assert torch.equal(packed[0, 9:15], torch.arange(6.0))
     with pytest.raises(ValueError, match="leaf order"):
         pytree.FlatParams(["b", "a"], [(1,), (1,)], 1)
+
+
+def test_flat_params_first_places_leaves_ahead_and_adds_by_predicate():
+    """``first`` puts the leaves it selects in the leading columns (views
+    stay in leaf order); :meth:`pack` and :meth:`add_` work in column order
+    on the selected leaves and leave the rest bit-identical."""
+    tree = {k: v.float() for k, v in _tree().items()}
+    pred = lambda n: n.endswith("kernel")
+    flat = pytree.FlatParams.stack(tree, first=pred)
+    assert list(flat.views()) == ["a.bias", "a.kernel", "b.kernel", "steps"]
+    assert flat.column_ranges(pred) == [(0, 10)]
+    assert flat.column_ranges(lambda n: not pred(n)) == [(10, 18)]
+    assert flat.column_ranges() == [(0, 18)]
+    packed = flat.pack(tree, pred)
+    assert torch.equal(packed[0], torch.cat([torch.full((4,), 2.0), torch.arange(6.0)]))
+    before = flat.flat.clone()
+    flat.add_(torch.ones(1, 10), pred)
+    assert torch.equal(flat.flat[:, :10], before[:, :10] + 1.0)
+    assert torch.equal(flat.flat[:, 10:], before[:, 10:])
+    assert torch.equal(flat.views()["b.kernel"], tree["b.kernel"] + 1.0)
+    with pytest.raises(ValueError, match="columns"):
+        flat.add_(torch.ones(1, 9), pred)
 
 
 def test_flat_params_swap_adopts_the_spare_buffer():
