@@ -19,7 +19,13 @@ checks that they went through the kernels:
 - ``dpwa_tpu_torch.examples.llama_lora``: 4 peers at Llama-3-8B width with
   the depth cut to 2 layers, LoRA rank 8, T = 2048, the random schedule,
   Adam, the LoRA-only exchange (B1) and flash attention (B5) — once timed
-  and once under the profiler.
+  and once under the profiler;
+- ``dpwa_tpu_torch.examples.longcontext``: 2 peers at Llama-3-8B width, 2
+  layers, LoRA rank 8, each peer's T = 8192 over a virtual sequence-parallel
+  axis of 4 ranks, the ring schedule, Adam, the LoRA-only exchange (B1):
+  the ring with the contiguous and the zigzag layout (the hop kernels B3
+  and B4), Ulysses (B5 per rank), and the contiguous ring once more under
+  the profiler.
 
 One JSON line per phase; the kernel table and the card's name and power
 limit come on the lines before the last, and the last line is the result.
@@ -47,8 +53,9 @@ MAIN_D = 272474  # ResNet-20's parameters per peer: the main path's row
 BIG_D = 24 * 2**20  # bench.py's default exchange size
 N_PEERS = 8
 ALL_PHASES = (
-    "b1", "b2", "b5", "card_tests", "train", "train_pull", "profile",
-    "train_llama", "profile_llama",
+    "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
+    "train_llama", "profile_llama", "train_sp", "train_sp_zigzag", "train_sp_a2a",
+    "profile_sp",
 )
 # The Llama path: 4 peers of Llama-3-8B width, 2 layers, batch 1, T 2048.
 LLAMA_PEERS, LLAMA_LAYERS, LLAMA_T, LLAMA_STEPS = 4, 2, 2048, 6
@@ -60,10 +67,27 @@ B5_CASES = (
     ("short_full_kv", 4, 384, 32, 32, True),
 )
 B5_TOL = {"fwd": 1e-5, "bwd": 1e-4}  # normwise: max|Δ| / max(1, max|plain|)
+# The sequence-parallel path: 2 peers of Llama-3-8B width, 2 layers, batch 1,
+# T 8192 over a virtual axis of 4 ranks (T_local 2048).  B3/B4 run at its
+# shapes: q [2, 8192, 32, 128], k and v [2, 8192, 8, 128].
+SP_PEERS, SP_SIZE, SP_T, SP_STEPS = 2, 4, 8192, 4
+SP_PHASES = {  # phase: (layout, strategy, steps, profiled)
+    "train_sp": ("contiguous", "ring", SP_STEPS, False),
+    "train_sp_zigzag": ("zigzag", "ring", SP_STEPS, False),
+    "train_sp_a2a": ("contiguous", "a2a", SP_STEPS, False),
+    "profile_sp": ("contiguous", "ring", 3, True),
+}
+
+
+OUT = []  # files that also get every emitted line (--out)
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for f in OUT:
+        f.write(line + "\n")
+        f.flush()
 
 
 def smi(query: str) -> str:
@@ -378,11 +402,211 @@ def flash_checks(torch, fa, device, flush) -> dict:
     return {"cases": cases, "max_abs_err": max_err, "tolerance": B5_TOL, "timings": timings}
 
 
+def normwise(got, want) -> tuple[float, float]:
+    """(max_abs_err, max|Δ| / max(1, max|want|))."""
+    diff = (got - want).abs().max().item()
+    return diff, diff / max(1.0, want.abs().max().item())
+
+
+def library_attention(torch, q, k, v, dout):
+    """The library yardstick of a causal ring over the whole sequence: one
+    PyTorch call of causal attention over T that also returns the LSE
+    (``_scaled_dot_product_efficient_attention``, float32), on k and v
+    pre-expanded to every head in its [B, H, T, D] layout, and its backward
+    through autograd.  Falls back to ``scaled_dot_product_attention`` where
+    that call is missing.  Returns (name, forward, backward) callables."""
+    import torch.nn.functional as F
+
+    heads = q.shape[2]
+    qs, ks, vs = (
+        x.repeat_interleave(heads // x.shape[2], dim=2).transpose(1, 2).contiguous().requires_grad_()
+        for x in (q, k, v)
+    )
+    dos = dout.transpose(1, 2).contiguous()
+    try:
+        op = torch.ops.aten._scaled_dot_product_efficient_attention
+        out = op(qs, ks, vs, None, True, 0.0, True)[0]
+        name = "aten._scaled_dot_product_efficient_attention (compute_log_sumexp, causal)"
+        fwd = lambda: op(qs.detach(), ks.detach(), vs.detach(), None, True, 0.0, True)
+    except (RuntimeError, AttributeError) as err:
+        first = str(err).splitlines()[0] if str(err) else type(err).__name__
+        print(f"chip_smoke: efficient attention unavailable ({first}); SDPA instead", file=sys.stderr)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        name = "F.scaled_dot_product_attention (causal)"
+        fwd = lambda: F.scaled_dot_product_attention(qs.detach(), ks.detach(), vs.detach(), is_causal=True)
+    bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+    return name, fwd, bwd, out.detach().transpose(1, 2)
+
+
+def ring_checks(torch, fr, device, flush, kind: str) -> dict:
+    """B3 (kind "b3") or B4 ("b4") at the sequence-parallel path's shapes:
+    every hop of the contiguous causal ring (skip, diag and full ranks), of
+    the non-causal ring (all full) and of the zigzag ring (its three half
+    stripe panels a hop), against the plain versions on the same card
+    tensors (TF32 off), normwise at B5's tolerances; a skipped rank's rows
+    exactly (0, -1e30) forward and untouched backward; B4 adds into
+    accumulators that start non-zero.  Then the whole ring (every hop and
+    the merges) through the kernels against the plain ring, and times: one
+    layer's hops of the contiguous ring (the main path's launches), the
+    plain hops, and the library's causal attention over the whole
+    sequence."""
+    b, h, kv, d = SP_PEERS, 32, 8, 128
+    t_local = SP_T // SP_SIZE
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, dout = (torch.randn(b, SP_T, h, d, device=device, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, SP_T, kv, d, device=device, generator=gen) for _ in range(2))
+    tol = B5_TOL["fwd" if kind == "b3" else "bwd"]
+    plans = {
+        "contiguous": fr.hop_plan("contiguous", t_local, True),
+        "non_causal": fr.hop_plan("contiguous", t_local, False),
+        "zigzag": fr.hop_plan("zigzag", t_local, True),
+    }
+    residuals = {}
+    if kind == "b4":  # the global lse and di each plan's backward is given
+        for name, layout, causal in (("contiguous", "contiguous", True),
+                                     ("non_causal", "contiguous", False),
+                                     ("zigzag", "zigzag", True)):
+            out32, lse = fr.ring_forward(q, k, v, SP_SIZE, layout, causal, impl="jnp")
+            di = (out32 * dout).sum(-1).transpose(1, 2).contiguous()
+            residuals[name] = (lse, di)
+            del out32
+    cases, max_err, worst = [], 0.0, 0.0
+    seen = set()
+    for plan_name, (stripes, panels) in plans.items():
+        for hop in range(SP_SIZE):
+            for stripe, k_off, rule in panels:
+                q_off, rows = stripes[stripe]
+                cs = fr.hop_cases(SP_SIZE, hop, rule)
+                kw = dict(sp=SP_SIZE, hop=hop, cases=cs, rows=rows, q_off=q_off, k_off=k_off)
+                if kind == "b3":
+                    got = fr.ring_hop_fwd(q, k, v, **kw)
+                    want = fr.torch_ring_hop_fwd(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    pairs = {"o": (got[0], want[0]), "lse": (got[1], want[1])}
+                    for me, c in enumerate(cs):
+                        if c == fr.SKIP:
+                            r = slice(me * rows, (me + 1) * rows)
+                            if got[0][:, r].any() or not bool((got[1][:, :, r] == fr.NEG_INF).all()):
+                                raise AssertionError(f"b3 {plan_name} hop {hop}: a skipped rank wrote")
+                            got[1][:, :, r] = want[1][:, :, r] = 0.0  # out of the normwise scale
+                else:
+                    lse, di = residuals[plan_name]
+                    start = [torch.randn(x.shape, device=device, generator=gen) for x in (q, k, v)]
+                    got = [x.clone() for x in start]
+                    want = [x.clone() for x in start]
+                    fr.ring_hop_bwd_(q, k, v, lse, dout, di, *got, **kw)
+                    fr.torch_ring_hop_bwd_(q, k, v, lse, dout, di, *want, **kw)
+                    torch.cuda.synchronize()
+                    pairs = dict(zip(("dq", "dk", "dv"), zip(got, want)))
+                    for me, c in enumerate(cs):
+                        r = slice(me * t_local + q_off, me * t_local + q_off + rows)
+                        if c == fr.SKIP and not torch.equal(got[0][:, r], start[0][:, r]):
+                            raise AssertionError(f"b4 {plan_name} hop {hop}: a skipped rank's dq moved")
+                    del start
+                errs = {}
+                for key, (g_, w_) in pairs.items():
+                    diff, rel = normwise(g_, w_)
+                    errs[key] = rel
+                    max_err, worst = max(max_err, diff), max(worst, rel)
+                    if not rel <= tol:
+                        raise AssertionError(
+                            f"{kind} {plan_name} hop {hop} rule {rule}: {key} normwise "
+                            f"{rel} > {tol} (max_abs_err {diff})"
+                        )
+                seen.update(cs)
+                cases.append([plan_name, hop, rule, "".join("sdf"[c] for c in cs), max(errs.values())])
+                del got, want, pairs
+    if seen != {fr.SKIP, fr.DIAG, fr.FULL}:
+        raise AssertionError(f"{kind}: cases seen {seen}")
+    residuals.clear()
+    torch.cuda.empty_cache()
+
+    # The whole ring through the kernels against the plain ring.
+    ring = {}
+    for layout in ("contiguous", "zigzag"):
+        out_k, lse_k = fr.ring_forward(q, k, v, SP_SIZE, layout, True, impl="flash")
+        out_p, lse_p = fr.ring_forward(q, k, v, SP_SIZE, layout, True, impl="jnp")
+        if kind == "b3":
+            pairs = {"out": (out_k, out_p), "lse": (lse_k, lse_p)}
+        else:
+            grads_k = fr.ring_backward(q, k, v, out_k, lse_k, dout, SP_SIZE, layout, True, "flash")
+            grads_p = fr.ring_backward(q, k, v, out_p, lse_p, dout, SP_SIZE, layout, True, "jnp")
+            pairs = dict(zip(("dq", "dk", "dv"), zip(grads_k, grads_p)))
+        torch.cuda.synchronize()
+        ring[layout] = {}
+        for key, (g_, w_) in pairs.items():
+            diff, rel = normwise(g_, w_)
+            ring[layout][key] = rel
+            max_err, worst = max(max_err, diff), max(worst, rel)
+            if not rel <= tol:
+                raise AssertionError(f"{kind} whole {layout} ring: {key} normwise {rel} > {tol}")
+        del out_k, lse_k, out_p, lse_p, pairs
+        torch.cuda.empty_cache()
+
+    # Times: one layer's hops of the main path's contiguous causal ring.
+    stripes, panels = plans["contiguous"]
+    calls = [fr.hop_cases(SP_SIZE, hop, "causal") for hop in range(SP_SIZE)]
+    lib_name, lib_fwd, lib_bwd, lib_out = library_attention(torch, q, k, v, dout)
+    out32, lse = fr.ring_forward(q, k, v, SP_SIZE, "contiguous", True, impl="flash")
+    lib_err = normwise(out32, lib_out)[1]
+    flops = 2 * b * h * SP_T * SP_T * d  # causal attention over T: QKᵀ and PV, half the square
+    qb, kvb, lb = b * SP_T * h * d * 4, b * SP_T * kv * d * 4, b * h * SP_T * 4
+    if kind == "b3":
+        kernel = lambda: [fr.ring_hop_fwd(q, k, v, sp=SP_SIZE, hop=i, cases=c) for i, c in enumerate(calls)]
+        plain = lambda: [fr.torch_ring_hop_fwd(q, k, v, sp=SP_SIZE, hop=i, cases=c)
+                         for i, c in enumerate(calls)]
+        library = lib_fwd
+        n_bytes = qb + 2 * kvb + SP_SIZE * (qb + lb)  # every hop writes its o and lse
+        work = flops
+    else:
+        di = (out32 * dout).sum(-1).transpose(1, 2).contiguous()
+        acc = [torch.zeros_like(x) for x in (q, k, v)]
+        kernel = lambda: [fr.ring_hop_bwd_(q, k, v, lse, dout, di, *acc, sp=SP_SIZE, hop=i, cases=c)
+                          for i, c in enumerate(calls)]
+        plain = lambda: [fr.torch_ring_hop_bwd_(q, k, v, lse, dout, di, *acc, sp=SP_SIZE, hop=i,
+                                                cases=c) for i, c in enumerate(calls)]
+        library = lib_bwd
+        # q, k, v, dout, lse, di read; dq, dk, dv written (the sums read them too)
+        n_bytes = 2 * qb + 2 * kvb + 2 * lb + 2 * SP_SIZE * (qb + 2 * kvb)
+        work = 2.5 * flops
+    ms = time_ms(torch, kernel, 5, flush)
+    b_ms, b_by = bound_ms(n_bytes, work)
+    timings = {
+        "shape_q": [b, SP_T, h, d], "kv_heads": kv, "sp": SP_SIZE, "launches_timed": SP_SIZE,
+        "ms": ms, "plain_ms": time_ms(torch, plain, 2, flush),
+        "library_ms": time_ms(torch, library, 5, flush), "library": lib_name,
+        "library_out_normwise_vs_ring": lib_err,
+        "bound_ms": b_ms, "bound_by": b_by, "flops": work, "bytes": n_bytes,
+        "tflops_per_s": work / (ms * 1e-3) / 1e12,
+    }
+    # The zigzag ring's panels: the same work in 3·sp launches.
+    zz_stripes, zz_panels = plans["zigzag"]
+    zz_calls = [(hop, fr.hop_cases(SP_SIZE, hop, rule), zz_stripes[s_][0], zz_stripes[s_][1], k_off)
+                for hop in range(SP_SIZE) for s_, k_off, rule in zz_panels]
+    if kind == "b3":
+        zz = lambda: [fr.ring_hop_fwd(q, k, v, sp=SP_SIZE, hop=i, cases=c, rows=r, q_off=qo, k_off=ko)
+                      for i, c, qo, r, ko in zz_calls]
+    else:
+        _, lse_z = fr.ring_forward(q, k, v, SP_SIZE, "zigzag", True, impl="flash")
+        zz = lambda: [fr.ring_hop_bwd_(q, k, v, lse_z, dout, di, *acc, sp=SP_SIZE, hop=i, cases=c,
+                                       rows=r, q_off=qo, k_off=ko) for i, c, qo, r, ko in zz_calls]
+    timings["zigzag_ms"] = time_ms(torch, zz, 5, flush)
+    timings["zigzag_launches_timed"] = len(zz_calls)
+    return {"cases": cases, "cases_are": "[plan, hop, rule, rank cases (skip/diag/full), max normwise]",
+            "n_cases": len(cases), "whole_ring_normwise": ring,
+            "max_abs_err": max_err, "max_normwise": worst, "tolerance": tol, "timings": timings}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases", default=",".join(ALL_PHASES),
         help="comma-separated subset of " + ",".join(ALL_PHASES),
+    )
+    ap.add_argument(
+        "--out", default=None,
+        help="also write every JSON line to this file (the end of the output "
+        "may be all a caller gets back)",
     )
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -395,8 +619,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        OUT.append(open(args.out, "w"))
     from dpwa_tpu_torch.ops import _build, merge
     from dpwa_tpu_torch.ops import flash_attention as fa
+    from dpwa_tpu_torch.ops import flash_ring as fr
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -430,6 +658,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         results["b5"] = flash_checks(torch, fa, device, flush)
         emit({"phase": "b5", "seconds": time.perf_counter() - t0, **results["b5"]})
+    for kind_name in ("b3", "b4"):
+        if kind_name not in phases:
+            continue
+        t0 = time.perf_counter()
+        results[kind_name] = ring_checks(torch, fr, device, flush, kind_name)
+        emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **results[kind_name]})
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
 
@@ -550,6 +785,62 @@ def main(argv=None) -> int:
             "init_peak_mem_bytes": res["init_peak_mem_bytes"], "profile": res["profile"],
         })
 
+    from dpwa_tpu_torch.examples import longcontext
+
+    for phase, (layout, strategy, steps, profile) in SP_PHASES.items():
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(
+            llama_config(), sp_axis="sp", sp_layout=layout, sp_strategy=strategy
+        )
+        merge.reset_launch_counts()  # count the main path's launches only
+        fa.reset_launch_counts()
+        fr.reset_launch_counts()
+        res = longcontext.run(
+            mcfg, peers=SP_PEERS, sp=SP_SIZE, steps=steps, batch_size=1, seq_len=SP_T,
+            lr=3e-3, log_every=1, profile=profile,
+        )
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+            "ring_hop_fwd": fr.ring_hop_fwd.launches,
+            "ring_hop_bwd_": fr.ring_hop_bwd_.launches,
+            "flash_attn_fwd": fa.flash_attn_fwd.launches,
+            "flash_attn_bwd": fa.flash_attn_bwd.launches,
+        }
+        torch.cuda.empty_cache()
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        if res["device"] != kind or res["final_step"] != steps:
+            raise AssertionError(f"{phase}: ran on {res['device']} for {res['final_step']} steps")
+        hops = LLAMA_LAYERS * SP_SIZE * len(fr.hop_plan(layout, SP_T // SP_SIZE, True)[1]) * steps
+        ring_path = strategy == "ring"
+        want = {
+            "pair_merge_": res["lora_column_ranges"] * steps, "gather_merge": 0,
+            "ring_hop_fwd": hops if ring_path else 0, "ring_hop_bwd_": hops if ring_path else 0,
+            "flash_attn_fwd": 0 if ring_path else LLAMA_LAYERS * steps,
+            "flash_attn_bwd": 0 if ring_path else LLAMA_LAYERS * steps,
+        }
+        if launches != want:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}, expected {want}")
+        if not res["frozen_unchanged"]:
+            raise AssertionError(f"{phase}: a frozen base weight changed")
+        main_launches[phase] = launches
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "n_peers": SP_PEERS, "sp": SP_SIZE, "n_layers": LLAMA_LAYERS, "seq_len": SP_T,
+            "sp_layout": layout, "sp_strategy": strategy,
+            "steps_per_sec": res["steps_per_sec"], "losses": losses,
+            "tokens_per_sec": res["steps_per_sec"] * SP_PEERS * SP_T,
+            "launches": launches,
+            "launches_per_step": {key: n / steps for key, n in launches.items()},
+            "lora_column_ranges": res["lora_column_ranges"], "partners": res["partners"],
+            "frozen_unchanged": res["frozen_unchanged"],
+            "peak_mem_bytes": res["peak_mem_bytes"], "profile": res["profile"],
+        })
+
     kernels = []
     for kind_name, name, phase, replaces in (
         ("b1", "pair_merge_", "train", "dpwa_tpu/ops/merge.py:342"),
@@ -577,15 +868,36 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "dpwa_tpu_torch/ops/csrc/flash_attention.cu",
-                "replaces": "dpwa_tpu/ops/ulysses.py:115",
+                "replaces": "dpwa_tpu/ops/ulysses.py:119",
                 "launches": main_launches.get("train_llama", {}).get(name),
                 "launches_phase": "train_llama",
+                "launches_sp_a2a": main_launches.get("train_sp_a2a", {}).get(name),
                 "max_abs_err": results["b5"]["max_abs_err"],
                 "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
                 "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
                 "library_ms": at_main["library_ms"],
                 "at_shape": [*B5_CASES[0][1:4], 128], "kv_heads": B5_CASES[0][4],
             })
+    for kind_name, name, replaces in (
+        ("b3", "ring_hop_fwd", "dpwa_tpu/ops/flash_ring.py:71"),
+        ("b4", "ring_hop_bwd_", "dpwa_tpu/ops/flash_ring.py:156"),
+    ):
+        if kind_name not in results:
+            continue
+        at_main = results[kind_name]["timings"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dpwa_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": main_launches.get("train_sp", {}).get(name),
+            "launches_phase": "train_sp",
+            "launches_zigzag": main_launches.get("train_sp_zigzag", {}).get(name),
+            "max_abs_err": results[kind_name]["max_abs_err"],
+            "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
+            "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+            "library_ms": at_main["library_ms"], "library": at_main["library"],
+            "at_shape": at_main["shape_q"], "kv_heads": at_main["kv_heads"],
+            "timed": f"one layer's {SP_SIZE} hops of the contiguous causal ring",
+        })
     emit({"kernels": kernels})
     print(name_limit, flush=True)
     emit({"ok": True, "device": {

@@ -27,8 +27,15 @@ does not mix float32 and bfloat16):
   of the two, and the LoRA term ``((x @ A) @ B) · (α/r)`` in that order;
 - ``lm_head`` computes in float32.
 
-Attention is :func:`dpwa_tpu_torch.ops.ulysses.single_device_attention`;
-the sequence-parallel path (``sp_axis``) is not ported yet.
+Attention is :func:`dpwa_tpu_torch.ops.ulysses.single_device_attention`.
+With ``sp_axis`` set the model is sequence-parallel over a virtual axis of
+that name, whose size a caller binds (:func:`dpwa_tpu_torch.parallel.
+virtual_axis.bind`, as the reference's ``shard_map`` binds its mesh axis):
+the model takes the whole sequence, ``sp`` blocks in the ``sp_layout``
+order, rope gets the blocks' global positions, and attention is the ring
+(:mod:`~dpwa_tpu_torch.ops.ring_attention`, or
+:mod:`~dpwa_tpu_torch.ops.zigzag_ring` for the zigzag layout) or Ulysses
+(``sp_strategy="a2a"``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dpwa_tpu_torch.ops.ulysses import single_device_attention
+from dpwa_tpu_torch.ops.ring_attention import ring_attention_local
+from dpwa_tpu_torch.ops.ulysses import single_device_attention, ulysses_attention_local
+from dpwa_tpu_torch.ops.zigzag_ring import zigzag_positions, zigzag_ring_attention
+from dpwa_tpu_torch.parallel import virtual_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +67,18 @@ class LlamaConfig:
     lora_rank: int = 0  # 0 = no LoRA
     lora_alpha: float = 16.0
     dtype: torch.dtype = torch.float32
+    # Sequence-parallel: the name of the virtual axis the sequence is
+    # split over (its size bound by the caller); None = single-device.
     sp_axis: Optional[str] = None
+    # "contiguous" (rank i holds block i) or "zigzag" (rank i holds global
+    # chunks i and 2n-1-i; callers order tokens with zigzag_shard).
     sp_layout: str = "contiguous"
+    # "ring" (K/V blocks rotate: the hop kernels B3/B4) or "a2a" (Ulysses:
+    # head-sharded attention over the whole sequence, B5 per rank).
     sp_strategy: str = "ring"
-    # "auto" takes the flash kernel (B5) on the card when T and head_dim
-    # are multiples of 128, "flash" forces it, "dense" forces the einsum.
+    # "auto" takes the flash kernels (B5, or B3/B4 in the ring) on the card
+    # when the shapes fit them, "flash" forces them, "dense" forces the
+    # einsum (the ring's q-chunked einsum hop).
     attn_impl: str = "auto"
 
     def __post_init__(self):
@@ -69,14 +86,23 @@ class LlamaConfig:
             raise ValueError(
                 f"attn_impl must be auto|flash|dense, got {self.attn_impl!r}"
             )
-        if self.sp_axis is not None:
-            raise NotImplementedError(
-                "sequence-parallel attention (sp_axis) is not ported yet"
+        if self.sp_layout not in ("contiguous", "zigzag"):
+            raise ValueError(
+                f"sp_layout must be contiguous|zigzag, got {self.sp_layout!r}"
             )
-        if self.sp_layout != "contiguous" or self.sp_strategy != "ring":
-            raise NotImplementedError(
-                "sp_layout / sp_strategy belong to the sequence-parallel "
-                "path, which is not ported yet"
+        if self.sp_layout != "contiguous" and self.sp_axis is None:
+            raise ValueError(
+                "sp_layout='zigzag' requires sp_axis (the layout only "
+                "exists for the sequence-parallel ring)"
+            )
+        if self.sp_strategy not in ("ring", "a2a"):
+            raise ValueError(
+                f"sp_strategy must be ring|a2a, got {self.sp_strategy!r}"
+            )
+        if self.sp_strategy == "a2a" and self.sp_layout != "contiguous":
+            raise ValueError(
+                "sp_strategy='a2a' shards heads, not sequence stripes — "
+                "the zigzag layout only applies to the ring strategy"
             )
 
     @property
@@ -189,7 +215,18 @@ class Attention(nn.Module):
         v = self.wv(x).reshape(B, T, KV, D)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        out = single_device_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        if cfg.sp_axis is None:
+            out = single_device_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        else:
+            sp = virtual_axis.axis_size(cfg.sp_axis)
+            if cfg.sp_strategy == "a2a":
+                out = ulysses_attention_local(q, k, v, sp, causal=True, impl=cfg.attn_impl)
+            elif cfg.sp_layout == "zigzag":
+                impl = "jnp" if cfg.attn_impl == "dense" else None
+                out = zigzag_ring_attention(q, k, v, sp, impl=impl)
+            else:
+                impl = "xla" if cfg.attn_impl == "dense" else cfg.attn_impl
+                out = ring_attention_local(q, k, v, sp, causal=True, impl=impl)
         return self.wo(out.reshape(B, T, H * D))
 
 
@@ -245,7 +282,9 @@ class Head(nn.Module):
 class Llama(nn.Module):
     """Decoder-only LM; ``forward(tokens [B, T])`` returns float32 logits
     ``[B, T, vocab]``.  Call it through ``functional_call`` (or
-    :func:`apply`) with real parameters."""
+    :func:`apply`) with real parameters; with ``sp_axis``, inside
+    ``virtual_axis.bind(sp_axis, sp)`` and with T divisible by ``sp``
+    (``2·sp`` for zigzag)."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -259,7 +298,11 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         T = tokens.shape[-1]
         x = self.embed(tokens)
-        positions = torch.arange(T, device=x.device)
+        if self.cfg.sp_layout == "zigzag":  # the tokens' global positions
+            sp = virtual_axis.axis_size(self.cfg.sp_axis)
+            positions = zigzag_positions(T, sp, device=x.device)
+        else:  # one block, or sp contiguous blocks in order
+            positions = torch.arange(T, device=x.device)
         for i in range(self.cfg.n_layers):
             x = getattr(self, f"layer_{i}")(x, positions)
         return self.lm_head(self.final_norm(x))

@@ -1,9 +1,10 @@
 // Flash attention in float32 for Hopper (sm_90a), forward and backward,
-// bound to Python with ctypes (dpwa_tpu_torch/ops/flash_attention.py).
+// bound to Python with ctypes: B5 (dpwa_tpu_torch/ops/flash_attention.py)
+// and the ring-attention hops B3 and B4 (dpwa_tpu_torch/ops/flash_ring.py).
 //
 // B5 replaces the flash branch of dpwa_tpu/ops/ulysses.py::
 // single_device_attention (:108-126), which calls JAX's library TPU kernel
-// jax.experimental.pallas.ops.tpu.flash_attention (:115), forward and
+// jax.experimental.pallas.ops.tpu.flash_attention (:119), forward and
 // backward.  It computes, per batch b and query head h,
 //
 //     O = softmax(scale * Q K^T [+ causal mask]) V,   scale = 1/sqrt(D),
@@ -37,12 +38,39 @@
 // launched heaviest first.  No tensor cores (wgmma takes tf32, not f32),
 // no TMA: that is work for a later pass.
 //
+// B3 and B4 replace dpwa_tpu/ops/flash_ring.py::_hop_fwd_pallas (:71) and
+// _hop_bwd_pallas (:156), which call the same library's
+// _flash_attention_impl (:75) and _flash_attention_bwd_dkv / _dq (:163,
+// :169) for one hop of ring attention: the query block of sequence-parallel
+// rank `me` against the key/value block of rank src = (me - hop) mod sp.
+// On one card the sp ranks are a virtual axis: q, k and v hold the whole
+// sequence, sp blocks of t_local rows, and ONE launch runs a hop for every
+// rank, each reading its source block in place (the ring moves no bytes).
+// A rank's case in a hop (2 bits of `cases`): skip (a future block: o = 0
+// and lse = -1e30, the reference's _NEG_INF, and no work), diag (causal
+// within the block) or full.  A launch may also cover a panel of the
+// blocks, `rows` rows from q_off in each query block against `rows` rows
+// from k_off in each key block: the zigzag layout's half stripes
+// (dpwa_tpu/ops/zigzag_ring.py:157-306).
+//   B3: one hop's o [B, sp * rows, H, D] and lse [B, H, sp * rows], rank
+//       after rank, as the reference's kernel returns them (o normalised,
+//       lse = m + log l).
+//   B4: given the GLOBAL lse and delta = rowsum(O * dO) ([B, H, T]), one
+//       hop's exact global gradients, ADDED into dq at the query rows and
+//       into dk, dv at the source block's rows: p = exp(s - lse) is the
+//       global softmax restricted to the block held.  In one launch every
+//       key block has one writer (src and me are one to one), so the sums
+//       need no atomics; hops follow each other on the stream.
+// B5 is the same kernels over one rank (sp = 1, rows = T), storing instead
+// of adding.  A ring over T does the flops of causal attention over T.
+//
 // The kernels (four):
-//   fwd_kernel    one block per (query tile, b*h): O and lse.
-//   delta_kernel  one warp per (b, t, h) row: delta = rowsum(dO * O).
-//   dkdv_kernel   one block per (key tile, b*kv): dK and dV, looping over
-//                 the group's query heads and the query tiles, P recomputed.
-//   dq_kernel     one block per (query tile, b*h): dQ.
+//   fwd_kernel    one block per (query tile, b*h, rank): O and lse.
+//   delta_kernel  one warp per (b, t, h) row: delta = rowsum(dO * O) (B5).
+//   dkdv_kernel   one block per (key tile, b*kv, source block): dK and dV,
+//                 looping over the group's query heads and the query tiles,
+//                 P recomputed.
+//   dq_kernel     one block per (query tile, b*h, rank): dQ.
 // Softmax uses expf and logf, not the fast intrinsics.
 
 #include <cuda_runtime.h>
@@ -54,6 +82,25 @@ namespace {
 constexpr int kTile = 64;       // rows of a query or key tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kLdP = kTile + 4; // row stride of a 64 x 64 tile in shared memory
+constexpr int kSkip = 0, kDiag = 1, kFull = 2;  // a rank's case in a hop
+constexpr float kNegInf = -1e30f;  // a skipped block's lse (the reference's _NEG_INF)
+
+// The rows a launch reads.  q, k and v hold sp blocks of t_local rows
+// (T = sp * t_local rows in all); rank `me` takes the query rows
+// [q_off, q_off + rows) of block me and the key rows [k_off, k_off + rows)
+// of block src = (me - hop) mod sp, in case (cases >> 2 me) & 3.  B5 is
+// {1, T, T, 0, 0, 0, diag or full}.
+struct Panel {
+  int sp, t_local, rows, q_off, k_off, hop;
+  unsigned long long cases;
+
+  __device__ int case_of(int me) const { return static_cast<int>((cases >> (2 * me)) & 3ull); }
+  __device__ int src_of(int me) const { return (me - hop + sp) % sp; }
+  __device__ int me_of(int src) const { return (src + hop) % sp; }
+  __device__ int64_t q_row(int me) const { return static_cast<int64_t>(me) * t_local + q_off; }
+  __device__ int64_t k_row(int src) const { return static_cast<int64_t>(src) * t_local + k_off; }
+  __device__ int64_t total() const { return static_cast<int64_t>(sp) * t_local; }
+};
 
 template <int D>
 __host__ __device__ constexpr int ld() { return D + 4; }  // row stride of a 64 x D tile
@@ -157,10 +204,10 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Store a thread's 4 x (D/16) accumulator block, times `mul`, into rows
-// row0 + ty + 16 i of a contiguous [.., D] tensor whose rows are `stride`
-// floats apart.
-template <int D>
+// Store (kAdd: add) a thread's 4 x (D/16) accumulator block, times `mul`,
+// into rows ty + 16 i of a contiguous [.., D] tensor whose rows are
+// `stride` floats apart.
+template <int D, bool kAdd>
 __device__ __forceinline__ void store_acc(float* g, int64_t stride, const float acc[4][D / 16],
                                           const float mul[4]) {
 #pragma unroll
@@ -173,27 +220,50 @@ __device__ __forceinline__ void store_acc(float* g, int64_t stride, const float 
       v.y = acc[i][4 * m + 1] * mul[i];
       v.z = acc[i][4 * m + 2] * mul[i];
       v.w = acc[i][4 * m + 3] * mul[i];
-      *reinterpret_cast<float4*>(row + 64 * m) = v;
+      float4* dst = reinterpret_cast<float4*>(row + 64 * m);
+      if (kAdd) {
+        const float4 old = *dst;
+        v.x += old.x;
+        v.y += old.y;
+        v.z += old.z;
+        v.w += old.w;
+      }
+      *dst = v;
     }
   }
 }
 
-template <int D, bool kCausal>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, int T, int H, int KV, float scale) {
+           float* __restrict__ lse, int H, int KV, float scale, Panel pan) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sKV = sQ + kTile * ld<D>();   // K, then V, of the current key tile
   float* sP = sKV + kTile * ld<D>();
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
   const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int me = blockIdx.z, rank_case = pan.case_of(me);
+  const int64_t T = pan.total(), To = static_cast<int64_t>(pan.sp) * pan.rows;  // rows in, rows out
   const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
-  const float* kbase = k + static_cast<int64_t>(b) * T * ks + kvh * D;
-  const float* vbase = v + static_cast<int64_t>(b) * T * ks + kvh * D;
-  const int64_t q0 = (static_cast<int64_t>(b) * T + qt * kTile) * qs + h * D;
-  load_tile<D>(sQ, q + q0, qs);
+  const int64_t orow = static_cast<int64_t>(me) * pan.rows + qt * kTile;
+  float* obase = o + (b * To + orow) * qs + h * D;
+  float* lbase = lse + bh * To + orow;
+  if (rank_case == kSkip) {  // a future block: nothing to attend to
+    constexpr int kVec = D / 4;
+    for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+      *reinterpret_cast<float4*>(obase + (i / kVec) * qs + (i % kVec) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (threadIdx.x < kTile) lbase[threadIdx.x] = kNegInf;
+    return;
+  }
+  const bool diag = rank_case == kDiag;
+  const int64_t k0 = (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
+  const float* kbase = k + k0;
+  const float* vbase = v + k0;
+  load_tile<D>(sQ, q + (b * T + pan.q_row(me) + qt * kTile) * qs + h * D, qs);
 
   float acc[4][D / 16];
   float m_i[4], l_i[4];
@@ -204,7 +274,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
-  const int n_kt = kCausal ? qt + 1 : T / kTile;
+  const int n_kt = diag ? qt + 1 : pan.rows / kTile;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile's V and P are no longer read
     load_tile<D>(sKV, kbase + kt * kTile * ks, ks);
@@ -217,7 +287,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] *= scale;
-        if (kCausal && kt == qt && tx() + 16 * j > ty() + 16 * i) s[i][j] = -INFINITY;
+        if (diag && kt == qt && tx() + 16 * j > ty() + 16 * i) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m_i[i], row_max(mx));
@@ -242,12 +312,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) inv[i] = 1.f / l_i[i];
-  store_acc<D>(o + q0, qs, acc, inv);
+  store_acc<D, false>(obase, qs, acc, inv);
   if (tx() == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      lse[static_cast<int64_t>(bh) * T + qt * kTile + ty() + 16 * i] = m_i[i] + logf(l_i[i]);
-    }
+    for (int i = 0; i < 4; ++i) lbase[ty() + 16 * i] = m_i[i] + logf(l_i[i]);
   }
 }
 
@@ -273,13 +341,13 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, int T, int H, int KV,
-            float scale) {
+            float* __restrict__ dk, float* __restrict__ dv, int H, int KV,
+            float scale, Panel pan) {
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + kTile * ld<D>();
@@ -290,8 +358,12 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sD = sL + kTile;
   const int kt = blockIdx.x;  // the most query tiles first, when causal
   const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV, group = H / KV;
+  const int src = blockIdx.z, me = pan.me_of(src), rank_case = pan.case_of(me);
+  if (rank_case == kSkip) return;  // rank me's queries do not see this block
+  const bool diag = rank_case == kDiag;
+  const int64_t T = pan.total();
   const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
-  const int64_t k0 = (static_cast<int64_t>(b) * T + kt * kTile) * ks + kvh * D;
+  const int64_t k0 = (b * T + pan.k_row(src) + kt * kTile) * ks + kvh * D;
   load_tile<D>(sK, k + k0, ks);
   load_tile<D>(sV, v + k0, ks);
 
@@ -301,14 +373,14 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
   }
-  const int n_qt = T / kTile;
+  const int n_qt = pan.rows / kTile;
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
-    const float* lrow = lse + (static_cast<int64_t>(b) * H + h) * T;
-    const float* drow = delta + (static_cast<int64_t>(b) * H + h) * T;
-    for (int qt = kCausal ? kt : 0; qt < n_qt; ++qt) {
+    const float* lrow = lse + (static_cast<int64_t>(b) * H + h) * T + pan.q_row(me);
+    const float* drow = delta + (static_cast<int64_t>(b) * H + h) * T + pan.q_row(me);
+    for (int qt = diag ? kt : 0; qt < n_qt; ++qt) {
       __syncthreads();  // the previous query tile is no longer read
-      const int64_t q0 = (static_cast<int64_t>(b) * T + qt * kTile) * qs + h * D;
+      const int64_t q0 = (b * T + pan.q_row(me) + qt * kTile) * qs + h * D;
       load_tile<D>(sQ, q + q0, qs);
       load_tile<D>(sdO, dout + q0, qs);
       load_row(sL, lrow + qt * kTile);
@@ -323,7 +395,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const int key = ty() + 16 * i, query = tx() + 16 * j;
           float e = expf(p[i][j] * scale - sL[query]);
-          if (kCausal && qt == kt && query < key) e = 0.f;
+          if (diag && qt == kt && query < key) e = 0.f;
           p[i][j] = e;
           sP[key * kLdP + query] = e;
         }
@@ -346,16 +418,16 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float ones[4] = {1.f, 1.f, 1.f, 1.f};
   const float scales[4] = {scale, scale, scale, scale};
-  store_acc<D>(dk + k0, ks, acc_k, scales);
-  store_acc<D>(dv + k0, ks, acc_v, ones);
+  store_acc<D, kAdd>(dk + k0, ks, acc_k, scales);
+  store_acc<D, kAdd>(dv + k0, ks, acc_v, ones);
 }
 
-template <int D, bool kCausal>
+template <int D, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int T, int H, int KV, float scale) {
+          float* __restrict__ dq, int H, int KV, float scale, Panel pan) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sdO = sQ + kTile * ld<D>();
@@ -366,14 +438,20 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sD = sL + kTile;
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
   const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int me = blockIdx.z, rank_case = pan.case_of(me);
+  if (rank_case == kSkip) return;  // no key of this hop's block is visible
+  const bool diag = rank_case == kDiag;
+  const int64_t T = pan.total();
   const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
-  const int64_t q0 = (static_cast<int64_t>(b) * T + qt * kTile) * qs + h * D;
-  const float* kbase = k + static_cast<int64_t>(b) * T * ks + kvh * D;
-  const float* vbase = v + static_cast<int64_t>(b) * T * ks + kvh * D;
+  const int64_t row0 = pan.q_row(me) + qt * kTile;
+  const int64_t q0 = (b * T + row0) * qs + h * D;
+  const int64_t k0 = (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
+  const float* kbase = k + k0;
+  const float* vbase = v + k0;
   load_tile<D>(sQ, q + q0, qs);
   load_tile<D>(sdO, dout + q0, qs);
-  load_row(sL, lse + static_cast<int64_t>(bh) * T + qt * kTile);
-  load_row(sD, delta + static_cast<int64_t>(bh) * T + qt * kTile);
+  load_row(sL, lse + bh * T + row0);
+  load_row(sD, delta + bh * T + row0);
 
   float acc[4][D / 16];
 #pragma unroll
@@ -381,7 +459,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
   }
-  const int n_kt = kCausal ? qt + 1 : T / kTile;
+  const int n_kt = diag ? qt + 1 : pan.rows / kTile;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous key tile and dS are no longer read
     load_tile<D>(sK, kbase + kt * kTile * ks, ks);
@@ -396,7 +474,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int query = ty() + 16 * i, key = tx() + 16 * j;
         float e = expf(s[i][j] * scale - sL[query]);
-        if (kCausal && kt == qt && key > query) e = 0.f;
+        if (diag && kt == qt && key > query) e = 0.f;
         sP[query * kLdP + key] = e * (dp[i][j] - sD[query]);
       }
     }
@@ -404,7 +482,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mm_ab<D>(sP, sK, acc);  // dQ += dS K (times scale, below)
   }
   const float scales[4] = {scale, scale, scale, scale};
-  store_acc<D>(dq + q0, qs, acc, scales);
+  store_acc<D, kAdd>(dq + q0, qs, acc, scales);
 }
 
 template <int D>
@@ -421,36 +499,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D, bool kCausal>
-int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B, int T,
-        int H, int KV, float scale, cudaStream_t s) {
-  auto kernel = fwd_kernel<D, kCausal>;
+template <int D>
+int fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H,
+        int KV, float scale, Panel pan, cudaStream_t s) {
+  auto kernel = fwd_kernel<D>;
   cudaError_t err = allow_smem(kernel, fwd_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(T / kTile, B * H);
-  kernel<<<grid, kThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, T, H, KV, scale);
+  const dim3 grid(pan.rows / kTile, B * H, pan.sp);
+  kernel<<<grid, kThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, H, KV, scale, pan);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kCausal>
-int bwd(const float* q, const float* k, const float* v, const float* o, const float* dout,
-        const float* lse, float* delta, float* dq, float* dk, float* dv, int B, int T, int H,
-        int KV, float scale, cudaStream_t s) {
-  const int64_t rows = static_cast<int64_t>(B) * T * H;
-  const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
-  delta_kernel<D><<<delta_blocks, kThreads, 0, s>>>(o, dout, delta, rows, T, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto dkdv = dkdv_kernel<D, kCausal>;
-  auto dqk = dq_kernel<D, kCausal>;
+// dK/dV, then dQ: two launches.
+template <int D, bool kAdd>
+int bwd(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+        const float* delta, float* dq, float* dk, float* dv, int B, int H, int KV, float scale,
+        Panel pan, cudaStream_t s) {
+  auto dkdv = dkdv_kernel<D, kAdd>;
+  auto dqk = dq_kernel<D, kAdd>;
+  cudaError_t err;
   if ((err = allow_smem(dkdv, bwd_smem<D>())) != cudaSuccess) return static_cast<int>(err);
   if ((err = allow_smem(dqk, bwd_smem<D>())) != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<dim3(T / kTile, B * KV), kThreads, bwd_smem<D>(), s>>>(
-      q, k, v, dout, lse, delta, dk, dv, T, H, KV, scale);
+  dkdv<<<dim3(pan.rows / kTile, B * KV, pan.sp), kThreads, bwd_smem<D>(), s>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, KV, scale, pan);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(T / kTile, B * H), kThreads, bwd_smem<D>(), s>>>(
-      q, k, v, dout, lse, delta, dq, T, H, KV, scale);
+  dqk<<<dim3(pan.rows / kTile, B * H, pan.sp), kThreads, bwd_smem<D>(), s>>>(
+      q, k, v, dout, lse, delta, dq, H, KV, scale, pan);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B5's panel: one rank holding the whole sequence.
+Panel whole(int T, int causal) {
+  return Panel{1, T, T, 0, 0, 0, static_cast<unsigned long long>(causal ? kDiag : kFull)};
 }
 
 }  // namespace
@@ -465,9 +545,8 @@ int dpwa_flash_attn_fwd_f32(const float* q, const float* k, const float* v, floa
                             float* lse, int B, int T, int H, int KV, int D, float scale,
                             int causal, void* stream) {
   if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? fwd<128, true>(q, k, v, o, lse, B, T, H, KV, scale, s)
-                : fwd<128, false>(q, k, v, o, lse, B, T, H, KV, scale, s);
+  return fwd<128>(q, k, v, o, lse, B, H, KV, scale, whole(T, causal),
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Backward.  Shapes as the forward, dout like o, dq like q, dk and dv like
@@ -478,8 +557,41 @@ int dpwa_flash_attn_bwd_f32(const float* q, const float* k, const float* v, cons
                             float scale, int causal, void* stream) {
   if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return causal ? bwd<128, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, H, KV, scale, s)
-                : bwd<128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T, H, KV, scale, s);
+  const int64_t rows = static_cast<int64_t>(B) * T * H;
+  const unsigned delta_blocks = static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
+  delta_kernel<128><<<delta_blocks, kThreads, 0, s>>>(o, dout, delta, rows, T, H);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return bwd<128, false>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, scale,
+                         whole(T, causal), s);
+}
+
+// B3, one ring hop for every rank.  q: [B, sp * t_local, H, D]; k, v:
+// [B, sp * t_local, KV, D]; o: [B, sp * rows, H, D]; lse: [B, H, sp * rows];
+// contiguous float32 on the device.  Rank r's panel and case as in Panel
+// (case of rank r in bits 2r, 2r + 1 of `cases`); the wrapper checks rows,
+// offsets and hop.  D 128 only.
+int dpwa_ring_hop_fwd_f32(const float* q, const float* k, const float* v, float* o,
+                          float* lse, int B, int sp, int t_local, int H, int KV, int D,
+                          float scale, int hop, int rows, int q_off, int k_off,
+                          unsigned long long cases, void* stream) {
+  if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const Panel pan{sp, t_local, rows, q_off, k_off, hop, cases};
+  return fwd<128>(q, k, v, o, lse, B, H, KV, scale, pan, static_cast<cudaStream_t>(stream));
+}
+
+// B4, one ring hop's gradients for every rank, added into dq (like q), dk
+// and dv (like k and v).  dout like q; lse and delta [B, H, sp * t_local],
+// the ring's global ones.  Two launches: dK/dV, dQ.
+int dpwa_ring_hop_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                          const float* lse, const float* delta, float* dq, float* dk,
+                          float* dv, int B, int sp, int t_local, int H, int KV, int D,
+                          float scale, int hop, int rows, int q_off, int k_off,
+                          unsigned long long cases, void* stream) {
+  if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const Panel pan{sp, t_local, rows, q_off, k_off, hop, cases};
+  return bwd<128, true>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, scale, pan,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* dpwa_flash_error_string(int err) {

@@ -90,7 +90,9 @@ _FLOAT = ctypes.c_float
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernels' library, built and loaded at the first launch."""
+    """The kernels' library (B5, and the ring hops B3 and B4 of
+    :mod:`dpwa_tpu_torch.ops.flash_ring`), built and loaded at the first
+    launch."""
     from dpwa_tpu_torch.ops import _build
 
     lib = _build.load("flash_attention.cu")
@@ -98,6 +100,13 @@ def _lib() -> ctypes.CDLL:
     lib.dpwa_flash_attn_fwd_f32.restype = _INT
     lib.dpwa_flash_attn_bwd_f32.argtypes = [_VOID] * 10 + [_INT] * 5 + [_FLOAT, _INT, _VOID]
     lib.dpwa_flash_attn_bwd_f32.restype = _INT
+    # (q, k, v, [do, lse, di,] outputs; B, sp, t_local, H, KV, D; scale;
+    # hop, rows, q_off, k_off; the case word; the stream)
+    ring = [_INT] * 6 + [_FLOAT] + [_INT] * 4 + [ctypes.c_ulonglong, _VOID]
+    lib.dpwa_ring_hop_fwd_f32.argtypes = [_VOID] * 5 + ring
+    lib.dpwa_ring_hop_fwd_f32.restype = _INT
+    lib.dpwa_ring_hop_bwd_f32.argtypes = [_VOID] * 9 + ring
+    lib.dpwa_ring_hop_bwd_f32.restype = _INT
     lib.dpwa_flash_error_string.argtypes = [_INT]
     lib.dpwa_flash_error_string.restype = ctypes.c_char_p
     return lib

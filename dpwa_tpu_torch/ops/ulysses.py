@@ -1,4 +1,5 @@
-"""Single-device attention (the port of part of :mod:`dpwa_tpu.ops.ulysses`).
+"""Single-device and Ulysses attention (the port of
+:mod:`dpwa_tpu.ops.ulysses`).
 
 :func:`single_device_attention` is the attention of the Llama model's
 single-device path: layout ``[B, T, heads, D]``, grouped-query K/V allowed,
@@ -7,8 +8,11 @@ TPU's place.  Its flash branch is the kernel B5
 (:mod:`dpwa_tpu_torch.ops.flash_attention`); its dense branch is the
 masked-softmax einsum in float32, a copy of the reference's.
 
-``ulysses_attention_local`` (the all-to-all sequence-parallel form) waits
-for the sequence-parallel path of the port.
+:func:`ulysses_attention_local` is the all-to-all sequence-parallel form
+over a virtual axis of ``sp`` ranks: the two all-to-alls become reshapes,
+and rank r's head-sharded attention over the whole sequence is batch entry
+r of one :func:`single_device_attention` call (so, on the card, of one B5
+launch for every rank).
 """
 
 from __future__ import annotations
@@ -54,3 +58,29 @@ def single_device_attention(q, k, v, *, causal: bool, impl: str = "auto") -> tor
     if use_flash:
         return flash_attention(q, k, v, causal=causal)
     return dense_attention(q, k, v, causal=causal)
+
+
+def ulysses_attention_local(q, k, v, sp: int, causal: bool = True, impl: str = "auto"):
+    """Ulysses attention over ``sp`` virtual ranks: ``q [B, T, H, D]`` and
+    ``k, v [B, T, KV, D]`` hold every rank's contiguous block; returns
+    ``[B, T, H, D]``.  Rank r attends with heads ``[r·H/sp, (r+1)·H/sp)``
+    over the whole sequence (grouped K/V: ``KV/sp`` groups each, or K/V
+    expanded to H first when ``KV % sp``, as the reference does)."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    if h % sp:
+        raise ValueError(
+            f"ulysses needs n_heads {h} divisible by sp={sp} "
+            "(attention is head-sharded after the all-to-all)"
+        )
+    if kv % sp:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+
+    def seq_to_heads(x):  # [B, T, X, D] -> [B·sp, T, X/sp, D], rank r's heads at b·sp + r
+        return x.unflatten(2, (sp, -1)).transpose(1, 2).flatten(0, 1)
+
+    out = single_device_attention(
+        seq_to_heads(q), seq_to_heads(k), seq_to_heads(v), causal=causal, impl=impl
+    )
+    return out.unflatten(0, (b, sp)).transpose(1, 2).flatten(2, 3)

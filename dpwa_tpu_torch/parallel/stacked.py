@@ -287,12 +287,29 @@ def make_stacked_train_step(
             "with_state=True (BatchNorm statistics as merged model state) is "
             "not ported yet"
         )
-    trainable = optimizer.trainable  # None: every leaf
 
     def split_loss(train, frozen, batch):
         return loss_fn({**frozen, **train}, batch)
 
     per_peer = torch.func.vmap(torch.func.grad_and_value(split_loss))
+    return make_step_from_grads(per_peer, optimizer, transport, exchange_filter, overlap)
+
+
+def make_step_from_grads(
+    grads_and_losses: Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor], Any],
+                               Tuple[Mapping[str, torch.Tensor], torch.Tensor]],
+    optimizer,
+    transport: StackedTransport,
+    exchange_filter: Optional[Callable[[str], bool]] = None,
+    overlap: bool = False,
+):
+    """The stacked train step around ``grads_and_losses(train, frozen,
+    batch) -> (grads, losses)``, which gives every peer's gradients of the
+    ``train`` leaves (``{name: [n, ...]}``) and its float ``[n]`` losses:
+    the optimizer on the flat buffer, then the exchange, as
+    :func:`make_stacked_train_step` describes.  The sequence-parallel step
+    (:mod:`dpwa_tpu_torch.train_sp`) shares it."""
+    trainable = optimizer.trainable  # None: every leaf
 
     def train_step(state: StackedTrainState, batch):
         if state.model_state is not None:
@@ -307,7 +324,7 @@ def make_stacked_train_step(
         views = params.views()
         train = {k: v for k, v in views.items() if trainable is None or trainable(k)}
         frozen = {k: v for k, v in views.items() if k not in train}
-        grads, losses = per_peer(train, frozen, batch)
+        grads, losses = grads_and_losses(train, frozen, batch)
         updates = optimizer.update_(params.pack(grads, trainable), state.opt_state)
         losses = losses.to(torch.float32)
         clock = state.clock + 1.0

@@ -8,7 +8,8 @@ profiler slows the host, so a profiled rate is not the example's rate.
 
 from __future__ import annotations
 
-# Kernel-name fragments of the port's own kernels, by family.
+# Kernel-name fragments of the port's own kernels, by family ("flash_attention"
+# is B5 and the ring hops B3/B4 alike: they share their kernels).
 KERNEL_FAMILIES = {
     "merge": ("merge_kernel",),
     "flash_attention": ("fwd_kernel", "delta_kernel", "dkdv_kernel", "dq_kernel"),

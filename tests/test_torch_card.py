@@ -8,9 +8,10 @@ up JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
 The merge kernels are held bit for bit against their plain versions on a
-CPU copy of the same inputs; the flash-attention kernels (B5) against their
-plain versions on the card (TF32 off), within a stated tolerance; the
-train steps on the card against the same steps on the CPU (TF32 off).
+CPU copy of the same inputs; the flash-attention kernels (B5) and the ring
+hops (B3, B4) against their plain versions on the card (TF32 off), within a
+stated tolerance; the train steps on the card against the same steps on the
+CPU (TF32 off).
 """
 
 import numpy as np
@@ -19,7 +20,8 @@ import torch
 
 from dpwa_tpu_torch.config import make_local_config
 from dpwa_tpu_torch.models import llama, resnet
-from dpwa_tpu_torch.ops import flash_attention, merge
+from dpwa_tpu_torch import train_sp
+from dpwa_tpu_torch.ops import flash_attention, flash_ring, merge
 from dpwa_tpu_torch.optim import adam, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
 from dpwa_tpu_torch.train import (
@@ -281,6 +283,159 @@ def test_llama_lora_step_on_card_matches_cpu(cuda_device):
     (cpu_l, cpu_p, cpu_n), (gpu_l, gpu_p, gpu_n) = results
     assert cpu_n == (0, 0, 0)
     assert gpu_n == (LLAMA_KW["n_layers"] * steps, LLAMA_KW["n_layers"] * steps, steps)
+    torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
+    for name, want in cpu_p.items():
+        got = gpu_p[name]
+        if llama.lora_filter(name):
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+            loose = (got - want).abs() > 1e-5 + 1e-3 * want.abs()
+            assert loose.float().mean().item() < 0.01
+        else:
+            assert torch.equal(got, params[name]) and torch.equal(want, params[name])
+
+
+RING_PLANS = {  # name: (layout, causal)
+    "contiguous": ("contiguous", True), "non_causal": ("contiguous", False),
+    "zigzag": ("zigzag", True),
+}
+
+
+@pytest.mark.parametrize("kv", [4, 2])
+@pytest.mark.parametrize("plan", list(RING_PLANS))
+def test_ring_hop_kernels_match_plain(cuda_device, plan, kv):
+    """B3 and B4 for every hop and panel of a 4-rank ring (the contiguous
+    causal ring's skip, diag and full ranks; the non-causal ring; the zigzag
+    ring's three half-stripe panels), against their plain versions on the
+    same card tensors, TF32 off: normwise 1e-5 forward and 1e-4 backward,
+    as B5.  A skipped rank writes (0, -1e30) and adds nothing; B4 adds into
+    accumulators that start non-zero."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout, causal = RING_PLANS[plan]
+    sp, t_local, b, h, d = 4, 256, 1, 4, 128
+    gen = torch.Generator().manual_seed(kv)
+    q, do = (torch.randn(b, sp * t_local, h, d, generator=gen).to(cuda_device) for _ in range(2))
+    k, v = (torch.randn(b, sp * t_local, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    out32, lse = flash_ring.ring_forward(q, k, v, sp, layout, causal, impl="jnp")
+    di = (out32 * do).sum(-1).transpose(1, 2).contiguous()
+    stripes, panels = flash_ring.hop_plan(layout, t_local, causal)
+    flash_ring.reset_launch_counts()
+    n = 0
+    for hop in range(sp):
+        for stripe, k_off, rule in panels:
+            q_off, rows = stripes[stripe]
+            kw = dict(sp=sp, hop=hop, cases=flash_ring.hop_cases(sp, hop, rule), rows=rows,
+                      q_off=q_off, k_off=k_off)
+            o, l = flash_ring.ring_hop_fwd(q, k, v, **kw)
+            want_o, want_l = flash_ring.torch_ring_hop_fwd(q, k, v, **kw)
+            skipped = want_l == flash_ring.NEG_INF
+            assert torch.equal(l[skipped], want_l[skipped])
+            assert max_rel_err(o, want_o) <= FWD_TOL
+            assert max_rel_err(l[~skipped], want_l[~skipped]) <= FWD_TOL
+            start = [torch.randn(x.shape, generator=gen).to(cuda_device) for x in (q, k, v)]
+            got, want = [x.clone() for x in start], [x.clone() for x in start]
+            flash_ring.ring_hop_bwd_(q, k, v, lse, do, di, *got, **kw)
+            flash_ring.torch_ring_hop_bwd_(q, k, v, lse, do, di, *want, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert max_rel_err(g, w) <= BWD_TOL
+            n += 1
+    assert flash_ring.ring_hop_fwd.launches == n and flash_ring.ring_hop_bwd_.launches == n
+
+
+def test_ring_hop_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 512, 4, 128, device=cuda_device)
+    k = torch.zeros(1, 512, 2, 128, device=cuda_device)
+    cases = flash_ring.hop_cases(4, 0, "causal")
+    with pytest.raises(TypeError):
+        flash_ring.ring_hop_fwd(q.double(), k, k, sp=4, hop=0, cases=cases)
+    with pytest.raises(ValueError):
+        flash_ring.ring_hop_fwd(q, k.cpu(), k, sp=4, hop=0, cases=cases)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        flash_ring.ring_hop_fwd(q, k, k, sp=4, hop=0, cases=cases, rows=64)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ring.ring_hop_fwd(q[..., :64], k[..., :64], k[..., :64], sp=4, hop=0, cases=cases)
+    with pytest.raises(ValueError, match="sp = 64"):
+        flash_ring.ring_hop_fwd(q, k, k, sp=64, hop=0, cases=(flash_ring.FULL,) * 64)
+    lse = torch.zeros(1, 4, 512, device=cuda_device)
+    dq, dk = torch.zeros_like(q), torch.zeros_like(k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ring.ring_hop_bwd_(q, k, k, lse, q, lse, dq.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), dk, dk.clone(), sp=4, hop=0, cases=cases)
+    with pytest.raises(ValueError, match="lse"):
+        flash_ring.ring_hop_bwd_(q, k, k, lse[:, :, :256], q, lse, dq, dk, dk.clone(),
+                                 sp=4, hop=0, cases=cases)
+
+
+SP_KW = dict(
+    vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
+    d_ff=384, max_seq_len=512, lora_rank=4,
+)
+
+
+@pytest.mark.parametrize("layout,strategy", [("contiguous", "ring"), ("zigzag", "ring"),
+                                             ("contiguous", "a2a")])
+def test_sp_lora_step_on_card_matches_cpu(cuda_device, layout, strategy):
+    """Two steps of a 2-peer sequence-parallel LoRA fine-tune at head_dim
+    128, T 512 over 2 virtual ranks (zigzag half stripes of 128): on the
+    card (the ring's hops through B3/B4, Ulysses through B5, the exchange
+    through B1) and on the CPU (the plain versions), from the same
+    parameters and batches, TF32 off.  Tolerances as the Llama step's
+    above; the frozen leaves bit-identical."""
+    from dpwa_tpu_torch.ops.zigzag_ring import zigzag_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, steps, sp = 2, 2, 2
+    cfg_kw = dict(SP_KW, sp_axis="sp", sp_layout=layout, sp_strategy=strategy)
+    model = llama.Llama(llama.LlamaConfig(**cfg_kw))
+    init = llama.init(model, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    params = {
+        k: torch.stack([v, v + 0.01 * torch.randn(v.shape, generator=gen)])
+        for k, v in init.items()
+    }
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(steps):
+        toks = torch.from_numpy(rng.integers(0, SP_KW["vocab_size"], (n, 1, 513)))
+        x, y = toks[..., :-1], toks[..., 1:]
+        if layout == "zigzag":
+            x, y = zigzag_shard(x, sp, axis=2), zigzag_shard(y, sp, axis=2)
+        batches.append((x, y))
+    results = []
+    for device in ("cpu", cuda_device):
+        t = stacked.StackedTransport(make_local_config(n, schedule="ring"), device=device)
+        opt = lora_optimizer(adam(1e-3), llama.lora_filter)
+
+        def loss_fn(p, batch):
+            logits = llama.apply(model, p, batch[0])
+            losses = softmax_cross_entropy_with_integer_labels(logits, batch[1])
+            return losses.sum(), torch.tensor(float(losses.numel()), device=losses.device)
+
+        state = train_sp.init_gossip_sp_state(params, opt, t)
+        step = train_sp.make_gossip_sp_train_step(
+            loss_fn, opt, t, exchange_filter=llama.lora_filter, sp=sp
+        )
+        merge.reset_launch_counts()
+        flash_attention.reset_launch_counts()
+        flash_ring.reset_launch_counts()
+        losses = []
+        for x, y in batches:
+            state, loss, _ = step(state, (x.to(device), y.to(device)))
+            losses.append(loss.cpu())
+        launches = (
+            flash_ring.ring_hop_fwd.launches, flash_ring.ring_hop_bwd_.launches,
+            flash_attention.flash_attn_fwd.launches, merge.pair_merge_.launches,
+        )
+        views = {k: v.cpu() for k, v in state.params.views().items()}
+        results.append((torch.stack(losses), views, launches))
+    (cpu_l, cpu_p, cpu_n), (gpu_l, gpu_p, gpu_n) = results
+    layers = SP_KW["n_layers"]
+    hops = layers * sp * (3 if layout == "zigzag" else 1) * steps
+    assert cpu_n == (0, 0, 0, 0)
+    if strategy == "ring":
+        assert gpu_n == (hops, hops, 0, steps)
+    else:
+        assert gpu_n == (0, 0, layers * steps, steps)
     torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
     for name, want in cpu_p.items():
         got = gpu_p[name]

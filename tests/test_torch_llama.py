@@ -176,7 +176,11 @@ def test_init_follows_flax_initialisers():
 
 
 def test_sp_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sp_axis"):
-        llama.LlamaConfig(sp_axis="sp")
+    """The sequence-parallel path is ported now (tests/test_torch_sp.py):
+    ``sp_axis`` builds, and its options are validated as the reference
+    validates them."""
+    assert llama.LlamaConfig(sp_axis="sp").sp_axis == "sp"
+    with pytest.raises(ValueError, match="requires sp_axis"):
+        llama.LlamaConfig(sp_layout="zigzag")
     with pytest.raises(ValueError, match="attn_impl"):
         llama.LlamaConfig(attn_impl="xla")

@@ -246,7 +246,8 @@ from dpwa_tpu_torch.train import init_params_per_peer, softmax_cross_entropy_wit
 from dpwa_tpu_torch.utils.launch import build_transport
 import dpwa_tpu_torch.examples.cifar10, dpwa_tpu_torch.convert, dpwa_tpu_torch.data
 import dpwa_tpu_torch.models.llama, dpwa_tpu_torch.ops.ulysses, dpwa_tpu_torch.utils.prng
-from dpwa_tpu_torch.examples import llama_lora
+import dpwa_tpu_torch.train_sp, dpwa_tpu_torch.ops.flash_ring, dpwa_tpu_torch.ops.zigzag_ring
+from dpwa_tpu_torch.examples import llama_lora, longcontext
 
 b = build_transport(load_config("examples/cifar10/nodes.yaml"), device="cpu")
 model = resnet.CifarResNet(depth=8)
@@ -261,6 +262,9 @@ state, losses, _ = step(state, (torch.rand(8, 2, 8, 8, 3), torch.zeros(8, 2, dty
 assert torch.isfinite(losses).all() and state.step == 1
 res = llama_lora.main(["--device", "cpu", "--peers", "2", "--steps", "1", "--seq-len", "8", "--batch-size", "1"])
 assert res["final_step"] == 1 and all(v == v for v in res["losses"]), res
+res = longcontext.main(["--device", "cpu", "--peers", "2", "--sp", "2", "--steps", "1",
+                        "--seq-len", "16", "--d-model", "16", "--n-layers", "1", "--lora", "2"])
+assert res["final_step"] == 1 and res["frozen_unchanged"], res
 bad = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "dpwa_tpu")
              or m.startswith(("jax.", "flax.", "optax.", "dpwa_tpu.")))
 print("FORBIDDEN", bad)
