@@ -40,6 +40,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -49,6 +51,7 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 MAIN_D = 272474  # ResNet-20's parameters per peer: the main path's row
 BIG_D = 24 * 2**20  # bench.py's default exchange size
 N_PEERS = 8
@@ -80,6 +83,11 @@ SP_PHASES = {  # phase: (layout, strategy, steps, profiled)
 
 
 OUT = []  # files that also get every emitted line (--out)
+# The backward kernels, storing (B5) and adding (B4): on the tensor cores.
+BWD_KERNELS = {
+    add: (f"dkdv_kernel<128, {str(add).lower()}>", f"dq_kernel<128, {str(add).lower()}>")
+    for add in (False, True)
+}
 
 
 def emit(obj) -> None:
@@ -98,10 +106,76 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS_PER_S
+    t_ops = flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_3xtf32_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The bound of float32 work done on the tensor cores in 3xTF32, three
+    TF32 products for each float32 one (the backward kernels' design)."""
+    return bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
+
+
+def kernel_name(mangled: str) -> str:
+    """``dkdv_kernel<128, true>`` from the mangled name of a kernel in an
+    anonymous namespace (other names come back as they are)."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if not m:
+        return mangled
+    start = m.start(1) + len(m.group(1)) + int(m.group(1))  # past the namespace's name
+    m = re.match(r"\d+", mangled[start:])
+    if not m:
+        return mangled
+    end = start + m.end() + int(m.group(0))
+    name, rest = mangled[start + m.end():end], mangled[end:]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not args:
+        return name
+    vals = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = kernel_name(m.group(1))
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(lib_path) -> dict:
+    """Per kernel of a built library, from ``cuobjdump -sass``: its TF32
+    tensor-core instructions and its float32 FMAs."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = kernel_name(m.group(1))
+            counts[current] = {"hmma_tf32": 0, "ffma": 0}
+        elif current is not None:
+            if re.search(r"\bHMMA\S*TF32", line):
+                counts[current]["hmma_tf32"] += 1
+            elif re.search(r"\bFFMA\b", line):
+                counts[current]["ffma"] += 1
+    return counts
 
 
 def time_ms(torch, fn, iters: int, flush) -> float:
@@ -330,7 +404,7 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     return {"cases": n_checked, "max_abs_err": max_err, "timings": timings}
 
 
-def flash_checks(torch, fa, device, flush) -> dict:
+def flash_checks(torch, fa, device, flush, ptxas) -> dict:
     """B5: forward (o, lse) and backward (dq, dk, dv) against the plain
     versions on the same card tensors (TF32 off), then times at the main
     path's shape: the kernels, the plain versions, and SDPA's forward and
@@ -395,6 +469,12 @@ def flash_checks(torch, fa, device, flush) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by, "flops": fl, "bytes": nb,
                     "tflops_per_s": fl / (ms * 1e-3) / 1e12,
                 }
+                if kind == "bwd":  # the backward runs on the tensor cores
+                    b3_ms, b3_by = bound_3xtf32_ms(nb, fl)
+                    timings[kind].update(
+                        bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
+                        ptxas={n: ptxas.get(n) for n in BWD_KERNELS[False]},
+                    )
             del qs, ks, vs, dos, out, ke, ve, plain_o, plain_lse
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
@@ -438,7 +518,7 @@ def library_attention(torch, q, k, v, dout):
     return name, fwd, bwd, out.detach().transpose(1, 2)
 
 
-def ring_checks(torch, fr, device, flush, kind: str) -> dict:
+def ring_checks(torch, fr, device, flush, kind: str, ptxas) -> dict:
     """B3 (kind "b3") or B4 ("b4") at the sequence-parallel path's shapes:
     every hop of the contiguous causal ring (skip, diag and full ranks), of
     the non-causal ring (all full) and of the zigzag ring (its three half
@@ -579,6 +659,10 @@ def ring_checks(torch, fr, device, flush, kind: str) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "flops": work, "bytes": n_bytes,
         "tflops_per_s": work / (ms * 1e-3) / 1e12,
     }
+    if kind == "b4":  # the backward runs on the tensor cores
+        b3_ms, b3_by = bound_3xtf32_ms(n_bytes, work)
+        timings.update(bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
+                       ptxas={n: ptxas.get(n) for n in BWD_KERNELS[True]})
     # The zigzag ring's panels: the same work in 3·sp launches.
     zz_stripes, zz_panels = plans["zigzag"]
     zz_calls = [(hop, fr.hop_cases(SP_SIZE, hop, rule), zz_stripes[s_][0], zz_stripes[s_][1], k_off)
@@ -639,11 +723,15 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
-    ptxas = [
-        line.strip() for log in logs.values() for line in log.splitlines()
-        if "registers" in line or "spill" in line or "Compiling entry" in line
-    ]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    ptxas = {}
+    for log in logs.values():
+        ptxas.update(ptxas_kernels(log))
+    # The backward kernels must run their products on the tensor cores.
+    sass = sass_counts(_build.library_path("flash_attention.cu"))
+    for name in (*BWD_KERNELS[False], *BWD_KERNELS[True]):
+        if not sass.get(name, {}).get("hmma_tf32"):
+            raise AssertionError(f"{name}: no TF32 tensor-core instruction in its SASS ({sass.get(name)})")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "sass": sass})
 
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=device)
     results = {}
@@ -656,13 +744,13 @@ def main(argv=None) -> int:
         emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **res})
     if "b5" in phases:
         t0 = time.perf_counter()
-        results["b5"] = flash_checks(torch, fa, device, flush)
+        results["b5"] = flash_checks(torch, fa, device, flush, ptxas)
         emit({"phase": "b5", "seconds": time.perf_counter() - t0, **results["b5"]})
     for kind_name in ("b3", "b4"):
         if kind_name not in phases:
             continue
         t0 = time.perf_counter()
-        results[kind_name] = ring_checks(torch, fr, device, flush, kind_name)
+        results[kind_name] = ring_checks(torch, fr, device, flush, kind_name, ptxas)
         emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **results[kind_name]})
         torch.cuda.empty_cache()
     del flush
@@ -875,6 +963,7 @@ def main(argv=None) -> int:
                 "max_abs_err": results["b5"]["max_abs_err"],
                 "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
                 "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+                "bound_3xtf32_ms": at_main.get("bound_3xtf32_ms"),
                 "library_ms": at_main["library_ms"],
                 "at_shape": [*B5_CASES[0][1:4], 128], "kv_heads": B5_CASES[0][4],
             })
@@ -894,6 +983,7 @@ def main(argv=None) -> int:
             "max_abs_err": results[kind_name]["max_abs_err"],
             "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
             "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+            "bound_3xtf32_ms": at_main.get("bound_3xtf32_ms"),
             "library_ms": at_main["library_ms"], "library": at_main["library"],
             "at_shape": at_main["shape_q"], "kv_heads": at_main["kv_heads"],
             "timed": f"one layer's {SP_SIZE} hops of the contiguous causal ring",

@@ -19,24 +19,30 @@
 //
 // What bounds it on this card: operations.  On the Llama path the tensors
 // are float32 (the reference promotes its "bf16" model to f32 before
-// attention), and float32 products run outside the tensor cores at 67 TF/s.
-// The causal forward does 2*B*H*T^2*D flops (QK^T and PV over half the
-// square), the backward about 2.5 times that; at B = 4, H = 32, T = 2048,
-// D = 128 that is 137 GFLOP, a bound of 2.05 ms, while its bytes (0.34 GB)
-// take 0.1 ms.  A float32 kernel cannot be bound by bytes here.
+// attention).  The causal forward does 2*B*H*T^2*D flops (QK^T and PV over
+// half the square), the backward about 2.5 times that; at B = 4, H = 32,
+// T = 2048, D = 128 that is 137 GFLOP forward and 344 GFLOP backward,
+// while the bytes (0.34 GB) take 0.1 ms.  A float32 kernel cannot be bound
+// by bytes here.  Outside the tensor cores float32 runs at 67 TF/s (the
+// forward's bound: 2.05 ms there).  The backward runs on the tensor cores in
+// 3xTF32, three TF32 products for each float32 one at 495 TF/s: a bound of
+// 3 * 344 GFLOP / 495 TF/s = 2.08 ms.
 //
-// What the design does about it: every product is a register-blocked FMA
-// loop over tiles staged in shared memory.  A block of 256 threads (16 x 16)
-// owns a 64-row query tile (forward, dQ) or key tile (dK/dV); each thread
-// keeps a 4 x 4 block of the 64 x 64 score tile and a 4 x (D/16) block of
-// the 64 x D accumulator in registers, so every shared-memory float4 read
-// feeds four or more FMAs.  Tiles are stored with a row stride of D + 4
-// floats, which makes the float4 reads of 16 different rows conflict-free.
-// The score tile never touches device memory (online softmax in the
-// forward, recomputation from the saved lse in the backward).  Causal
-// blocks skip the tiles above the diagonal, mask the diagonal tile, and are
-// launched heaviest first.  No tensor cores (wgmma takes tf32, not f32),
-// no TMA: that is work for a later pass.
+// The forward (fwd_kernel): every product is a register-blocked FMA loop
+// over tiles staged in shared memory.  A block of 256 threads (16 x 16)
+// owns a 64-row query tile; each thread keeps a 4 x 4 block of the 64 x 64
+// score tile and a 4 x (D/16) block of the 64 x D accumulator in registers,
+// so every shared-memory float4 read feeds four or more FMAs.  Tiles are
+// stored with a row stride of D + 4 floats, which makes the float4 reads of
+// 16 different rows conflict-free.  The score tile never touches device
+// memory (online softmax).  Causal blocks skip the tiles above the
+// diagonal, mask the diagonal tile, and are launched heaviest first.  No
+// tensor cores, no TMA: the forward's redesign is a later pass.
+//
+// The backward (dkdv_kernel, dq_kernel): the tensor cores through mma.sync
+// in 3xTF32, double-buffered cp.async tile loads, the score tile recomputed
+// from the saved lse and never in device memory; see the note above
+// tc_abt below.
 //
 // B3 and B4 replace dpwa_tpu/ops/flash_ring.py::_hop_fwd_pallas (:71) and
 // _hop_bwd_pallas (:156), which call the same library's
@@ -69,8 +75,12 @@
 //   delta_kernel  one warp per (b, t, h) row: delta = rowsum(dO * O) (B5).
 //   dkdv_kernel   one block per (key tile, b*kv, source block): dK and dV,
 //                 looping over the group's query heads and the query tiles,
-//                 P recomputed.
-//   dq_kernel     one block per (query tile, b*h, rank): dQ.
+//                 P recomputed (4 tile products a pair, tensor cores).
+//   dq_kernel     one block per (query tile, b*h, rank): dQ, P recomputed
+//                 again (3 tile products a pair, tensor cores).  dQ is not
+//                 fused into the dK/dV pass: that would need atomics, and
+//                 with one writer per row B4's sums and reruns stay
+//                 deterministic.
 // Softmax uses expf and logf, not the fast intrinsics.
 
 #include <cuda_runtime.h>
@@ -80,7 +90,7 @@
 namespace {
 
 constexpr int kTile = 64;       // rows of a query or key tile
-constexpr int kThreads = 256;   // 16 x 16
+constexpr int kThreads = 256;   // 16 x 16 (forward), 8 warps (backward)
 constexpr int kLdP = kTile + 4; // row stride of a 64 x 64 tile in shared memory
 constexpr int kSkip = 0, kDiag = 1, kFull = 2;  // a rank's case in a hop
 constexpr float kNegInf = -1e30f;  // a skipped block's lse (the reference's _NEG_INF)
@@ -118,11 +128,6 @@ __device__ __forceinline__ void load_tile(float* s, const float* g, int64_t stri
     const float4 v = __ldg(reinterpret_cast<const float4*>(g + r * stride + c));
     *reinterpret_cast<float4*>(s + r * ld<D>() + c) = v;
   }
-}
-
-// Load 64 consecutive floats (a tile's lse or delta) into shared memory.
-__device__ __forceinline__ void load_row(float* s, const float* g) {
-  if (threadIdx.x < kTile) s[threadIdx.x] = g[threadIdx.x];
 }
 
 // acc[i][j] += A[ty + 16 i] . B[tx + 16 j] over D: a 64 x 64 block of A B^T
@@ -204,10 +209,10 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Store (kAdd: add) a thread's 4 x (D/16) accumulator block, times `mul`,
-// into rows ty + 16 i of a contiguous [.., D] tensor whose rows are
-// `stride` floats apart.
-template <int D, bool kAdd>
+// Store a thread's 4 x (D/16) accumulator block, times `mul`, into rows
+// ty + 16 i of a contiguous [.., D] tensor whose rows are `stride` floats
+// apart.
+template <int D>
 __device__ __forceinline__ void store_acc(float* g, int64_t stride, const float acc[4][D / 16],
                                           const float mul[4]) {
 #pragma unroll
@@ -220,15 +225,7 @@ __device__ __forceinline__ void store_acc(float* g, int64_t stride, const float 
       v.y = acc[i][4 * m + 1] * mul[i];
       v.z = acc[i][4 * m + 2] * mul[i];
       v.w = acc[i][4 * m + 3] * mul[i];
-      float4* dst = reinterpret_cast<float4*>(row + 64 * m);
-      if (kAdd) {
-        const float4 old = *dst;
-        v.x += old.x;
-        v.y += old.y;
-        v.z += old.z;
-        v.w += old.w;
-      }
-      *dst = v;
+      *reinterpret_cast<float4*>(row + 64 * m) = v;
     }
   }
 }
@@ -312,7 +309,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float inv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) inv[i] = 1.f / l_i[i];
-  store_acc<D, false>(obase, qs, acc, inv);
+  store_acc<D>(obase, qs, acc, inv);
   if (tx() == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) lbase[ty() + 16 * i] = m_i[i] + logf(l_i[i]);
@@ -341,21 +338,248 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward (B4, B5's backward) on the tensor cores in 3xTF32.
+//
+// Every tile product goes through mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32
+// (HMMA.1688.F32.TF32).  A float32 operand x is split into two TF32 values,
+// big = x rounded to TF32 (to nearest, ties away) and small = x - big
+// truncated to TF32, and a product is taken as small*big + big*small, then
+// big*big, into float32 fragments: CUTLASS's OpMultiplyAddFastF32 (its
+// round_half_ulp_truncate / round_toward_zero pair), which PyTorch's
+// efficient attention runs for float32.  The rounding is done on the bits
+// (an add and two masks): cvt.rna.tf32.f32 compiles to twice that, with
+// checks for inf and NaN that finite scores do not need.  Only small*small
+// and small's truncation (about 2^-21 of a term, of either sign) are
+// dropped, so the result keeps float32's accuracy; one TF32 product alone
+// (dropping both small terms) is good to about 1e-3.
+// The tensor cores truncate as they accumulate, so a long sum in one
+// fragment drifts toward zero (7e-5 of dK, dV after the 3 x 1024 products
+// of a long-context key tile).  Each 64-row tile product therefore sums
+// into fresh fragments, and those are added to the block's accumulators
+// with float32 adds, which round to nearest.
+// mma.sync, not wgmma: wgmma's tf32 takes A and B only K-major, so P^T dO
+// and dS^T Q would need transposed copies of dO and Q, and mma.sync reads
+// its fragments from any layout the threads choose.
+//
+// Each block holds 64 keys (dK/dV) or 64 queries (dQ) against a 64-row tile
+// of the other side, 8 warps.  A 64 x 64 score tile is 2 x 4 warp tiles of
+// 32 x 16 (tc_abt), a 64 x D accumulator 2 x 4 warp tiles of 32 x D/4 (tc_ab).
+// Shared-memory strides, chosen so that every fragment read is free of bank
+// conflicts:
+//   - q, k, v, dO tiles: D + 8 floats (8 mod 32).  For the products over D
+//     (S = Q K^T, dP = dO V^T and their transposes) both operands are read
+//     along rows; the k index is permuted within each step of 8 (slot t and
+//     t + 4 read columns 2t and 2t + 1, the same for A and B, which leaves
+//     the sum unchanged), so a thread reads one float2, and a half warp's
+//     float2s cover the 32 banks once.  For the products over the 64 rows
+//     (P^T dO, dS^T Q, dS K) the tile is the [k][n] operand: lanes read
+//     rows tig, columns gid, banks 8 tig + gid, all different.  (D + 4, the
+//     forward's stride, collides there: 4 tig + gid.)
+//   - the P^T / dS tile: 64 + 4 floats, read as the A operand along rows
+//     (banks 4 gid + tig).
+// Tile loads are cp.async, double-buffered: the next query tile's Q, dO,
+// lse and delta rows (dK/dV) or the next key tile's K and V (dQ) are in
+// flight while the current one computes.  Six 64 x D tiles and the P tile
+// take 227 KB of shared memory, so one block (8 warps) runs on an SM.
+// What holds it back from its bound: those 8 warps (two a scheduler, the
+// dK/dV kernel at about 250 registers a thread) move from phase to phase
+// together at the barriers, so the tensor cores wait while the score
+// epilogue, the operand splits and the loads of fragments run.  Giving the
+// score product to warps 0-3 and dP to warps 4-7 as 32 x 32 warp tiles (a
+// third fewer operand splits) was slower: each half waits for the other.
+// Fusing dQ into the dK/dV pass (5 products a tile pair instead of 7, with
+// atomics) and wgmma are the next steps.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int ldm() { return D + 8; }  // row stride of a 64 x D tile (mma)
+
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most the newest group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Start copying 64 rows of D floats, `stride` floats apart in device
+// memory, into a shared tile with row stride D + 8.
+template <int D>
+__device__ __forceinline__ void load_tile_async(float* s, const float* g, int64_t stride) {
+  constexpr int kVec = D / 4;
+  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 4;
+    cp_async16(s + r * ldm<D>() + c, g + r * stride + c);
+  }
+}
+
+// Start copying 64 consecutive floats (a tile's lse or delta).
+__device__ __forceinline__ void load_row_async(float* s, const float* g) {
+  if (threadIdx.x < kTile) cp_async4(s + threadIdx.x, g + threadIdx.x);
+}
+
+constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent and 10 mantissa bits
+
+// x ~ big + small, each a TF32 value: big x rounded to nearest (ties away
+// from zero, for finite x), small the remainder truncated.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & kTf32Mask;
+  small = __float_as_uint(x - __uint_as_float(big)) & kTf32Mask;
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the two small terms first, then big * big.
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t a_big[4],
+                                           const uint32_t a_small[4], const uint32_t b_big[2],
+                                           const uint32_t b_small[2]) {
+  mma_tf32(c, a_small, b_big);
+  mma_tf32(c, a_big, b_small);
+  mma_tf32(c, a_big, b_big);
+}
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+__device__ __forceinline__ int warp_m() { return threadIdx.x >> 7; }        // 0..1
+__device__ __forceinline__ int warp_n() { return (threadIdx.x >> 5) & 3; }  // 0..3
+
+// acc += this warp's 32 x 16 block of A B^T, A and B 64 x D tiles (row
+// stride D + 8).  acc[mi][ni] is the C fragment of rows 32 wm + 16 mi +
+// {gid, gid + 8} and columns 16 wn + 8 ni + 2 tig + {0, 1}.
+template <int D>
+__device__ __forceinline__ void tc_abt(const float* A, const float* B, float acc[2][2][4]) {
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
+  const float* a0 = A + (32 * warp_m() + gid) * ldm<D>() + 2 * tig;
+  const float* b0 = B + (16 * warp_n() + gid) * ldm<D>() + 2 * tig;
+#pragma unroll
+  for (int k = 0; k < D; k += 8) {
+    uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      // k slot tig reads column k + 2 tig, slot tig + 4 column k + 2 tig + 1
+      const float2 top = *reinterpret_cast<const float2*>(a0 + 16 * mi * ldm<D>() + k);
+      const float2 bot = *reinterpret_cast<const float2*>(a0 + (16 * mi + 8) * ldm<D>() + k);
+      split(top.x, ab[mi][0], as[mi][0]);
+      split(bot.x, ab[mi][1], as[mi][1]);
+      split(top.y, ab[mi][2], as[mi][2]);
+      split(bot.y, ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const float2 col = *reinterpret_cast<const float2*>(b0 + 8 * ni * ldm<D>() + k);
+      split(col.x, bb[ni][0], bs[ni][0]);
+      split(col.y, bb[ni][1], bs[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma_3xtf32(acc[mi][ni], ab[mi], as[mi], bb[ni], bs[ni]);
+    }
+  }
+}
+
+// acc += this warp's 32 x D/4 block of P B, P a 64 x 64 tile (row stride
+// 64 + 4) and B a 64 x D tile (row stride D + 8).  acc[mi][ni] is the C
+// fragment of rows 32 wm + 16 mi + {gid, gid + 8} and columns D/4 wn +
+// 8 ni + 2 tig + {0, 1}.  The product sums into fresh fragments, added to
+// acc at the end (round to nearest).
+template <int D>
+__device__ __forceinline__ void tc_ab(const float* P, const float* B, float acc[2][D / 32][4]) {
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
+  float part[2][D / 32][4] = {};
+  const float* p0 = P + (32 * warp_m() + gid) * kLdP + tig;
+  const float* b0 = B + tig * ldm<D>() + (D / 4) * warp_n() + gid;
+#pragma unroll
+  for (int k = 0; k < kTile; k += 8) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* p = p0 + 16 * mi * kLdP + k;
+      split(p[0], ab[mi][0], as[mi][0]);
+      split(p[8 * kLdP], ab[mi][1], as[mi][1]);
+      split(p[4], ab[mi][2], as[mi][2]);
+      split(p[8 * kLdP + 4], ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < D / 32; ++ni) {
+      uint32_t bb[2], bs[2];
+      const float* b = b0 + k * ldm<D>() + 8 * ni;
+      split(b[0], bb[0], bs[0]);
+      split(b[4 * ldm<D>()], bb[1], bs[1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_3xtf32(part[mi][ni], ab[mi], as[mi], bb, bs);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < D / 32; ++ni) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[mi][ni][c];
+    }
+  }
+}
+
+// Store (kAdd: add) a warp's 32 x D/4 accumulator fragments, times `mul`,
+// into the rows of a contiguous [.., D] tensor whose rows are `stride`
+// floats apart.
 template <int D, bool kAdd>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_frag(float* g, int64_t stride, const float acc[2][D / 32][4],
+                                           float mul) {
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float* row = g + (32 * warp_m() + 16 * mi + gid + 8 * half) * stride +
+                   (D / 4) * warp_n() + 2 * tig;
+#pragma unroll
+      for (int ni = 0; ni < D / 32; ++ni) {
+        float2 v = make_float2(acc[mi][ni][2 * half] * mul, acc[mi][ni][2 * half + 1] * mul);
+        float2* dst = reinterpret_cast<float2*>(row + 8 * ni);
+        if (kAdd) {
+          const float2 old = *dst;
+          v.x += old.x;
+          v.y += old.y;
+        }
+        *dst = v;
+      }
+    }
+  }
+}
+
+template <int D, bool kAdd>
+__global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int H, int KV,
             float scale, Panel pan) {
   extern __shared__ float4 smem4[];
+  constexpr int kT = kTile * ldm<D>();
   float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + kTile * ld<D>();
-  float* sQ = sV + kTile * ld<D>();
-  float* sdO = sQ + kTile * ld<D>();
-  float* sP = sdO + kTile * ld<D>();
-  float* sL = sP + kTile * kLdP;
-  float* sD = sL + kTile;
+  float* sV = sK + kT;
+  float* sQ = sV + kT;     // two buffers
+  float* sdO = sQ + 2 * kT;  // two buffers
+  float* sP = sdO + 2 * kT;
+  float* sL = sP + kTile * kLdP;  // two buffers of 64
+  float* sD = sL + 2 * kTile;     // two buffers of 64
   const int kt = blockIdx.x;  // the most query tiles first, when causal
   const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV, group = H / KV;
   const int src = blockIdx.z, me = pan.me_of(src), rank_case = pan.case_of(me);
@@ -364,76 +588,101 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t T = pan.total();
   const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
   const int64_t k0 = (b * T + pan.k_row(src) + kt * kTile) * ks + kvh * D;
-  load_tile<D>(sK, k + k0, ks);
-  load_tile<D>(sV, v + k0, ks);
+  // The block walks (query head g of the group, query tile qt) pairs.
+  const int qt0 = diag ? kt : 0, n_q = pan.rows / kTile - qt0, n_it = group * n_q;
+  auto load_pair = [&](int it, int buf) {
+    const int h = kvh * group + it / n_q, qt = qt0 + it % n_q;
+    const int64_t row = pan.q_row(me) + qt * kTile;
+    const int64_t q0 = (b * T + row) * qs + h * D;
+    load_tile_async<D>(sQ + buf * kT, q + q0, qs);
+    load_tile_async<D>(sdO + buf * kT, dout + q0, qs);
+    const int64_t l0 = (static_cast<int64_t>(b) * H + h) * T + row;
+    load_row_async(sL + buf * kTile, lse + l0);
+    load_row_async(sD + buf * kTile, delta + l0);
+  };
+  load_tile_async<D>(sK, k + k0, ks);
+  load_tile_async<D>(sV, v + k0, ks);
+  load_pair(0, 0);
+  cp_async_commit();
 
-  float acc_k[4][D / 16], acc_v[4][D / 16];
+  float acc_k[2][D / 32][4] = {}, acc_v[2][D / 32][4] = {};
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1, qt = qt0 + it % n_q;
+    if (it + 1 < n_it) load_pair(it + 1, buf ^ 1);  // its buffer was freed at the end of it - 1
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();  // this pair's tiles have landed
+    const float* cQ = sQ + buf * kT;
+    const float* cdO = sdO + buf * kT;
+    const float* cL = sL + buf * kTile;
+    const float* cD = sD + buf * kTile;
+    // Transposed scores: rows are keys, columns queries.
+    float p[2][2][4] = {};
+    tc_abt<D>(sK, cQ, p);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-  }
-  const int n_qt = pan.rows / kTile;
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const float* lrow = lse + (static_cast<int64_t>(b) * H + h) * T + pan.q_row(me);
-    const float* drow = delta + (static_cast<int64_t>(b) * H + h) * T + pan.q_row(me);
-    for (int qt = diag ? kt : 0; qt < n_qt; ++qt) {
-      __syncthreads();  // the previous query tile is no longer read
-      const int64_t q0 = (b * T + pan.q_row(me) + qt * kTile) * qs + h * D;
-      load_tile<D>(sQ, q + q0, qs);
-      load_tile<D>(sdO, dout + q0, qs);
-      load_row(sL, lrow + qt * kTile);
-      load_row(sD, drow + qt * kTile);
-      __syncthreads();
-      // Transposed scores: rows are keys (ty + 16 i), columns queries.
-      float p[4][4] = {}, dp[4][4] = {};
-      mm_abt<D>(sK, sQ, p);
+      for (int ni = 0; ni < 2; ++ni) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+        for (int half = 0; half < 2; ++half) {
+          const int key = 32 * warp_m() + 16 * mi + gid + 8 * half;
+          const int query = 16 * warp_n() + 8 * ni + 2 * tig;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = ty() + 16 * i, query = tx() + 16 * j;
-          float e = expf(p[i][j] * scale - sL[query]);
-          if (diag && qt == kt && query < key) e = 0.f;
-          p[i][j] = e;
-          sP[key * kLdP + query] = e;
+          for (int j = 0; j < 2; ++j) {
+            float& e = p[mi][ni][2 * half + j];
+            e = expf(e * scale - cL[query + j]);
+            if (diag && qt == kt && query + j < key) e = 0.f;
+          }
+          *reinterpret_cast<float2*>(sP + key * kLdP + query) =
+              make_float2(p[mi][ni][2 * half], p[mi][ni][2 * half + 1]);
         }
       }
-      mm_abt<D>(sV, sdO, dp);  // dP^T[key][query] = V[key] . dO[query]
-      __syncthreads();          // P^T is complete
-      mm_ab<D>(sP, sdO, acc_v);  // dV += P^T dO
-      __syncthreads();          // P^T is no longer read
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = ty() + 16 * i, query = tx() + 16 * j;
-          sP[key * kLdP + query] = p[i][j] * (dp[i][j] - sD[query]);
-        }
-      }
-      __syncthreads();
-      mm_ab<D>(sP, sQ, acc_k);  // dK += dS^T Q (times scale, below)
     }
+    __syncthreads();  // P^T is complete
+    tc_ab<D>(sP, cdO, acc_v);  // dV += P^T dO
+    float ds[2][2][4] = {};
+    tc_abt<D>(sV, cdO, ds);  // dP^T[key][query] = V[key] . dO[query]
+    __syncthreads();         // P^T is no longer read
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int key = 32 * warp_m() + 16 * mi + gid + 8 * half;
+          const int query = 16 * warp_n() + 8 * ni + 2 * tig;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& d = ds[mi][ni][2 * half + j];
+            d = p[mi][ni][2 * half + j] * (d - cD[query + j]);
+          }
+          *reinterpret_cast<float2*>(sP + key * kLdP + query) =
+              make_float2(ds[mi][ni][2 * half], ds[mi][ni][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();  // dS^T is complete
+    tc_ab<D>(sP, cQ, acc_k);  // dK += dS^T Q (times scale, below)
+    __syncthreads();          // this pair's buffers and dS^T are no longer read
   }
-  const float ones[4] = {1.f, 1.f, 1.f, 1.f};
-  const float scales[4] = {scale, scale, scale, scale};
-  store_acc<D, kAdd>(dk + k0, ks, acc_k, scales);
-  store_acc<D, kAdd>(dv + k0, ks, acc_v, ones);
+  store_frag<D, kAdd>(dk + k0, ks, acc_k, scale);
+  store_frag<D, kAdd>(dv + k0, ks, acc_v, 1.f);
 }
 
 template <int D, bool kAdd>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, int H, int KV, float scale, Panel pan) {
   extern __shared__ float4 smem4[];
+  constexpr int kT = kTile * ldm<D>();
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sdO = sQ + kTile * ld<D>();
-  float* sK = sdO + kTile * ld<D>();
-  float* sV = sK + kTile * ld<D>();
-  float* sP = sV + kTile * ld<D>();
+  float* sdO = sQ + kT;
+  float* sK = sdO + kT;     // two buffers
+  float* sV = sK + 2 * kT;  // two buffers
+  float* sP = sV + 2 * kT;
   float* sL = sP + kTile * kLdP;
   float* sD = sL + kTile;
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
@@ -445,52 +694,67 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
   const int64_t row0 = pan.q_row(me) + qt * kTile;
   const int64_t q0 = (b * T + row0) * qs + h * D;
-  const int64_t k0 = (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
-  const float* kbase = k + k0;
-  const float* vbase = v + k0;
-  load_tile<D>(sQ, q + q0, qs);
-  load_tile<D>(sdO, dout + q0, qs);
-  load_row(sL, lse + bh * T + row0);
-  load_row(sD, delta + bh * T + row0);
+  const float* kbase = k + (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
+  const float* vbase = v + (kbase - k);
+  load_tile_async<D>(sQ, q + q0, qs);
+  load_tile_async<D>(sdO, dout + q0, qs);
+  load_row_async(sL, lse + bh * T + row0);
+  load_row_async(sD, delta + bh * T + row0);
+  load_tile_async<D>(sK, kbase, ks);
+  load_tile_async<D>(sV, vbase, ks);
+  cp_async_commit();
 
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
+  float acc[2][D / 32][4] = {};
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
   const int n_kt = diag ? qt + 1 : pan.rows / kTile;
   for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the previous key tile and dS are no longer read
-    load_tile<D>(sK, kbase + kt * kTile * ks, ks);
-    load_tile<D>(sV, vbase + kt * kTile * ks, ks);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_abt<D>(sQ, sK, s);
-    mm_abt<D>(sdO, sV, dp);
+    const int buf = kt & 1;
+    if (kt + 1 < n_kt) {  // its buffers were freed at the end of kt - 1
+      load_tile_async<D>(sK + (buf ^ 1) * kT, kbase + (kt + 1) * kTile * ks, ks);
+      load_tile_async<D>(sV + (buf ^ 1) * kT, vbase + (kt + 1) * kTile * ks, ks);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();  // this key tile has landed
+    const float* cK = sK + buf * kT;
+    float s[2][2][4] = {}, ds[2][2][4] = {};
+    tc_abt<D>(sQ, cK, s);
+    tc_abt<D>(sdO, sV + buf * kT, ds);  // dP = dO V^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int query = ty() + 16 * i, key = tx() + 16 * j;
-        float e = expf(s[i][j] * scale - sL[query]);
-        if (diag && kt == qt && key > query) e = 0.f;
-        sP[query * kLdP + key] = e * (dp[i][j] - sD[query]);
+      for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int query = 32 * warp_m() + 16 * mi + gid + 8 * half;
+          const int key = 16 * warp_n() + 8 * ni + 2 * tig;
+          float d[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = 2 * half + j;
+            float e = expf(s[mi][ni][c] * scale - sL[query]);
+            if (diag && kt == qt && key + j > query) e = 0.f;
+            d[j] = e * (ds[mi][ni][c] - sD[query]);
+          }
+          *reinterpret_cast<float2*>(sP + query * kLdP + key) = make_float2(d[0], d[1]);
+        }
       }
     }
-    __syncthreads();
-    mm_ab<D>(sP, sK, acc);  // dQ += dS K (times scale, below)
+    __syncthreads();  // dS is complete
+    tc_ab<D>(sP, cK, acc);  // dQ += dS K (times scale, below)
+    __syncthreads();        // this key tile and dS are no longer read
   }
-  const float scales[4] = {scale, scale, scale, scale};
-  store_acc<D, kAdd>(dq + q0, qs, acc, scales);
+  store_frag<D, kAdd>(dq + q0, qs, acc, scale);
 }
 
 template <int D>
 constexpr size_t fwd_smem() { return (2 * kTile * ld<D>() + kTile * kLdP) * sizeof(float); }
 
+// Six 64 x D tiles (two of them double-buffered pairs), the P tile, and
+// two buffers each of lse and delta rows (dK/dV; dQ uses one of each).
 template <int D>
 constexpr size_t bwd_smem() {
-  return (4 * kTile * ld<D>() + kTile * kLdP + 2 * kTile) * sizeof(float);
+  return (6 * kTile * ldm<D>() + kTile * kLdP + 4 * kTile) * sizeof(float);
 }
 
 template <typename Kernel>

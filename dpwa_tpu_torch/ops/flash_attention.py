@@ -8,7 +8,9 @@ each beside its plain PyTorch version:
 - :func:`flash_attn_fwd` → ``(o, lse)``: ``o = softmax(scale·q kᵀ) v`` and the
   rows' log-sum-exp ``lse`` (``[B, H, T]``), ``scale = 1/√D``;
 - :func:`flash_attn_bwd` → ``(dq, dk, dv)`` from ``q, k, v, o, lse`` and
-  ``do`` (three kernel launches: ``Δ = rowsum(do∘o)``, dK/dV, dQ).
+  ``do`` (three kernel launches: ``Δ = rowsum(do∘o)``, dK/dV, dQ; the last
+  two take their products on the tensor cores in 3xTF32, which keeps
+  float32's accuracy).
 
 Layout is the model's ``[B, T, heads, D]``; ``k`` and ``v`` may carry fewer
 heads than ``q`` (grouped-query attention, read in place by the kernels).

@@ -147,3 +147,73 @@ def test_kernel_shape_checks(shapes, match):
         flash_attention._check_qkv(q, k, k, "flash_attn_fwd")
     with pytest.raises(TypeError, match="float32"):
         flash_attention._check_qkv(q.double(), k, k, "flash_attn_fwd")
+
+
+BWD_TOL = 1e-4  # the card tests' normwise tolerance for the backward kernels
+
+
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """``x`` cut to TF32 (10 mantissa bits): rounded to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds, or truncated."""
+    bits = x.contiguous().view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the tensor cores take it: "1xtf32" one
+    product of the operands rounded to TF32; "3xtf32" each operand split
+    into a rounded TF32 big part and a truncated TF32 remainder, and
+    small·big + big·small + big·big (the backward kernels' products)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if mode == "1xtf32":
+        return torch.einsum(eq, a_big, b_big)
+    a_small, b_small = _tf32(a - a_big, rounded=False), _tf32(b - b_big, rounded=False)
+    return (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def _tf32_flash_bwd(q, k, v, o, lse, do, causal: bool, mode: str):
+    """The plain backward (``torch_flash_attn_bwd``) with every one of its
+    five products taken in ``mode``."""
+    heads, kv = q.shape[2], k.shape[2]
+    ke, ve = flash_attention._expand_kv(k, heads), flash_attention._expand_kv(v, heads)
+    s = _tf32_product("bthd,bshd->bhts", q, ke, mode) / D ** 0.5
+    if causal:
+        t = s.shape[-1]
+        s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dv = _tf32_product("bhts,bthd->bshd", p, do, mode)
+    dp = _tf32_product("bthd,bshd->bhts", do, ve, mode)
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = _tf32_product("bhts,bshd->bthd", ds, ke, mode) / D ** 0.5
+    dk = _tf32_product("bhts,bthd->bshd", ds, q, mode) / D ** 0.5
+    return (dq, flash_attention._sum_groups(dk, kv), flash_attention._sum_groups(dv, kv))
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv", [4, 1])
+def test_3xtf32_products_keep_the_backward_inside_the_card_tolerance(kv, causal, q_scale):
+    """The precision decision behind the backward kernels, emulated here at
+    the card test's shapes: with every product in 3xTF32 the gradients stay
+    within the card's normwise ``BWD_TOL`` of the float32 plain backward;
+    with one TF32 product (the small terms dropped) each falls outside it,
+    so the card tests can tell a kernel that drops them.  ``q_scale`` 8
+    makes the softmax nearly one-hot and the scores large, as the card's
+    stress cases do."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(384, kv, seed=kv + 2 * causal))
+    q = q * q_scale
+    o, lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=causal)
+    want = flash_attention.torch_flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
+    three = _tf32_flash_bwd(q, k, v, o, lse, do, causal, "3xtf32")
+    one = _tf32_flash_bwd(q, k, v, o, lse, do, causal, "1xtf32")
+
+    def normwise(got, ref):
+        return (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+    for name, w, g3, g1 in zip(("dq", "dk", "dv"), want, three, one):
+        assert normwise(g3, w) <= BWD_TOL, name
+        assert normwise(g1, w) > BWD_TOL, name

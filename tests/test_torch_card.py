@@ -211,6 +211,32 @@ def test_flash_attention_kernels_match_plain(cuda_device, t, causal, kv):
     assert flash_attention.flash_attn_bwd.launches == 1
 
 
+@pytest.mark.parametrize("t,q_scale,causal,kv", [
+    (384, 8.0, True, 4), (384, 8.0, False, 1), (2048, 1.0, True, 1),
+])
+def test_flash_attention_backward_on_stressed_inputs(cuda_device, t, q_scale, causal, kv):
+    """B5's backward, whose products run on the tensor cores in 3xTF32,
+    on inputs that stress the split of each operand into a TF32 big part
+    and remainder: q scaled by 8 (scores eight times larger, a softmax
+    nearly one-hot) and the Llama path's T 2048.  Against the plain
+    backward on the same card tensors, TF32 off, at the same normwise
+    ``BWD_TOL`` (one TF32 product per float32 one would miss it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(t + kv + int(q_scale))
+    b, h, d = 2, 4, 128
+    q, do = (torch.randn(b, t, h, d, generator=gen).to(cuda_device) for _ in range(2))
+    q = q * q_scale
+    k, v = (torch.randn(b, t, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    o, lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=causal)
+    flash_attention.reset_launch_counts()
+    grads = flash_attention.flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention.torch_flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
+    for got, ref in zip(grads, want):
+        assert max_rel_err(got, ref) <= BWD_TOL
+    assert flash_attention.flash_attn_bwd.launches == 1
+
+
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 128, 4, 128, device=cuda_device)
     k = torch.zeros(1, 128, 2, 128, device=cuda_device)
@@ -340,6 +366,43 @@ def test_ring_hop_kernels_match_plain(cuda_device, plan, kv):
                 assert max_rel_err(g, w) <= BWD_TOL
             n += 1
     assert flash_ring.ring_hop_fwd.launches == n and flash_ring.ring_hop_bwd_.launches == n
+
+
+@pytest.mark.parametrize("plan,t_local,q_scale", [
+    ("contiguous", 256, 8.0), ("zigzag", 256, 8.0), ("contiguous", 2048, 1.0),
+])
+def test_ring_hop_backward_on_stressed_inputs(cuda_device, plan, t_local, q_scale):
+    """B4, on the tensor cores in 3xTF32, for every hop and panel of a
+    4-rank ring with q scaled by 8 (large scores, a nearly one-hot
+    softmax), and at the long-context path's T_local 2048: added into
+    non-zero accumulators, against the plain hops on the same card
+    tensors, TF32 off, at the same normwise ``BWD_TOL``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout, causal = RING_PLANS[plan]
+    sp, b, h, kv, d = 4, 1, 4, 2, 128
+    gen = torch.Generator().manual_seed(t_local + int(q_scale))
+    q, do = (torch.randn(b, sp * t_local, h, d, generator=gen).to(cuda_device) for _ in range(2))
+    q = q * q_scale
+    k, v = (torch.randn(b, sp * t_local, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    out32, lse = flash_ring.ring_forward(q, k, v, sp, layout, causal, impl="jnp")
+    di = (out32 * do).sum(-1).transpose(1, 2).contiguous()
+    stripes, panels = flash_ring.hop_plan(layout, t_local, causal)
+    flash_ring.reset_launch_counts()
+    n = 0
+    for hop in range(sp):
+        for stripe, k_off, rule in panels:
+            q_off, rows = stripes[stripe]
+            kw = dict(sp=sp, hop=hop, cases=flash_ring.hop_cases(sp, hop, rule), rows=rows,
+                      q_off=q_off, k_off=k_off)
+            start = [torch.randn(x.shape, generator=gen).to(cuda_device) for x in (q, k, v)]
+            got, want = [x.clone() for x in start], [x.clone() for x in start]
+            flash_ring.ring_hop_bwd_(q, k, v, lse, do, di, *got, **kw)
+            flash_ring.torch_ring_hop_bwd_(q, k, v, lse, do, di, *want, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert max_rel_err(g, w) <= BWD_TOL
+            n += 1
+    assert flash_ring.ring_hop_bwd_.launches == n
 
 
 def test_ring_hop_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
