@@ -63,11 +63,15 @@ ALL_PHASES = (
 # The Llama path: 4 peers of Llama-3-8B width, 2 layers, batch 1, T 2048.
 LLAMA_PEERS, LLAMA_LAYERS, LLAMA_T, LLAMA_STEPS = 4, 2, 2048, 6
 # B5 at the path's shapes ([n·B, T, H, D] q, [n·B, T, KV, D] k and v) and
-# two more: non-causal, and a shorter T with full (ungrouped) k and v.
+# more: non-causal, a shorter T with full (ungrouped) k and v, and q scaled
+# by 8 (large scores, a nearly one-hot softmax).  (name, B, T, H, KV,
+# causal, q scale)
 B5_CASES = (
-    ("main", 4, 2048, 32, 8, True),
-    ("non_causal", 4, 2048, 32, 8, False),
-    ("short_full_kv", 4, 384, 32, 32, True),
+    ("main", 4, 2048, 32, 8, True, 1.0),
+    ("non_causal", 4, 2048, 32, 8, False, 1.0),
+    ("short_full_kv", 4, 384, 32, 32, True, 1.0),
+    ("main_q8", 4, 2048, 32, 8, True, 8.0),
+    ("non_causal_q8", 4, 2048, 32, 8, False, 8.0),
 )
 B5_TOL = {"fwd": 1e-5, "bwd": 1e-4}  # normwise: max|Δ| / max(1, max|plain|)
 # The sequence-parallel path: 2 peers of Llama-3-8B width, 2 layers, batch 1,
@@ -83,7 +87,9 @@ SP_PHASES = {  # phase: (layout, strategy, steps, profiled)
 
 
 OUT = []  # files that also get every emitted line (--out)
-# The backward kernels, storing (B5) and adding (B4): on the tensor cores.
+# The forward kernel (B3, B5's forward) and the backward kernels, storing
+# (B5) and adding (B4): all on the tensor cores.
+FWD_KERNEL = "fwd_kernel<128>"
 BWD_KERNELS = {
     add: (f"dkdv_kernel<128, {str(add).lower()}>", f"dq_kernel<128, {str(add).lower()}>")
     for add in (False, True)
@@ -414,8 +420,9 @@ def flash_checks(torch, fa, device, flush, ptxas) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(5)
     cases, timings = {}, {}
-    for name, b, t, h, kv, causal in B5_CASES:
+    for name, b, t, h, kv, causal, q_scale in B5_CASES:
         q, do = (torch.randn(b, t, h, 128, device=device, generator=gen) for _ in range(2))
+        q *= q_scale
         k, v = (torch.randn(b, t, kv, 128, device=device, generator=gen) for _ in range(2))
         o, lse = fa.flash_attn_fwd(q, k, v, causal=causal)
         grads = fa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal)
@@ -436,7 +443,16 @@ def flash_checks(torch, fa, device, flush, ptxas) -> dict:
                     f"b5 {name}: {key} normwise error {diff / scale} > {tol} "
                     f"(max_abs_err {diff})"
                 )
-        cases[name] = {"shape_q": [b, t, h, 128], "kv_heads": kv, "causal": causal, "errors": errs}
+        cases[name] = {"shape_q": [b, t, h, 128], "kv_heads": kv, "causal": causal,
+                       "q_scale": q_scale, "errors": errs}
+        if q_scale != 1.0:
+            # Where the error against the plain version comes from: the
+            # kernel's o and the plain float32 o, each against float64.
+            o64 = fa.torch_flash_attn_fwd(q.double(), k.double(), v.double(), causal=causal)[0]
+            cases[name]["o_normwise_vs_float64"] = {
+                "kernel": normwise(o, o64)[1], "plain": normwise(want["o"], o64)[1],
+            }
+            del o64
         del want, want_o, want_lse, grads
         if name == "main":
             ke, ve = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
@@ -469,12 +485,12 @@ def flash_checks(torch, fa, device, flush, ptxas) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by, "flops": fl, "bytes": nb,
                     "tflops_per_s": fl / (ms * 1e-3) / 1e12,
                 }
-                if kind == "bwd":  # the backward runs on the tensor cores
-                    b3_ms, b3_by = bound_3xtf32_ms(nb, fl)
-                    timings[kind].update(
-                        bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
-                        ptxas={n: ptxas.get(n) for n in BWD_KERNELS[False]},
-                    )
+                b3_ms, b3_by = bound_3xtf32_ms(nb, fl)  # both run on the tensor cores
+                names = (FWD_KERNEL,) if kind == "fwd" else BWD_KERNELS[False]
+                timings[kind].update(
+                    bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
+                    ptxas={n: ptxas.get(n) for n in names},
+                )
             del qs, ks, vs, dos, out, ke, ve, plain_o, plain_lse
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
@@ -552,15 +568,19 @@ def ring_checks(torch, fr, device, flush, kind: str, ptxas) -> dict:
             del out32
     cases, max_err, worst = [], 0.0, 0.0
     seen = set()
-    for plan_name, (stripes, panels) in plans.items():
+    # B3 again with q scaled by 8 (large scores, a nearly one-hot softmax).
+    stressed = {f"{name}_q8": plan for name, plan in plans.items()} if kind == "b3" else {}
+    q8 = q * 8.0 if stressed else None
+    for plan_name, (stripes, panels) in {**plans, **stressed}.items():
+        qp = q8 if plan_name in stressed else q
         for hop in range(SP_SIZE):
             for stripe, k_off, rule in panels:
                 q_off, rows = stripes[stripe]
                 cs = fr.hop_cases(SP_SIZE, hop, rule)
                 kw = dict(sp=SP_SIZE, hop=hop, cases=cs, rows=rows, q_off=q_off, k_off=k_off)
                 if kind == "b3":
-                    got = fr.ring_hop_fwd(q, k, v, **kw)
-                    want = fr.torch_ring_hop_fwd(q, k, v, **kw)
+                    got = fr.ring_hop_fwd(qp, k, v, **kw)
+                    want = fr.torch_ring_hop_fwd(qp, k, v, **kw)
                     torch.cuda.synchronize()
                     pairs = {"o": (got[0], want[0]), "lse": (got[1], want[1])}
                     for me, c in enumerate(cs):
@@ -599,6 +619,7 @@ def ring_checks(torch, fr, device, flush, kind: str, ptxas) -> dict:
     if seen != {fr.SKIP, fr.DIAG, fr.FULL}:
         raise AssertionError(f"{kind}: cases seen {seen}")
     residuals.clear()
+    del q8
     torch.cuda.empty_cache()
 
     # The whole ring through the kernels against the plain ring.
@@ -659,10 +680,9 @@ def ring_checks(torch, fr, device, flush, kind: str, ptxas) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "flops": work, "bytes": n_bytes,
         "tflops_per_s": work / (ms * 1e-3) / 1e12,
     }
-    if kind == "b4":  # the backward runs on the tensor cores
-        b3_ms, b3_by = bound_3xtf32_ms(n_bytes, work)
-        timings.update(bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
-                       ptxas={n: ptxas.get(n) for n in BWD_KERNELS[True]})
+    b3_ms, b3_by = bound_3xtf32_ms(n_bytes, work)  # both run on the tensor cores
+    timings.update(bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by,
+                   ptxas={n: ptxas.get(n) for n in ((FWD_KERNEL,) if kind == "b3" else BWD_KERNELS[True])})
     # The zigzag ring's panels: the same work in 3·sp launches.
     zz_stripes, zz_panels = plans["zigzag"]
     zz_calls = [(hop, fr.hop_cases(SP_SIZE, hop, rule), zz_stripes[s_][0], zz_stripes[s_][1], k_off)
@@ -726,9 +746,9 @@ def main(argv=None) -> int:
     ptxas = {}
     for log in logs.values():
         ptxas.update(ptxas_kernels(log))
-    # The backward kernels must run their products on the tensor cores.
+    # The attention kernels must run their products on the tensor cores.
     sass = sass_counts(_build.library_path("flash_attention.cu"))
-    for name in (*BWD_KERNELS[False], *BWD_KERNELS[True]):
+    for name in (FWD_KERNEL, *BWD_KERNELS[False], *BWD_KERNELS[True]):
         if not sass.get(name, {}).get("hmma_tf32"):
             raise AssertionError(f"{name}: no TF32 tensor-core instruction in its SASS ({sass.get(name)})")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "sass": sass})
@@ -815,6 +835,7 @@ def main(argv=None) -> int:
         main_launches[phase] = launches
         emit({
             "phase": phase, "steps": steps, "steps_per_sec": res["steps_per_sec"],
+            "init_seconds": res["init_seconds"], "step0_loss": losses[0],
             "losses": losses, "mean_accuracy": sum(res["accuracy"]) / len(res["accuracy"]),
             "launches": launches, "payload_bytes": res["payload_bytes"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
@@ -863,7 +884,8 @@ def main(argv=None) -> int:
         emit({
             "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
             "n_peers": LLAMA_PEERS, "n_layers": LLAMA_LAYERS, "seq_len": LLAMA_T,
-            "steps_per_sec": res["steps_per_sec"], "losses": losses,
+            "steps_per_sec": res["steps_per_sec"], "init_seconds": res["init_seconds"],
+            "step0_loss": losses[0], "losses": losses,
             "launches": launches, "lora_column_ranges": res["lora_column_ranges"],
             "flat_layout": "LoRA leaves grouped in the leading columns",
             "payload_bytes": res["payload_bytes"],
@@ -920,7 +942,8 @@ def main(argv=None) -> int:
             "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
             "n_peers": SP_PEERS, "sp": SP_SIZE, "n_layers": LLAMA_LAYERS, "seq_len": SP_T,
             "sp_layout": layout, "sp_strategy": strategy,
-            "steps_per_sec": res["steps_per_sec"], "losses": losses,
+            "steps_per_sec": res["steps_per_sec"], "init_seconds": res["init_seconds"],
+            "step0_loss": losses[0], "losses": losses,
             "tokens_per_sec": res["steps_per_sec"] * SP_PEERS * SP_T,
             "launches": launches,
             "launches_per_step": {key: n / steps for key, n in launches.items()},
@@ -966,6 +989,7 @@ def main(argv=None) -> int:
                 "bound_3xtf32_ms": at_main.get("bound_3xtf32_ms"),
                 "library_ms": at_main["library_ms"],
                 "at_shape": [*B5_CASES[0][1:4], 128], "kv_heads": B5_CASES[0][4],
+                "ptxas": at_main["ptxas"],
             })
     for kind_name, name, replaces in (
         ("b3", "ring_hop_fwd", "dpwa_tpu/ops/flash_ring.py:71"),
@@ -986,6 +1010,7 @@ def main(argv=None) -> int:
             "bound_3xtf32_ms": at_main.get("bound_3xtf32_ms"),
             "library_ms": at_main["library_ms"], "library": at_main["library"],
             "at_shape": at_main["shape_q"], "kv_heads": at_main["kv_heads"],
+            "ptxas": at_main["ptxas"],
             "timed": f"one layer's {SP_SIZE} hops of the contiguous causal ring",
         })
     emit({"kernels": kernels})

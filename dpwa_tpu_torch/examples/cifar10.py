@@ -104,7 +104,7 @@ def main(argv=None) -> dict:
         make_gossip_eval_fn,
         softmax_cross_entropy_with_integer_labels,
     )
-    from dpwa_tpu_torch.utils import trace
+    from dpwa_tpu_torch.utils import prng, trace
     from dpwa_tpu_torch.utils.pytree import tree_wire_bytes
 
     bundle = build_transport(
@@ -123,10 +123,14 @@ def main(argv=None) -> dict:
     model = resnet.ResNet20(
         dtype=torch.bfloat16 if args.bf16 else torch.float32
     ).to(device)
-    generator = torch.Generator().manual_seed(0)
+    # Every peer from jax.random.key(0), split per peer, as the reference.
+    t_init = time.perf_counter()
     stacked = init_params_per_peer(
-        lambda g: resnet.init(model, g), generator, n, device
+        lambda k: resnet.init(model, k, device), prng.key(0), n, device
     )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_seconds = time.perf_counter() - t_init
     opt = sgd(args.lr, momentum=0.9)
     state = bundle.init_state(stacked, opt, transport)
 
@@ -195,6 +199,7 @@ def main(argv=None) -> dict:
         "n_peers": n,
         "steps": args.steps,
         "steps_per_sec": steps_per_sec,
+        "init_seconds": init_seconds,
         "losses": mean_losses,
         "accuracy": accs,
         "payload_bytes": payload,

@@ -85,7 +85,7 @@ def run(
         init_params_per_peer,
         softmax_cross_entropy_with_integer_labels,
     )
-    from dpwa_tpu_torch.utils import trace
+    from dpwa_tpu_torch.utils import prng, trace
     from dpwa_tpu_torch.utils.launch import build_transport
     from dpwa_tpu_torch.utils.pytree import tree_wire_bytes
 
@@ -97,13 +97,18 @@ def run(
     if device.type == "cuda":  # the initialisation's peak, read below
         torch.cuda.reset_peak_memory_stats(device)
     model = llama.Llama(model_config)
-    generator = torch.Generator(device=device).manual_seed(0)
     opt = lora_optimizer(adam(lr), llama.lora_filter)
-    # Built in the layout the optimizer needs (the LoRA leaves first), so
-    # the state takes the buffer over instead of copying it.
+    # Every peer from jax.random.key(0), split per peer, as the reference,
+    # drawn on the device; built in the layout the optimizer needs (the
+    # LoRA leaves first), so the state takes the buffer over as it is.
+    t_init = time.perf_counter()
     stacked = init_params_per_peer(
-        lambda g: llama.init(model, g), generator, peers, device, first=opt.trainable
+        lambda k: llama.init(model, k, device), prng.key(0), peers, device,
+        first=opt.trainable,
     )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_seconds = time.perf_counter() - t_init
     state = bundle.init_state(stacked, opt, bundle.transport)
 
     def loss_fn(params, batch):
@@ -165,6 +170,7 @@ def run(
         "n_peers": peers,
         "steps": steps,
         "steps_per_sec": steps_per_sec,
+        "init_seconds": init_seconds,
         "losses": mean_losses,
         "final_step": state.step,
         "payload_bytes": payload,

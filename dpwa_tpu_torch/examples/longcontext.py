@@ -79,7 +79,7 @@ def run(
         init_gossip_sp_state,
         make_gossip_sp_train_step,
     )
-    from dpwa_tpu_torch.utils import trace
+    from dpwa_tpu_torch.utils import prng, trace
     from dpwa_tpu_torch.utils.launch import build_transport
 
     if steps < 1:
@@ -93,10 +93,16 @@ def run(
     lora = model_config.lora_rank > 0
     opt = lora_optimizer(adam(lr), llama.lora_filter) if lora else adam(lr)
     exchange_filter = llama.lora_filter if lora else None
-    generator = torch.Generator(device=device).manual_seed(0)
+    # Every peer from jax.random.key(0), split per peer, as the reference,
+    # drawn on the device.
+    t_init = time.perf_counter()
     stacked = init_params_per_peer(
-        lambda g: llama.init(model, g), generator, peers, device, first=opt.trainable
+        lambda k: llama.init(model, k, device), prng.key(0), peers, device,
+        first=opt.trainable,
     )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    init_seconds = time.perf_counter() - t_init
     state = init_gossip_sp_state(stacked, opt, bundle.transport)
 
     def sp_loss(params, batch):
@@ -147,6 +153,7 @@ def run(
         "sp": sp,
         "steps": steps,
         "steps_per_sec": steps_per_sec,
+        "init_seconds": init_seconds,
         "losses": mean_losses,
         "partners": info.partner.cpu().tolist(),
         "final_step": state.step,

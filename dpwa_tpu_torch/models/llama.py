@@ -41,7 +41,6 @@ order, rope gets the blocks' global positions, and attention is the ring
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -52,6 +51,7 @@ from dpwa_tpu_torch.ops.ring_attention import ring_attention_local
 from dpwa_tpu_torch.ops.ulysses import single_device_attention, ulysses_attention_local
 from dpwa_tpu_torch.ops.zigzag_ring import zigzag_positions, zigzag_ring_attention
 from dpwa_tpu_torch.parallel import virtual_axis
+from dpwa_tpu_torch.utils import flax_rng, prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,34 +318,29 @@ def param_shapes(model: Llama) -> dict[str, tuple[int, ...]]:
     return {name: tuple(p.shape) for name, p in model.named_parameters()}
 
 
-def _trunc_normal_(t: torch.Tensor, std: float, generator) -> torch.Tensor:
-    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
-def init(model: Llama, generator: torch.Generator, device=None) -> dict[str, torch.Tensor]:
-    """Fresh float32 parameters on ``device`` (the generator's device by
-    default), with Flax's initialisers: truncated lecun-normal kernels
-    (``σ = √(1/fan_in) / 0.8796…`` in ±2σ), the embedding
-    ``N(0, 1/d_model)`` (``variance_scaling(1, fan_in, normal, out_axis=0)``),
-    ``lora_a`` ``N(0, 0.02²)``, zero ``lora_b`` and unit norm scales.  The
-    values are PyTorch's draws, not JAX's."""
-    device = torch.device(device) if device is not None else generator.device
+def init(model: Llama, key: prng.Key, device=None) -> dict[str, torch.Tensor]:
+    """Fresh float32 parameters on ``device`` (the CPU by default), the ones
+    Flax's ``model.init(key, …)`` makes: each leaf drawn from its own key
+    (:func:`~dpwa_tpu_torch.utils.flax_rng.param_key`) with the reference's
+    initialiser, truncated lecun-normal kernels, the embedding's
+    ``variance_scaling(1, fan_in, normal, out_axis=0)``, ``lora_a``
+    ``normal(0.02)`` (the second parameter of its LoRADense), zero
+    ``lora_b`` and unit norm scales.  The port keeps Flax's layouts, so no
+    leaf is transposed."""
     params = {}
-    with torch.no_grad():
-        for name, shape in param_shapes(model).items():
-            leaf = name.rsplit(".", 1)[-1]
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            if leaf == "kernel":
-                _trunc_normal_(t, math.sqrt(1.0 / shape[0]) / 0.87962566103423978, generator)
-            elif leaf == "embedding":
-                t.normal_(0.0, math.sqrt(1.0 / shape[1]), generator=generator)
-            elif leaf == "lora_a":
-                t.normal_(0.0, 0.02, generator=generator)
-            elif leaf == "lora_b":
-                t.zero_()
-            elif leaf == "scale":
-                t.fill_(1.0)
-            else:  # pragma: no cover - every leaf above is named
-                raise ValueError(f"no initialiser for {name}")
-            params[name] = t
+    for name, shape in param_shapes(model).items():
+        *path, leaf = name.split(".")
+        if leaf == "kernel":
+            t = flax_rng.lecun_normal(flax_rng.param_key(key, path, 1), shape, device)
+        elif leaf == "embedding":
+            t = flax_rng.embed_normal(flax_rng.param_key(key, path, 1), shape, device)
+        elif leaf == "lora_a":
+            t = flax_rng.normal(flax_rng.param_key(key, path, 2), shape, 0.02, device)
+        elif leaf == "lora_b":
+            t = torch.zeros(shape, dtype=torch.float32, device=device)
+        elif leaf == "scale":
+            t = torch.ones(shape, dtype=torch.float32, device=device)
+        else:  # pragma: no cover - every leaf above is named
+            raise ValueError(f"no initialiser for {name}")
+        params[name] = t
     return params

@@ -21,11 +21,11 @@ ImageNet ResNet-50 and ``norm='batch'`` are not ported yet.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dpwa_tpu_torch.utils import flax_rng, prng
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -150,9 +150,9 @@ class CifarResNet(nn.Module):
                 in_features, index = filters, index + 1
         self.n_blocks = index
         self.Dense_0 = Dense(64, num_classes)
-        for name, p in self.named_parameters():
-            if name.endswith("kernel"):
-                _lecun_normal_(p, None)
+        with torch.no_grad():
+            for name, value in init(self, prng.key(0)).items():
+                self.get_parameter(name).copy_(value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: NHWC ``[B, H, W, 3]`` → logits ``[B, num_classes]``."""
@@ -171,27 +171,24 @@ def ResNet56(**kw) -> CifarResNet:
     return CifarResNet(depth=56, **kw)
 
 
-def _lecun_normal_(kernel: torch.Tensor, generator: torch.Generator | None) -> None:
-    # Flax's default kernel init: truncated normal in ±2σ with
-    # σ = sqrt(1 / fan_in) / 0.8796…, fan_in the input features times the
-    # receptive field (the kernel's size per output feature).
-    std = math.sqrt(1.0 / kernel[0].numel()) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
-def init(model: nn.Module, generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+def init(model: nn.Module, key: prng.Key, device=None) -> dict[str, torch.Tensor]:
     """Fresh parameters for ``model`` as a new ``{name: tensor}`` dict on
-    the CPU, as Flax's ``model.init`` makes them: lecun-normal Conv and
-    Dense kernels, unit norm scales, zero biases.  The module itself is
-    left as it is."""
+    ``device`` (the CPU by default), the ones Flax's ``model.init(key, …)``
+    makes: lecun-normal Conv and Dense kernels, each drawn from its own key
+    in Flax's HWIO / ``[in, out]`` shape and laid out as the port's OIHW /
+    ``[out, in]``; unit norm scales, zero biases.  The module itself is left
+    as it is."""
     params = {}
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        t = torch.zeros(p.shape, dtype=torch.float32)
-        if leaf == "kernel":
-            _lecun_normal_(t, generator)
+        *path, leaf = name.split(".")
+        if leaf == "kernel":  # a Conv's or the Dense's first parameter
+            shape = tuple(p.shape)
+            flax_shape = (*shape[2:], shape[1], shape[0])  # OIHW -> HWIO; [out, in] -> [in, out]
+            drawn = flax_rng.lecun_normal(flax_rng.param_key(key, path, 1), flax_shape, device)
+            t = drawn.permute(3, 2, 0, 1) if drawn.dim() == 4 else drawn.t()
+            params[name] = t.contiguous()
         elif leaf == "scale":
-            t.fill_(1.0)
-        params[name] = t
+            params[name] = torch.ones(p.shape, dtype=torch.float32, device=device)
+        else:
+            params[name] = torch.zeros(p.shape, dtype=torch.float32, device=device)
     return params

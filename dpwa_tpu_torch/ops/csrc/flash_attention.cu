@@ -23,21 +23,44 @@
 // half the square), the backward about 2.5 times that; at B = 4, H = 32,
 // T = 2048, D = 128 that is 137 GFLOP forward and 344 GFLOP backward,
 // while the bytes (0.34 GB) take 0.1 ms.  A float32 kernel cannot be bound
-// by bytes here.  Outside the tensor cores float32 runs at 67 TF/s (the
-// forward's bound: 2.05 ms there).  The backward runs on the tensor cores in
-// 3xTF32, three TF32 products for each float32 one at 495 TF/s: a bound of
-// 3 * 344 GFLOP / 495 TF/s = 2.08 ms.
+// by bytes here.  Outside the tensor cores float32 runs at 67 TF/s (a
+// bound of 2.05 ms for that forward).  Both directions run on the tensor
+// cores in 3xTF32, three TF32 products for each float32 one at 495 TF/s:
+// bounds of 3 * 137 GFLOP / 495 TF/s = 0.83 ms forward and 3 * 344 GFLOP /
+// 495 TF/s = 2.08 ms backward.
 //
-// The forward (fwd_kernel): every product is a register-blocked FMA loop
-// over tiles staged in shared memory.  A block of 256 threads (16 x 16)
-// owns a 64-row query tile; each thread keeps a 4 x 4 block of the 64 x 64
-// score tile and a 4 x (D/16) block of the 64 x D accumulator in registers,
-// so every shared-memory float4 read feeds four or more FMAs.  Tiles are
-// stored with a row stride of D + 4 floats, which makes the float4 reads of
-// 16 different rows conflict-free.  The score tile never touches device
-// memory (online softmax).  Causal blocks skip the tiles above the
-// diagonal, mask the diagonal tile, and are launched heaviest first.  No
-// tensor cores, no TMA: the forward's redesign is a later pass.
+// The forward (fwd_kernel): a block of 4 warps owns a 64-row query tile,
+// each warp 16 of its rows, and walks the key tiles with an online softmax;
+// the score tile never touches device memory.  Both products of a key tile
+// (S = Q K^T over D, then O += P V over the tile's 64 keys) go through
+// mma.sync in 3xTF32, as the backward's do (see the note above tc_abt
+// below).  A warp holds whole rows of S, so the softmax's row max and sum
+// are reductions over the 4 lanes of a quad, and P stays in registers: with
+// the k slots permuted as the backward permutes them (slot t and t + 4 take
+// keys 2t and 2t + 1), the C fragment of S is the A fragment of P.  P V
+// then reads V at rows 2 tig and 2 tig + 1, column gid, so V's tile has its
+// own row stride, D + 4 (banks 8 tig + gid; D + 8 would collide); Q and K,
+// read as float2 along rows, keep the backward's D + 8.  Fresh fragments
+// against the truncating accumulation: S sums over D in chunks of 32
+// columns, each added with float32 adds (one fragment over all 128 columns
+// missed FWD_TOL on an H100, 1.02e-5 with q scaled by 8: scores in the
+// hundreds), and each 64-key tile's P V sums into fresh fragments for all
+// D / 8 output column blocks at once (64 registers; their 16 dependent
+// chains of 24 products run side by side), added to the float32
+// accumulator after its online rescale.  Q stays in shared memory and is
+// split for each key tile: split once, its big and small parts would need
+// 128 more registers a thread or a second 34 KB tile, and either leaves
+// one block an SM.  K
+// and V have a buffer each, loaded by cp.async while the other is read:
+// the next K tile during the softmax and P V, the next V tile during the
+// next S.  About 101 KB of shared memory a block, so two blocks (8 warps)
+// share an SM.  Causal blocks skip the tiles above the diagonal, mask the
+// diagonal tile, and are launched heaviest first.  What holds it back from
+// its bound: at 254 registers two warps a scheduler hide the latency of
+// the mma chains and of the four barriers a key tile (running P V's chains
+// side by side instead of one at a time made it 1.2x faster on an H100
+// 80GB HBM3 at 700 W), and each warp splits the whole K and V tile for its
+// own 16 rows.
 //
 // The backward (dkdv_kernel, dq_kernel): the tensor cores through mma.sync
 // in 3xTF32, double-buffered cp.async tile loads, the score tile recomputed
@@ -90,7 +113,8 @@
 namespace {
 
 constexpr int kTile = 64;       // rows of a query or key tile
-constexpr int kThreads = 256;   // 16 x 16 (forward), 8 warps (backward)
+constexpr int kThreads = 256;   // 8 warps (backward, delta)
+constexpr int kFwdThreads = 128;  // 4 warps (forward)
 constexpr int kLdP = kTile + 4; // row stride of a 64 x 64 tile in shared memory
 constexpr int kSkip = 0, kDiag = 1, kFull = 2;  // a rank's case in a hop
 constexpr float kNegInf = -1e30f;  // a skipped block's lse (the reference's _NEG_INF)
@@ -111,210 +135,6 @@ struct Panel {
   __device__ int64_t k_row(int src) const { return static_cast<int64_t>(src) * t_local + k_off; }
   __device__ int64_t total() const { return static_cast<int64_t>(sp) * t_local; }
 };
-
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 4; }  // row stride of a 64 x D tile
-
-__device__ __forceinline__ int ty() { return threadIdx.x >> 4; }
-__device__ __forceinline__ int tx() { return threadIdx.x & 15; }
-
-// Copy 64 rows of D floats, `stride` floats apart in device memory, into a
-// shared tile with row stride D + 4.
-template <int D>
-__device__ __forceinline__ void load_tile(float* s, const float* g, int64_t stride) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(g + r * stride + c));
-    *reinterpret_cast<float4*>(s + r * ld<D>() + c) = v;
-  }
-}
-
-// acc[i][j] += A[ty + 16 i] . B[tx + 16 j] over D: a 64 x 64 block of A B^T
-// with A and B 64 x D tiles in shared memory.
-template <int D>
-__device__ __forceinline__ void mm_abt(const float* A, const float* B, float acc[4][4]) {
-  const float* a0 = A + ty() * ld<D>();
-  const float* b0 = B + tx() * ld<D>();
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(a0 + 16 * i * ld<D>() + d);
-      b[i] = *reinterpret_cast<const float4*>(b0 + 16 * i * ld<D>() + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-}
-
-// acc[i][4 m + c] += sum_k P[ty + 16 i][k] * B[k][tx * 4 + 64 m + c]: a
-// 64 x D block of P B with P a 64 x 64 tile (row stride kLdP) and B a
-// 64 x D tile in shared memory.
-template <int D>
-__device__ __forceinline__ void mm_ab(const float* P, const float* B, float acc[4][D / 16]) {
-  constexpr int kM = D / 64;
-  const float* p0 = P + ty() * kLdP;
-  const float* b0 = B + tx() * 4;
-#pragma unroll 2
-  for (int k = 0; k < kTile; k += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      p[i] = *reinterpret_cast<const float4*>(p0 + 16 * i * kLdP + k);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float4 b[kM];
-#pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        b[m] = *reinterpret_cast<const float4*>(b0 + (k + kk) * ld<D>() + 64 * m);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pk = kk == 0 ? p[i].x : kk == 1 ? p[i].y : kk == 2 ? p[i].z : p[i].w;
-#pragma unroll
-        for (int m = 0; m < kM; ++m) {
-          acc[i][4 * m + 0] = fmaf(pk, b[m].x, acc[i][4 * m + 0]);
-          acc[i][4 * m + 1] = fmaf(pk, b[m].y, acc[i][4 * m + 1]);
-          acc[i][4 * m + 2] = fmaf(pk, b[m].z, acc[i][4 * m + 2]);
-          acc[i][4 * m + 3] = fmaf(pk, b[m].w, acc[i][4 * m + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Reductions over the 16 threads that share a row (one half of a warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Store a thread's 4 x (D/16) accumulator block, times `mul`, into rows
-// ty + 16 i of a contiguous [.., D] tensor whose rows are `stride` floats
-// apart.
-template <int D>
-__device__ __forceinline__ void store_acc(float* g, int64_t stride, const float acc[4][D / 16],
-                                          const float mul[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = g + (ty() + 16 * i) * stride + tx() * 4;
-#pragma unroll
-    for (int m = 0; m < D / 64; ++m) {
-      float4 v;
-      v.x = acc[i][4 * m + 0] * mul[i];
-      v.y = acc[i][4 * m + 1] * mul[i];
-      v.z = acc[i][4 * m + 2] * mul[i];
-      v.w = acc[i][4 * m + 3] * mul[i];
-      *reinterpret_cast<float4*>(row + 64 * m) = v;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, int H, int KV, float scale, Panel pan) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sKV = sQ + kTile * ld<D>();   // K, then V, of the current key tile
-  float* sP = sKV + kTile * ld<D>();
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int me = blockIdx.z, rank_case = pan.case_of(me);
-  const int64_t T = pan.total(), To = static_cast<int64_t>(pan.sp) * pan.rows;  // rows in, rows out
-  const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
-  const int64_t orow = static_cast<int64_t>(me) * pan.rows + qt * kTile;
-  float* obase = o + (b * To + orow) * qs + h * D;
-  float* lbase = lse + bh * To + orow;
-  if (rank_case == kSkip) {  // a future block: nothing to attend to
-    constexpr int kVec = D / 4;
-    for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-      *reinterpret_cast<float4*>(obase + (i / kVec) * qs + (i % kVec) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    if (threadIdx.x < kTile) lbase[threadIdx.x] = kNegInf;
-    return;
-  }
-  const bool diag = rank_case == kDiag;
-  const int64_t k0 = (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
-  const float* kbase = k + k0;
-  const float* vbase = v + k0;
-  load_tile<D>(sQ, q + (b * T + pan.q_row(me) + qt * kTile) * qs + h * D, qs);
-
-  float acc[4][D / 16];
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kt = diag ? qt + 1 : pan.rows / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile<D>(sKV, kbase + kt * kTile * ks, ks);
-    __syncthreads();
-    float s[4][4] = {};
-    mm_abt<D>(sQ, sKV, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] *= scale;
-        if (diag && kt == qt && tx() + 16 * j > ty() + 16 * i) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], row_max(mx));
-      const float alpha = expf(m_i[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        sP[(ty() + 16 * i) * kLdP + tx() + 16 * j] = p;
-      }
-      l_i[i] = l_i[i] * alpha + row_sum(sum);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // K is no longer read; P is complete
-    load_tile<D>(sKV, vbase + kt * kTile * ks, ks);
-    __syncthreads();
-    mm_ab<D>(sP, sKV, acc);
-  }
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) inv[i] = 1.f / l_i[i];
-  store_acc<D>(obase, qs, acc, inv);
-  if (tx() == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lbase[ty() + 16 * i] = m_i[i] + logf(l_i[i]);
-  }
-}
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d]; one warp per row.
 template <int D>
@@ -348,11 +168,11 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
 // big*big, into float32 fragments: CUTLASS's OpMultiplyAddFastF32 (its
 // round_half_ulp_truncate / round_toward_zero pair), which PyTorch's
 // efficient attention runs for float32.  The rounding is done on the bits
-// (an add and two masks): cvt.rna.tf32.f32 compiles to twice that, with
-// checks for inf and NaN that finite scores do not need.  Only small*small
-// and small's truncation (about 2^-21 of a term, of either sign) are
-// dropped, so the result keeps float32's accuracy; one TF32 product alone
-// (dropping both small terms) is good to about 1e-3.
+// (an add and a mask, see split): cvt.rna.tf32.f32 compiles to about five
+// instructions, with checks for inf and NaN that finite scores do not
+// need.  Only small*small and small's truncation (about 2^-21 of a term,
+// of either sign) are dropped, so the result keeps float32's accuracy; one
+// TF32 product alone (dropping both small terms) is good to about 1e-3.
 // The tensor cores truncate as they accumulate, so a long sum in one
 // fragment drifts toward zero (7e-5 of dK, dV after the 3 x 1024 products
 // of a long-context key tile).  Each 64-row tile product therefore sums
@@ -415,13 +235,14 @@ __device__ __forceinline__ void cp_async_wait_all_but_newest() {
 }
 
 // Start copying 64 rows of D floats, `stride` floats apart in device
-// memory, into a shared tile with row stride D + 8.
-template <int D>
+// memory, into a shared tile with row stride kLd (D + 8 unless given), by a
+// block of kN threads.
+template <int D, int kLd = ldm<D>(), int kN = kThreads>
 __device__ __forceinline__ void load_tile_async(float* s, const float* g, int64_t stride) {
   constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kVec; i += kN) {
     const int r = i / kVec, c = (i % kVec) * 4;
-    cp_async16(s + r * ldm<D>() + c, g + r * stride + c);
+    cp_async16(s + r * kLd + c, g + r * stride + c);
   }
 }
 
@@ -432,11 +253,16 @@ __device__ __forceinline__ void load_row_async(float* s, const float* g) {
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent and 10 mantissa bits
 
-// x ~ big + small, each a TF32 value: big x rounded to nearest (ties away
-// from zero, for finite x), small the remainder truncated.
+// x ~ big + small, each a TF32 operand: big x rounded to nearest (ties away
+// from zero, for finite x), small the remainder truncated.  The tensor
+// cores ignore the low 13 bits of a TF32 operand (CUTLASS's conversions
+// rely on it too), so big's rounding is the add alone and small's
+// truncation is free; only the subtraction needs big with those bits
+// cleared.  Three instructions; clearing both parts as well gave bit-equal
+// results and a forward about 1 % slower (H100 80GB HBM3, 700 W).
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & kTf32Mask;
-  small = __float_as_uint(x - __uint_as_float(big)) & kTf32Mask;
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & kTf32Mask));
 }
 
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -561,6 +387,184 @@ __device__ __forceinline__ void store_frag(float* g, int64_t stride, const float
         *dst = v;
       }
     }
+  }
+}
+
+// The forward on the tensor cores (B3, B5's forward); see the header.
+template <int D>
+__host__ __device__ constexpr int ldv() { return D + 4; }  // row stride of the forward's V tile
+
+constexpr int kChunk = 32;  // columns of D summed in one fresh fragment of S
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse, int H, int KV, float scale, Panel pan) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + kTile * ldm<D>();
+  float* sV = sK + kTile * ldm<D>();
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int me = blockIdx.z, rank_case = pan.case_of(me);
+  const int64_t T = pan.total(), To = static_cast<int64_t>(pan.sp) * pan.rows;  // rows in, rows out
+  const int64_t qs = static_cast<int64_t>(H) * D, ks = static_cast<int64_t>(KV) * D;
+  const int64_t orow = static_cast<int64_t>(me) * pan.rows + qt * kTile;
+  float* obase = o + (b * To + orow) * qs + h * D;
+  float* lbase = lse + bh * To + orow;
+  if (rank_case == kSkip) {  // a future block: nothing to attend to
+    constexpr int kVec = D / 4;
+    for (int i = threadIdx.x; i < kTile * kVec; i += kFwdThreads) {
+      *reinterpret_cast<float4*>(obase + (i / kVec) * qs + (i % kVec) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (threadIdx.x < kTile) lbase[threadIdx.x] = kNegInf;
+    return;
+  }
+  const bool diag = rank_case == kDiag;
+  const float* kbase = k + (b * T + pan.k_row(pan.src_of(me))) * ks + kvh * D;
+  const float* vbase = v + (kbase - k);
+  load_tile_async<D, ldm<D>(), kFwdThreads>(
+      sQ, q + (b * T + pan.q_row(me) + qt * kTile) * qs + h * D, qs);
+  load_tile_async<D, ldm<D>(), kFwdThreads>(sK, kbase, ks);
+  cp_async_commit();
+  load_tile_async<D, ldv<D>(), kFwdThreads>(sV, vbase, ks);
+  cp_async_commit();
+
+  const int gid = lane_id() >> 2, tig = lane_id() & 3;
+  const int r0 = 16 * (threadIdx.x >> 5) + gid;  // this lane's rows r0 and r0 + 8 of the tile
+  const float* qa = sQ + r0 * ldm<D>() + 2 * tig;
+  const float* kb = sK + gid * ldm<D>() + 2 * tig;
+  const float* vb = sV + 2 * tig * ldv<D>() + gid;
+  float acc[D / 8][4] = {};  // O's rows r0, r0 + 8: the C fragments of its D / 8 column blocks
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  const int n_kt = diag ? qt + 1 : pan.rows / kTile;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all_but_newest();
+    __syncthreads();  // Q and this key tile's K have landed
+    // S = Q K^T: s[j] is the C fragment of keys 8 j .. 8 j + 7, summed over
+    // D in fresh fragments of kChunk columns each (the tensor cores truncate
+    // as they accumulate, and q scaled up makes scores in the hundreds).
+    float s[8][4] = {};
+#pragma unroll 1
+    for (int k0 = 0; k0 < D; k0 += kChunk) {
+      float part[8][4] = {};
+#pragma unroll
+      for (int kk = k0; kk < k0 + kChunk; kk += 8) {
+        uint32_t ab[4], as[4];
+        // k slot tig reads column kk + 2 tig, slot tig + 4 column kk + 2 tig + 1
+        const float2 top = *reinterpret_cast<const float2*>(qa + kk);
+        const float2 bot = *reinterpret_cast<const float2*>(qa + 8 * ldm<D>() + kk);
+        split(top.x, ab[0], as[0]);
+        split(bot.x, ab[1], as[1]);
+        split(top.y, ab[2], as[2]);
+        split(bot.y, ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 col = *reinterpret_cast<const float2*>(kb + 8 * j * ldm<D>() + kk);
+          uint32_t bb[2], bs[2];
+          split(col.x, bb[0], bs[0]);
+          split(col.y, bb[1], bs[1]);
+          mma_3xtf32(part[j], ab, as, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] += part[j][c];
+      }
+    }
+    __syncthreads();  // every warp is done with this K tile
+    if (kt + 1 < n_kt) {
+      load_tile_async<D, ldm<D>(), kFwdThreads>(sK, kbase + (kt + 1) * kTile * ks, ks);
+    }
+    cp_async_commit();
+
+    // Online softmax over rows r0 (fragment slots 0, 1) and r0 + 8 (2, 3);
+    // a row's 64 scores lie in the 4 lanes of a quad.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float& e = s[j][c];
+        e *= scale;
+        if (diag && kt == qt && 8 * j + 2 * tig + (c & 1) > r0 + 8 * (c >> 1)) e = -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], e);
+      }
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_i[i], mx[i]);
+      alpha[i] = expf(m_i[i] - m_new);
+      m_i[i] = m_new;
+    }
+    // P, split for the tensor cores: under the k permutation the C slots
+    // (row gid: 0, 1; row gid + 8: 2, 3) are the A slots 0, 2, 1, 3.
+    uint32_t pb[8][4], ps[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[j][c] - m_i[c >> 1]);
+        sum[c >> 1] += p;
+        const int a = (c >> 1) | ((c & 1) << 1);
+        split(p, pb[j][a], ps[j][a]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l_i[i] = l_i[i] * alpha[i] + sum[i];
+    }
+
+    cp_async_wait_all_but_newest();
+    __syncthreads();  // this key tile's V has landed
+    // O = alpha O + P V: the tile's product sums into fresh fragments, every
+    // output column block side by side (a block's 24 products form one
+    // dependent chain; one block at a time was 1.2x slower on an H100),
+    // added to the accumulator after its rescale.
+    float part[D / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float* vp = vb + 8 * j * ldv<D>() + 8 * n;
+        uint32_t bb[2], bs[2];
+        split(vp[0], bb[0], bs[0]);
+        split(vp[ldv<D>()], bb[1], bs[1]);
+        mma_3xtf32(part[n], pb[j], ps[j], bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = acc[n][c] * alpha[c >> 1] + part[n][c];
+    }
+    __syncthreads();  // every warp is done with this V tile
+    if (kt + 1 < n_kt) {
+      load_tile_async<D, ldv<D>(), kFwdThreads>(sV, vbase + (kt + 1) * kTile * ks, ks);
+    }
+    cp_async_commit();
+  }
+  const float inv[2] = {1.f / l_i[0], 1.f / l_i[1]};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float* row = obase + (r0 + 8 * half) * qs + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[n][2 * half] * inv[half], acc[n][2 * half + 1] * inv[half]);
+    }
+  }
+  if (tig == 0) {
+    lbase[r0] = m_i[0] + logf(l_i[0]);
+    lbase[r0 + 8] = m_i[1] + logf(l_i[1]);
   }
 }
 
@@ -747,8 +751,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_frag<D, kAdd>(dq + q0, qs, acc, scale);
 }
 
+// Q and K tiles at stride D + 8, the V tile at D + 4.
 template <int D>
-constexpr size_t fwd_smem() { return (2 * kTile * ld<D>() + kTile * kLdP) * sizeof(float); }
+constexpr size_t fwd_smem() { return (2 * kTile * ldm<D>() + kTile * ldv<D>()) * sizeof(float); }
 
 // Six 64 x D tiles (two of them double-buffered pairs), the P tile, and
 // two buffers each of lse and delta rows (dK/dV; dQ uses one of each).
@@ -770,7 +775,7 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse, in
   cudaError_t err = allow_smem(kernel, fwd_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(pan.rows / kTile, B * H, pan.sp);
-  kernel<<<grid, kThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, H, KV, scale, pan);
+  kernel<<<grid, kFwdThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, H, KV, scale, pan);
   return static_cast<int>(cudaGetLastError());
 }
 

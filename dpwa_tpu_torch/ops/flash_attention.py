@@ -120,30 +120,47 @@ def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
-def _check_qkv(q, k, v, name: str) -> tuple[int, int, int, int, int]:
-    """Shapes of q ``[B, T, H, D]`` and k, v ``[B, T, KV, D]`` as the
-    kernels take them; raises on anything else."""
+def _qkv_fault(q, k, v) -> tuple[type, str] | None:
+    """Why the kernels cannot take q ``[B, T, H, D]`` and k, v ``[B, T,
+    KV, D]``, as (exception type, message), or None when they can."""
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+            return TypeError, f"{what} must be float32, got {t.dtype}"
         if t.dim() != 4 or t.device != q.device:
-            raise ValueError(f"{name}: {what} must be [B, T, heads, D] on {q.device}")
+            return ValueError, f"{what} must be [B, T, heads, D] on {q.device}"
     b, t, h, d = q.shape
     kv = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != (b, t) or k.shape[3] != d:
-        raise ValueError(
-            f"{name}: k and v must be [{b}, {t}, KV, {d}], got "
-            f"{tuple(k.shape)} and {tuple(v.shape)}"
+        return ValueError, (
+            f"k and v must be [{b}, {t}, KV, {d}], got {tuple(k.shape)} and {tuple(v.shape)}"
         )
     if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} is not one of {HEAD_DIMS}")
+        return ValueError, f"head dim {d} is not one of {HEAD_DIMS}"
     if t % T_MULTIPLE:
-        raise ValueError(f"{name}: T = {t} is not a multiple of {T_MULTIPLE}")
+        return ValueError, f"T = {t} is not a multiple of {T_MULTIPLE}"
     if kv < 1 or h % kv:
-        raise ValueError(f"{name}: {h} query heads are not a multiple of {kv} kv heads")
+        return ValueError, f"{h} query heads are not a multiple of {kv} kv heads"
     if b * h > _MAX_GRID_Y:
-        raise ValueError(f"{name}: B·H = {b * h} exceeds {_MAX_GRID_Y}")
-    return b, t, h, kv, d
+        return ValueError, f"B·H = {b * h} exceeds {_MAX_GRID_Y}"
+    return None
+
+
+def flash_supported(q, k, v) -> bool:
+    """Whether B5 takes these inputs: float32 q, k and v, D in
+    :data:`HEAD_DIMS`, T a multiple of :data:`T_MULTIPLE`, KV dividing H
+    and B·H within the grid.  Exactly what :func:`_check_qkv` accepts."""
+    return _qkv_fault(q, k, v) is None
+
+
+def _check_qkv(q, k, v, name: str) -> tuple[int, int, int, int, int]:
+    """Shapes of q ``[B, T, H, D]`` and k, v ``[B, T, KV, D]`` as the
+    kernels take them; raises on anything else."""
+    fault = _qkv_fault(q, k, v)
+    if fault is not None:
+        exc, msg = fault
+        raise exc(f"{name}: {msg}")
+    b, t, h, d = q.shape
+    return b, t, h, k.shape[2], d
 
 
 def flash_attn_fwd(q, k, v, *, causal: bool):

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from dpwa_tpu_torch.ops.flash_attention import flash_attention
+from dpwa_tpu_torch.ops.flash_attention import flash_attention, flash_supported
 
 IMPLS = ("auto", "flash", "dense")
 
@@ -43,18 +43,21 @@ def dense_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def single_device_attention(q, k, v, *, causal: bool, impl: str = "auto") -> torch.Tensor:
     """Attention over ``q [B, T, h, D]`` and ``k, v [B, T, kv, D]`` (``kv``
     dividing ``h``).  ``impl``: "flash" forces B5 (its plain version on CPU
-    tensors), "auto" takes B5 for a CUDA tensor when ``D`` and ``T`` are
-    multiples of 128 (the reference's eligibility), and anything else runs
-    :func:`dense_attention`."""
+    tensors; on the card it raises on inputs B5 does not take), "auto"
+    takes B5 for a CUDA tensor that B5 takes (:func:`~dpwa_tpu_torch.ops.
+    flash_attention.flash_supported`: float32, D 128, T a multiple of 128;
+    the reference's auto likewise takes its library kernel only where that
+    kernel works), and anything else runs :func:`dense_attention`."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    _, T, _, D = q.shape
-    use_flash = impl == "flash" or (
-        impl == "auto" and q.device.type == "cuda" and D % 128 == 0 and T % 128 == 0
-    )
+    use_flash = impl == "flash" or (impl == "auto" and _on_card(q) and flash_supported(q, k, v))
     if use_flash:
         return flash_attention(q, k, v, causal=causal)
     return dense_attention(q, k, v, causal=causal)

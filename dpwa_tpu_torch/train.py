@@ -11,6 +11,7 @@ from typing import Callable, Mapping
 
 import torch
 
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.devices import resolve_device
 from dpwa_tpu_torch.utils.pytree import FlatParams, NamePredicate, leaf_order
 
@@ -18,25 +19,26 @@ Params = Mapping[str, torch.Tensor]
 
 
 def init_params_per_peer(
-    init_fn: Callable[[torch.Generator], Params],
-    generator: torch.Generator,
+    init_fn: Callable[[prng.Key], Params],
+    key: prng.Key,
     n_peers: int,
     device=None,
     first: NamePredicate | None = None,
 ) -> FlatParams:
-    """Independent random init per peer (a diverged cold start): peer i's
-    parameters are the i-th draw of ``init_fn`` from the one ``generator``
-    (e.g. ``lambda g: resnet.init(model, g)``, or ``llama.init`` with a
-    generator on the card), written row by row into a :class:`FlatParams`
-    on ``device`` (the CUDA card by default), so that at most one peer's
-    draw exists beside the stacked buffer.  ``first`` places the leaves it
-    selects in the leading columns: pass the optimizer's ``trainable``, and
+    """Independent random init per peer (a diverged cold start), as the
+    reference's ``jax.vmap(init_fn)(jax.random.split(key, n_peers))``: peer
+    i's parameters are ``init_fn(prng.split(key, n_peers)[i])`` (e.g.
+    ``lambda k: resnet.init(model, k)``, or ``llama.init`` drawing on the
+    card), written row by row into a :class:`FlatParams` on ``device`` (the
+    CUDA card by default), so that at most one peer's draw exists beside the
+    stacked buffer.  ``first`` places the leaves it selects in the leading
+    columns: pass the optimizer's ``trainable``, and
     :func:`~dpwa_tpu_torch.parallel.stacked.init_stacked_state` takes the
     buffer over as it is."""
     device = resolve_device(device)
     flat = None
-    for i in range(n_peers):
-        peer = init_fn(generator)
+    for i, peer_key in enumerate(prng.split(key, n_peers)):
+        peer = init_fn(peer_key)
         if flat is None:
             names = leaf_order(peer)
             flat = FlatParams(

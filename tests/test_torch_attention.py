@@ -217,3 +217,111 @@ def test_3xtf32_products_keep_the_backward_inside_the_card_tolerance(kv, causal,
     for name, w, g3, g1 in zip(("dq", "dk", "dv"), want, three, one):
         assert normwise(g3, w) <= BWD_TOL, name
         assert normwise(g1, w) > BWD_TOL, name
+
+
+# (q shape, k shape, q dtype, whether B5 takes it); meta tensors, so the
+# shapes cost no memory.
+DISPATCH_CASES = {
+    "f32_d128_t2048": ((1, 2048, 4, 128), (1, 2048, 2, 128), torch.float32, True),
+    "f32_d128_t128_mha": ((2, 128, 4, 128), (2, 128, 4, 128), torch.float32, True),
+    "bf16": ((1, 2048, 4, 128), (1, 2048, 2, 128), torch.bfloat16, False),
+    "d64": ((1, 256, 4, 64), (1, 256, 4, 64), torch.float32, False),
+    "d256": ((1, 256, 4, 256), (1, 256, 2, 256), torch.float32, False),
+    "t192": ((1, 192, 4, 128), (1, 192, 4, 128), torch.float32, False),
+    "kv_not_dividing": ((1, 128, 4, 128), (1, 128, 3, 128), torch.float32, False),
+    "bh_at_limit": ((16383, 128, 4, 128), (16383, 128, 1, 128), torch.float32, True),
+    "bh_over_limit": ((16385, 128, 4, 128), (16385, 128, 1, 128), torch.float32, False),
+}
+
+
+def _meta_qkv(case):
+    q_shape, k_shape, dtype, _ = DISPATCH_CASES[case]
+    q = torch.empty(q_shape, dtype=dtype, device="meta")
+    k = torch.empty(k_shape, dtype=dtype, device="meta")
+    return q, k, torch.empty_like(k)
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_flash_supported_is_what_the_kernels_check(case):
+    """``flash_supported`` is true exactly when ``_check_qkv`` accepts."""
+    q, k, v = _meta_qkv(case)
+    supported = DISPATCH_CASES[case][3]
+    assert flash_attention.flash_supported(q, k, v) is supported
+    if supported:
+        flash_attention._check_qkv(q, k, v, "flash_attn_fwd")
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            flash_attention._check_qkv(q, k, v, "flash_attn_fwd")
+
+
+@pytest.mark.parametrize("case", list(DISPATCH_CASES))
+def test_auto_sends_the_card_only_what_b5_takes(monkeypatch, case):
+    """``impl="auto"`` on a card tensor (the device check patched) takes B5
+    where B5 takes the inputs and the dense branch everywhere else; "flash"
+    forces B5 (which raises on the card for what it does not take)."""
+    from dpwa_tpu_torch.ops import ulysses
+
+    taken = []
+    monkeypatch.setattr(ulysses, "_on_card", lambda t: True)
+    monkeypatch.setattr(ulysses, "flash_attention", lambda *a, **kw: taken.append("flash"))
+    monkeypatch.setattr(ulysses, "dense_attention", lambda *a, **kw: taken.append("dense"))
+    q, k, v = _meta_qkv(case)
+    ulysses.single_device_attention(q, k, v, causal=True, impl="auto")
+    ulysses.single_device_attention(q, k, v, causal=True, impl="flash")
+    want = "flash" if DISPATCH_CASES[case][3] else "dense"
+    assert taken == [want, "flash"]
+
+
+FWD_TOL = 1e-5  # the card tests' normwise tolerance for the forward kernel
+FWD_TILE, FWD_CHUNK = 64, 32  # the kernel's key tile, and its fresh sums of S over D
+
+
+def _tf32_flash_fwd(q, k, v, causal: bool, mode: str):
+    """The forward kernel's arithmetic: for each 64-key tile, S with its
+    sum over D in fresh sums of 32 columns, the online softmax in float32,
+    and P V summed fresh for the tile, added to the accumulator after its
+    rescale; both products in ``mode``.  Returns ``(o, lse)``."""
+    b, t, heads, d = q.shape
+    ke, ve = flash_attention._expand_kv(k, heads), flash_attention._expand_kv(v, heads)
+    m = torch.full((b, heads, t), float("-inf"))
+    l = torch.zeros(b, heads, t)
+    acc = torch.zeros(b, heads, t, d)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, FWD_TILE):
+        kt, vt = ke[:, k0:k0 + FWD_TILE], ve[:, k0:k0 + FWD_TILE]
+        s = torch.zeros(b, heads, t, kt.shape[1])
+        for c in range(0, d, FWD_CHUNK):
+            s = s + _tf32_product("bthd,bshd->bhts", q[..., c:c + FWD_CHUNK],
+                                  kt[..., c:c + FWD_CHUNK], mode)
+        s = s * (1.0 / d ** 0.5)
+        if causal:
+            s = s.masked_fill(k0 + torch.arange(kt.shape[1])[None, :] > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _tf32_product("bhts,bshd->bhtd", p, vt, mode)
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2), m + torch.log(l)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kv", [4, 1])
+def test_3xtf32_products_keep_the_forward_inside_the_card_tolerance(kv, causal, q_scale):
+    """The precision decision behind the forward kernel (B3, B5's forward),
+    emulated here: with both products in 3xTF32, O and lse stay within the
+    card's normwise ``FWD_TOL`` of the float32 plain forward; with one TF32
+    product each falls outside it.  ``q_scale`` 8 makes the scores large and
+    the softmax nearly one-hot, as the card's stress cases do."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(384, kv, seed=kv + 2 * causal))
+    q = q * q_scale
+    want_o, want_lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=causal)
+
+    def normwise(got, ref):
+        return (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+    o3, lse3 = _tf32_flash_fwd(q, k, v, causal, "3xtf32")
+    o1, lse1 = _tf32_flash_fwd(q, k, v, causal, "1xtf32")
+    assert normwise(o3, want_o) <= FWD_TOL and normwise(lse3, want_lse) <= FWD_TOL
+    assert normwise(o1, want_o) > FWD_TOL and normwise(lse1, want_lse) > FWD_TOL

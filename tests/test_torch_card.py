@@ -24,6 +24,7 @@ from dpwa_tpu_torch import train_sp
 from dpwa_tpu_torch.ops import flash_attention, flash_ring, merge
 from dpwa_tpu_torch.optim import adam, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.train import (
     init_params_per_peer,
     softmax_cross_entropy_with_integer_labels,
@@ -156,7 +157,7 @@ def test_train_step_on_card_matches_cpu(cuda_device, mode):
             return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean()
 
         params = init_params_per_peer(
-            lambda g: resnet.init(model, g), torch.Generator().manual_seed(0), n, device
+            lambda k: resnet.init(model, k), prng.key(0), n, device
         )
         state = stacked.init_stacked_state(params, opt, t)
         step = stacked.make_stacked_train_step(loss_fn, opt, t)
@@ -237,6 +238,71 @@ def test_flash_attention_backward_on_stressed_inputs(cuda_device, t, q_scale, ca
     assert flash_attention.flash_attn_bwd.launches == 1
 
 
+@pytest.mark.parametrize("t,q_scale,causal,kv", [
+    (384, 8.0, True, 4), (384, 8.0, False, 1), (2048, 8.0, True, 2), (2048, 1.0, False, 4),
+])
+def test_flash_attention_forward_on_stressed_inputs(cuda_device, t, q_scale, causal, kv):
+    """B5's forward, whose products run on the tensor cores in 3xTF32, with
+    q scaled by 8 (scores in the hundreds before the scale, a softmax
+    nearly one-hot) and at the Llama path's T 2048, against the plain
+    forward on the same card tensors, TF32 off, at ``FWD_TOL``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(t + kv + int(q_scale) + causal)
+    b, h, d = 2, 4, 128
+    q = torch.randn(b, t, h, d, generator=gen).to(cuda_device) * q_scale
+    k, v = (torch.randn(b, t, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    flash_attention.reset_launch_counts()
+    o, lse = flash_attention.flash_attn_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention.torch_flash_attn_fwd(q, k, v, causal=causal)
+    assert max_rel_err(o, want_o) <= FWD_TOL
+    assert max_rel_err(lse, want_lse) <= FWD_TOL
+    assert flash_attention.flash_attn_fwd.launches == 1
+
+
+@pytest.mark.parametrize("case", ["bf16", "d256"])
+def test_auto_runs_dense_where_b5_does_not_take_the_input(cuda_device, case):
+    """``single_device_attention(impl="auto")`` on card tensors that B5
+    does not take (bf16 q, k, v; head dim 256) runs the dense branch
+    without error and without a launch; ``impl="flash"`` raises there."""
+    from dpwa_tpu_torch.ops import ulysses
+
+    gen = torch.Generator().manual_seed(9)
+    d, dtype = (256, torch.float32) if case == "d256" else (128, torch.bfloat16)
+    q = torch.randn(2, 256, 4, d, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(2, 256, 2, d, generator=gen).to(cuda_device, dtype) for _ in range(2))
+    assert not flash_attention.flash_supported(q, k, v)
+    flash_attention.reset_launch_counts()
+    out = ulysses.single_device_attention(q, k, v, causal=True, impl="auto")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ulysses.dense_attention(q, k, v, causal=True))
+    assert out.dtype == dtype and flash_attention.flash_attn_fwd.launches == 0
+    with pytest.raises((TypeError, ValueError)):
+        ulysses.single_device_attention(q, k, v, causal=True, impl="flash")
+
+
+@pytest.mark.parametrize("model_name", ["resnet8", "llama_tiny"])
+def test_init_on_card_matches_cpu(cuda_device, model_name):
+    """A model's initialisation from the reference's draws (threefry,
+    erfinv and log1p in int64 and float32 torch arithmetic) made on the
+    card against the same one made on the CPU: every value within 2
+    float32 ulps (the two devices' exp, log and sqrt differ in rounding)."""
+    if model_name == "resnet8":
+        model = resnet.CifarResNet(depth=8)
+        init = lambda device: resnet.init(model, prng.key(0), device)
+    else:
+        model = llama.Llama(llama.LlamaConfig(**LLAMA_KW))
+        init = lambda device: llama.init(model, prng.key(0), device)
+    cpu, card = init("cpu"), init(cuda_device)
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        assert got.shape == want.shape and got.device.type == "cpu"
+        a, b = (x.view(torch.int32).long() for x in (got, want))
+        a = torch.where(a < 0, -(a & 0x7FFFFFFF), a)
+        b = torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+        assert int((a - b).abs().max()) <= 2, name
+
+
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 128, 4, 128, device=cuda_device)
     k = torch.zeros(1, 128, 2, 128, device=cuda_device)
@@ -268,7 +334,7 @@ def test_llama_lora_step_on_card_matches_cpu(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     n, steps = 2, 3
     model = llama.Llama(llama.LlamaConfig(**LLAMA_KW))
-    init = llama.init(model, torch.Generator().manual_seed(0))
+    init = llama.init(model, prng.key(0))
     gen = torch.Generator().manual_seed(1)
     params = {
         k: torch.stack([v, v + 0.01 * torch.randn(v.shape, generator=gen)])
@@ -368,6 +434,39 @@ def test_ring_hop_kernels_match_plain(cuda_device, plan, kv):
     assert flash_ring.ring_hop_fwd.launches == n and flash_ring.ring_hop_bwd_.launches == n
 
 
+@pytest.mark.parametrize("plan,t_local", [
+    ("contiguous", 256), ("non_causal", 256), ("zigzag", 256), ("zigzag", 1024),
+])
+def test_ring_hop_forward_on_stressed_inputs(cuda_device, plan, t_local):
+    """B3, on the tensor cores in 3xTF32, for every hop and panel of a
+    4-rank ring with q scaled by 8 (large scores, a nearly one-hot
+    softmax), against the plain hops on the same card tensors, TF32 off,
+    at ``FWD_TOL``; a skipped rank writes (0, -1e30) exactly."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout, causal = RING_PLANS[plan]
+    sp, b, h, kv, d = 4, 1, 4, 2, 128
+    gen = torch.Generator().manual_seed(t_local + 8)
+    q = torch.randn(b, sp * t_local, h, d, generator=gen).to(cuda_device) * 8.0
+    k, v = (torch.randn(b, sp * t_local, kv, d, generator=gen).to(cuda_device) for _ in range(2))
+    stripes, panels = flash_ring.hop_plan(layout, t_local, causal)
+    flash_ring.reset_launch_counts()
+    n = 0
+    for hop in range(sp):
+        for stripe, k_off, rule in panels:
+            q_off, rows = stripes[stripe]
+            kw = dict(sp=sp, hop=hop, cases=flash_ring.hop_cases(sp, hop, rule), rows=rows,
+                      q_off=q_off, k_off=k_off)
+            o, l = flash_ring.ring_hop_fwd(q, k, v, **kw)
+            want_o, want_l = flash_ring.torch_ring_hop_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            skipped = want_l == flash_ring.NEG_INF
+            assert torch.equal(l[skipped], want_l[skipped])
+            assert max_rel_err(o, want_o) <= FWD_TOL
+            assert max_rel_err(l[~skipped], want_l[~skipped]) <= FWD_TOL
+            n += 1
+    assert flash_ring.ring_hop_fwd.launches == n
+
+
 @pytest.mark.parametrize("plan,t_local,q_scale", [
     ("contiguous", 256, 8.0), ("zigzag", 256, 8.0), ("contiguous", 2048, 1.0),
 ])
@@ -450,7 +549,7 @@ def test_sp_lora_step_on_card_matches_cpu(cuda_device, layout, strategy):
     n, steps, sp = 2, 2, 2
     cfg_kw = dict(SP_KW, sp_axis="sp", sp_layout=layout, sp_strategy=strategy)
     model = llama.Llama(llama.LlamaConfig(**cfg_kw))
-    init = llama.init(model, torch.Generator().manual_seed(0))
+    init = llama.init(model, prng.key(0))
     gen = torch.Generator().manual_seed(1)
     params = {
         k: torch.stack([v, v + 0.01 * torch.randn(v.shape, generator=gen)])

@@ -25,6 +25,7 @@ from dpwa_tpu.utils.pytree import partition as ref_partition
 from dpwa_tpu_torch import convert
 from dpwa_tpu_torch.models import llama
 from dpwa_tpu_torch.ops import flash_attention
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.pytree import FlatParams
 
 # Reaches the flash kernel's shapes: head_dim 128, T 128.
@@ -162,7 +163,7 @@ def test_lora_filter_selects_the_reference_partition():
 def test_init_follows_flax_initialisers():
     cfg = llama.LlamaConfig(**KERNEL_SHAPES)
     model = llama.Llama(cfg)
-    params = llama.init(model, torch.Generator().manual_seed(0))
+    params = llama.init(model, prng.key(0))
     assert all(p.dtype == torch.float32 for p in params.values())
     emb = params["embed.embedding"]
     assert abs(emb.std().item() - (1 / 256) ** 0.5) < 0.05 * (1 / 256) ** 0.5
@@ -173,6 +174,47 @@ def test_init_follows_flax_initialisers():
     assert torch.equal(params["layer_1.attn.wq.lora_b"], torch.zeros(4, 256))
     assert abs(params["layer_1.attn.wq.lora_a"].std().item() - 0.02) < 0.002
     assert torch.equal(params["final_norm.scale"], torch.ones(256))
+
+
+def _ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ai, bi = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    return np.abs(np.where(ai < 0, -(ai & 0x7FFFFFFF), ai) - np.where(bi < 0, -(bi & 0x7FFFFFFF), bi))
+
+
+INIT_CONFIGS = {
+    # the example's tiny model (examples/llama_lora/main.py without --full-size)
+    "example_tiny": dict(vocab_size=256, d_model=64, n_layers=4, n_heads=8, n_kv_heads=4,
+                         d_ff=128, max_seq_len=64, lora_rank=8),
+    "mha_no_lora": dict(vocab_size=300, d_model=96, n_layers=1, n_heads=4, d_ff=160,
+                        max_seq_len=16, lora_rank=0),
+}
+
+
+@pytest.mark.parametrize("name", list(INIT_CONFIGS))
+def test_init_matches_flax_model_init_per_peer(name):
+    """The port's per-peer init from ``prng.key(0)`` against the reference's
+    ``init_params_per_peer`` (``jax.vmap(model.init)`` over
+    ``jax.random.split(key(0), 4)``): every drawn leaf within 2 float32
+    ulps and at least 95 % of its values bit-equal, ``lora_b`` and the norm
+    scales exact."""
+    from dpwa_tpu.train import init_params_per_peer as ref_init_per_peer
+    from dpwa_tpu_torch.train import init_params_per_peer
+
+    kw = INIT_CONFIGS[name]
+    ref = ref_llama.Llama(ref_llama.LlamaConfig(**kw))
+    want = convert.flax_llama_to_torch(jax.tree.map(np.asarray, ref_init_per_peer(
+        lambda k: ref.init(k, jnp.zeros((1, 8), jnp.int32)), jax.random.key(0), 4)))
+    model = llama.Llama(llama.LlamaConfig(**kw))
+    got = init_params_per_peer(lambda k: llama.init(model, k), prng.key(0), 4, "cpu").views()
+    assert list(got) == list(want)
+    for leaf, value in got.items():
+        g, w = value.numpy(), want[leaf]
+        assert g.shape == w.shape, leaf
+        if leaf.rsplit(".", 1)[-1] in ("kernel", "embedding", "lora_a"):
+            d = _ulp_distance(g, w)
+            assert d.max() <= 2 and (d == 0).mean() >= 0.95, (leaf, d.max(), (d == 0).mean())
+        else:
+            np.testing.assert_array_equal(g, w)
 
 
 def test_sp_axis_is_not_ported():

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from dpwa_tpu.models.resnet import CifarResNet as RefResNet
 from dpwa_tpu_torch import convert
 from dpwa_tpu_torch.models import resnet
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.pytree import FlatParams, leaf_order
 
 
@@ -97,8 +98,8 @@ def test_convert_roundtrip_is_exact():
 
 def test_init_is_seeded_lecun_normal():
     model = resnet.CifarResNet(depth=8)
-    a = resnet.init(model, torch.Generator().manual_seed(0))
-    b = resnet.init(model, torch.Generator().manual_seed(0))
+    a = resnet.init(model, prng.key(0))
+    b = resnet.init(model, prng.key(0))
     assert all(torch.equal(a[k], b[k]) for k in a)
     kernel = a["BasicBlock_2.Conv_1.kernel"]  # 64 x 64 x 3 x 3: fan_in 576
     assert abs(float(kernel.std()) - (1 / 576) ** 0.5) < 0.05 * (1 / 576) ** 0.5
@@ -124,3 +125,42 @@ def test_unported_variants_raise():
         resnet.CifarResNet(depth=8, norm_type="batch")
     with pytest.raises(ValueError):
         resnet.CifarResNet(depth=9)
+
+
+def _ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ai, bi = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    return np.abs(np.where(ai < 0, -(ai & 0x7FFFFFFF), ai) - np.where(bi < 0, -(bi & 0x7FFFFFFF), bi))
+
+
+@pytest.mark.parametrize("depth,n", [(8, 4), (20, 2)])
+def test_init_matches_flax_model_init_per_peer(depth, n):
+    """The port's per-peer init from ``prng.key(0)`` against the reference's
+    ``init_params_per_peer`` (``jax.vmap(model.init)`` over
+    ``jax.random.split(key(0), n)``): every kernel within 2 float32 ulps and
+    at least 95 % of its values bit-equal (XLA's erfinv, ported), norm
+    scales and biases exact, laid out as the port's OIHW / ``[out, in]``."""
+    from dpwa_tpu.train import init_params_per_peer as ref_init_per_peer
+    from dpwa_tpu_torch.train import init_params_per_peer
+
+    ref = RefResNet(depth=depth)
+    want = convert.flax_to_torch(jax.tree.map(np.asarray, ref_init_per_peer(
+        lambda k: ref.init(k, jnp.zeros((1, 32, 32, 3))), jax.random.key(0), n)), stacked=True)
+    model = resnet.CifarResNet(depth=depth)
+    got = init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), n, "cpu").views()
+    assert list(got) == leaf_order(want)
+    for name, value in got.items():
+        g, w = value.numpy(), want[name]
+        assert g.shape == w.shape, name
+        if name.endswith("kernel"):
+            d = _ulp_distance(g, w)
+            assert d.max() <= 2 and (d == 0).mean() >= 0.95, (name, d.max(), (d == 0).mean())
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+def test_module_starts_from_the_reference_draws():
+    """A freshly built module holds ``init(model, prng.key(0))``."""
+    model = resnet.CifarResNet(depth=8)
+    want = resnet.init(model, prng.key(0))
+    for name, p in model.named_parameters():
+        assert torch.equal(p.detach(), want[name]), name

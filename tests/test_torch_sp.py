@@ -42,6 +42,7 @@ from dpwa_tpu_torch.optim import adam, lora_optimizer
 from dpwa_tpu_torch.parallel import stacked, virtual_axis
 from dpwa_tpu_torch.train import softmax_cross_entropy_with_integer_labels
 from dpwa_tpu_torch import train_sp
+from dpwa_tpu_torch.utils import prng
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N_PEERS, B, T = 2, 2, 32
@@ -218,7 +219,7 @@ def test_sp_config_validation_follows_the_reference():
         with pytest.raises(ValueError):
             llama.LlamaConfig(**kw)
     model = llama.Llama(llama.LlamaConfig(**BASE, sp_axis="sp"))
-    params = llama.init(model, torch.Generator().manual_seed(0))
+    params = llama.init(model, prng.key(0))
     with pytest.raises(NameError, match="unbound axis"):
         llama.apply(model, params, torch.zeros(1, 8, dtype=torch.int64))
 

@@ -35,6 +35,7 @@ from dpwa_tpu_torch.ops import flash_attention, merge
 from dpwa_tpu_torch.optim import adam, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
 from dpwa_tpu_torch.train import init_params_per_peer, softmax_cross_entropy_with_integer_labels
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.launch import build_transport
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -211,7 +212,7 @@ def test_init_state_takes_over_a_buffer_laid_out_for_the_optimizer():
     ))
     opt = lora_optimizer(adam(1e-3), llama.lora_filter)
     init = lambda first: init_params_per_peer(
-        lambda g: llama.init(model, g), torch.Generator().manual_seed(0), 2, "cpu",
+        lambda k: llama.init(model, k), prng.key(0), 2, "cpu",
         first=first,
     )
     laid_out, plain = init(opt.trainable), init(None)
@@ -243,15 +244,17 @@ from dpwa_tpu_torch.config import load_config
 from dpwa_tpu_torch.models import resnet
 from dpwa_tpu_torch.optim import sgd
 from dpwa_tpu_torch.train import init_params_per_peer, softmax_cross_entropy_with_integer_labels
+from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.launch import build_transport
 import dpwa_tpu_torch.examples.cifar10, dpwa_tpu_torch.convert, dpwa_tpu_torch.data
 import dpwa_tpu_torch.models.llama, dpwa_tpu_torch.ops.ulysses, dpwa_tpu_torch.utils.prng
+import dpwa_tpu_torch.utils.flax_rng
 import dpwa_tpu_torch.train_sp, dpwa_tpu_torch.ops.flash_ring, dpwa_tpu_torch.ops.zigzag_ring
 from dpwa_tpu_torch.examples import llama_lora, longcontext
 
 b = build_transport(load_config("examples/cifar10/nodes.yaml"), device="cpu")
 model = resnet.CifarResNet(depth=8)
-params = init_params_per_peer(lambda g: resnet.init(model, g), torch.Generator().manual_seed(0), 8, "cpu")
+params = init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), 8, "cpu")
 opt = sgd(0.1, momentum=0.9)
 state = b.init_state(params, opt, b.transport)
 def loss_fn(p, batch):
@@ -442,6 +445,76 @@ def test_llama_lora_step_matches_reference(overlap):
             np.testing.assert_array_equal(got[name], named[name])
             np.testing.assert_array_equal(want[name], named[name])
     assert merge.pair_merge_.launches == 0 and flash_attention.flash_attn_fwd.launches == 0
+
+
+def _first_step_losses(kind):
+    """Each package's first step from its own initialisation of key 0 (no
+    parameters carried across): the reference's ``init_params_per_peer``
+    over ``model.init``, the port's over ``resnet.init`` / ``llama.init``.
+    ResNet-20 with 8 peers on the ring and momentum SGD; the tiny LoRA
+    model with 4 peers, the random schedule, Adam and the LoRA-only
+    exchange.  Returns (port losses, reference losses)."""
+    if kind == "resnet20":
+        n, b, hw = 8, 2, 16
+        ref_model, model = RefResNet(depth=20), resnet.CifarResNet(depth=20)
+        ref_params = ref_init_per_peer(
+            lambda k: ref_model.init(k, jnp.zeros((1, hw, hw, 3))), jax.random.key(0), n
+        )
+        params = init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), n, "cpu")
+        rng = np.random.default_rng(0)
+        batch = (rng.random((n, b, hw, hw, 3), np.float32),
+                 rng.integers(0, 10, (n, b)).astype(np.int32))
+        cfg_kw = dict(schedule="ring")
+        ref_opt, opt, ref_filter, port_filter = optax.sgd(0.1, momentum=0.9), sgd(0.1, momentum=0.9), None, None
+        ref_apply = ref_model.apply
+        apply = lambda p, x: torch.func.functional_call(model, p, (x,))
+    else:
+        n = 4
+        ref_model, _, batches = _llama_case(n, 1)
+        model = llama.Llama(llama.LlamaConfig(**LLAMA_KW))
+        t = LLAMA_KW["max_seq_len"]
+        ref_params = ref_init_per_peer(
+            lambda k: ref_model.init(k, jnp.zeros((1, t), jnp.int32)), jax.random.key(0), n
+        )
+        opt = lora_optimizer(adam(1e-3), llama.lora_filter)
+        params = init_params_per_peer(
+            lambda k: llama.init(model, k), prng.key(0), n, "cpu", first=opt.trainable
+        )
+        batch = batches[0]
+        cfg_kw = dict(schedule="random", pool_size=16, interpolation="loss", factor=0.9)
+        ref_opt = ref_llama.lora_optimizer(optax.adam(1e-3), jax.tree.map(lambda v: v[0], ref_params))
+        ref_filter, port_filter = ref_llama.lora_filter, llama.lora_filter
+        ref_apply = ref_model.apply
+        apply = lambda p, x: llama.apply(model, p, x)
+    ref_cfg, cfg = _both_configs(n, **cfg_kw)
+    ref_t = ref_stacked.StackedTransport(ref_cfg)
+
+    def ref_loss(p, batch):
+        return optax.softmax_cross_entropy_with_integer_labels(ref_apply(p, batch[0]), batch[1]).mean()
+
+    def loss_fn(p, batch):
+        return softmax_cross_entropy_with_integer_labels(apply(p, batch[0]), batch[1]).mean()
+
+    ref_step = ref_stacked.make_stacked_train_step(ref_loss, ref_opt, ref_t, exchange_filter=ref_filter)
+    port_t = stacked.StackedTransport(cfg, device="cpu")
+    step = stacked.make_stacked_train_step(loss_fn, opt, port_t, exchange_filter=port_filter)
+    _, ref_losses, _ = ref_step(
+        ref_stacked.init_stacked_state(ref_params, ref_opt, ref_t), tuple(map(jnp.asarray, batch))
+    )
+    _, losses, _ = step(
+        stacked.init_stacked_state(params, opt, port_t), tuple(map(torch.from_numpy, batch))
+    )
+    return losses.numpy(), np.asarray(ref_losses)
+
+
+@pytest.mark.parametrize("kind", ["resnet20", "llama_lora"])
+def test_first_step_from_each_packages_init_matches_reference(kind):
+    """The examples start from the reference's weights: the first step's
+    per-peer losses, each package from its own init of key 0, agree at the
+    step tests' loss tolerance (rtol 1e-5), and the peers start apart."""
+    losses, ref_losses = _first_step_losses(kind)
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    assert len(set(np.round(losses, 6).tolist())) == len(losses)  # a diverged cold start
 
 
 if __name__ == "__main__":
