@@ -8,14 +8,21 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card::
 It builds the port's CUDA kernels from ``dpwa_tpu_torch/ops/csrc`` (set-up
 time, one ``nvcc`` per source, all started together), holds the merge
 kernels bit for bit against their plain PyTorch versions on a CPU copy of
-the same inputs and the flash-attention kernels against theirs on the card
+the same inputs (both forms: the partner's row from x, and from the wire
+buffer w) and the flash-attention kernels against theirs on the card
 within a stated tolerance, at the main paths' shapes, times each on the
-card, and runs the card tests.  Then it drives the two main paths and
-checks that they went through the kernels:
+card, and runs the card tests.  Then it drives the main paths and checks
+that they went through the kernels:
 
 - ``dpwa_tpu_torch.examples.cifar10``: 8 peers, ResNet-20 at full width,
   ring gossip on the CIFAR-10 fixture — pairwise (B1), in pull mode (B2)
-  and once more under the profiler;
+  and once more under the profiler; and with partial participation and
+  injected faults on the int8 wire, pairwise and pull (the wire forms of
+  B1 and B2), each step's participation held against the host's draws;
+- ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
+  width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
+  the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
+  timed and once under the profiler;
 - ``dpwa_tpu_torch.examples.llama_lora``: 4 peers at Llama-3-8B width with
   the depth cut to 2 layers, LoRA rank 8, T = 2048, the random schedule,
   Adam, the LoRA-only exchange (B1) and flash attention (B5) — once timed
@@ -55,11 +62,20 @@ TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 MAIN_D = 272474  # ResNet-20's parameters per peer: the main path's row
 BIG_D = 24 * 2**20  # bench.py's default exchange size
 N_PEERS = 8
+R50_D = 25557032  # ResNet-50's parameters per peer: the ImageNet path's row
+R50_PEERS = 32
+WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
+    "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_llama", "profile_llama", "train_sp", "train_sp_zigzag", "train_sp_a2a",
     "profile_sp",
 )
+# The ImageNet path: 32 peers of ResNet-50 at 224×224, batch 4 a peer.
+IMAGENET_BATCH, IMAGENET_STEPS = 4, 6
+# The draws path: the ResNet-20 example with partial participation and
+# injected faults on the int8 wire.
+DRAWS = {"fetch_probability": 0.5, "drop_probability": 0.1, "steps": 5}
 # The Llama path: 4 peers of Llama-3-8B width, 2 layers, batch 1, T 2048.
 LLAMA_PEERS, LLAMA_LAYERS, LLAMA_T, LLAMA_STEPS = 4, 2, 2048, 6
 # B5 at the path's shapes ([n·B, T, H, D] q, [n·B, T, KV, D] k and v) and
@@ -271,14 +287,63 @@ def nan_equal(torch, got, want) -> tuple[bool, float]:
     return bool(same.all()), float(diff.max())
 
 
+def resnet_shapes(imagenet: bool, device) -> dict:
+    """``{name: shape}`` of ResNet-20's or ResNet-50's parameters."""
+    from dpwa_tpu_torch.models import resnet
+
+    model = resnet.ResNet50(device=device) if imagenet else resnet.ResNet20()
+    return {name: tuple(p.shape) for name, p in model.named_parameters()}
+
+
+def fake_quant_ms(torch, merge, shapes: dict, peers: int, device, iters: int) -> float:
+    """Device time of the int8 wire's fake quantisation of every peer's row
+    (:func:`~dpwa_tpu_torch.ops.quantize.fake_quant_rows`, the threefry
+    draws included) over a flat buffer of these leaves, from CUDA events."""
+    from dpwa_tpu_torch.ops.quantize import WirePlan, fake_quant_rows
+    from dpwa_tpu_torch.utils.pytree import FlatParams, leaf_order
+
+    names = leaf_order(shapes)
+    flat = FlatParams(names, [shapes[k] for k in names], peers, device=device)
+    flat.flat.normal_()
+    w = merge.empty_rows_like(flat.flat)
+    plan = WirePlan(flat.leaf_ranges(), device)
+    flush = torch.empty(1, device=device)
+    ms = time_ms(torch, lambda: fake_quant_rows(flat.flat, w, plan, 0, 1), iters, flush)
+    del flat, w, plan
+    torch.cuda.empty_cache()
+    return ms
+
+
+def random_sat_out_map(peers: int):
+    """Row 0 of the ImageNet path's random pool (32 peers, pool 32) with its
+    first two pairs broken up, so that four peers sit the round out."""
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.parallel import schedules
+
+    perm = schedules.build_schedule(
+        make_local_config(peers, schedule="random", pool_size=32)
+    ).pool[0].copy()
+    for i in [i for i in range(peers) if i < perm[i]][:2]:
+        perm[perm[i]] = perm[i]
+        perm[i] = i
+    assert schedules.is_involution(perm) and len(sat_out_rows(perm)) == 4
+    return perm
+
+
 def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     """B1 (kind "b1") or B2 (kind "b2"): bit-equality against the plain
-    version on CPU copies, then times.  B2 and B1 at the ResNet path's
-    padded ``[8, 272474]`` rows and at ``[8, 24·2^20]``; B1 also at the
-    Llama path's ``[4, 1310720]`` LoRA column slice.  B1 runs as both main
-    paths run it, with ``self_pairs``: a row that sits the round out gets
-    α = 0 and is merged with itself, which must turn the inf and NaN put
-    into it here into NaN (``1·x + 0·x``, as the reference computes it)."""
+    version on CPU copies, then times.  Both forms: the partner's value from
+    x, and the wire form, from a second buffer w of the same layout (the
+    int8 wire's dequantized rows), each in the f32, bf16 and int8 wires'
+    arithmetic.  B2 and B1 at the ResNet-20 path's padded ``[8, 272474]``
+    rows, at ``[8, 24·2^20]`` and at the ImageNet path's ``[32, 25557032]``
+    (ResNet-50, 3.27 GB); B1 also at the Llama path's ``[4, 1310720]`` LoRA
+    column slice.  B1 runs as the main paths run it, with ``self_pairs``: a
+    row that sits the round out gets α = 0 and is merged with itself (its
+    own wire row), which must turn the inf and NaN put into it here into
+    NaN (``1·x + 0·y``, as the reference computes it)."""
     import numpy as np
 
     from dpwa_tpu_torch.parallel import schedules
@@ -291,123 +356,155 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
             "ring_odd": schedules._ring_odd(n),
             "sat_out": np.array([1, 0, 2, 3, 5, 4, 6, 7]),
         }
-        layouts = {MAIN_D: padded_rows, BIG_D: padded_rows}
         llama_maps = {"full": np.array([1, 0, 3, 2]), "sat_out": np.array([1, 0, 2, 3])}
+        r50_map = ("random_sat_out", random_sat_out_map(R50_PEERS))
     else:
         maps = {
             "pull_plus": schedules._ring_pull(n, 0),
             "pull_minus": schedules._ring_pull(n, 1),
         }
-        layouts = {MAIN_D: padded_rows, BIG_D: padded_rows}
         llama_maps = {}
+        r50_map = ("pull_plus", schedules._ring_pull(R50_PEERS, 0))
+    wire_map = "sat_out" if kind == "b1" else "pull_plus"
     alphas = {
         "0.5": np.full(n, 0.5, np.float32),
         "random": rng.uniform(0.0, 1.0, n).astype(np.float32),
     }
+    r50_alpha = rng.uniform(0.0, 1.0, R50_PEERS).astype(np.float32)
+    # (rows, d, layout, map, perm, alpha name, alpha, wire, wire form?)
     cases = []
-    for d in layouts:
+    for d in (MAIN_D, BIG_D):
         for map_name, perm in maps.items():
             for a_name, a_np in alphas.items():
-                for wire in (False, True) if a_name == "random" else (False,):
-                    cases.append((n, d, layouts[d], map_name, perm, a_name, a_np, wire))
+                for wire in ("f32", "bf16") if a_name == "random" else ("f32",):
+                    cases.append((n, d, padded_rows, map_name, perm, a_name, a_np, wire, False))
+            if d == MAIN_D or map_name == wire_map:
+                for wire in WIRES:
+                    cases.append((n, d, padded_rows, map_name, perm, "random",
+                                  alphas["random"], wire, True))
     if llama_maps:
         lora_w = llama_lora_layout()[1]
         a_np = alphas["random"][:LLAMA_PEERS]
         for map_name, perm in llama_maps.items():
-            for wire in (False, True):
+            for wire in ("f32", "bf16"):
                 cases.append((LLAMA_PEERS, lora_w, llama_lora_rows, map_name, perm,
-                              "random", a_np, wire))
+                              "random", a_np, wire, False))
+    for wire, in_w in (("f32", False), ("bf16", False), ("int8", True)):
+        cases.append((R50_PEERS, R50_D, padded_rows, *r50_map, "random", r50_alpha, wire, in_w))
     max_err, n_checked = 0.0, 0
     gen = torch.Generator().manual_seed(7)
     base = {}
-    for rows, d, layout, map_name, perm, a_name, a_np, wire in cases:
+    for rows, d, layout, map_name, perm, a_name, a_np, wire, in_w in cases:
         if (rows, d) not in base:
+            base.clear()  # one size's inputs on the host at a time
             base[rows, d] = torch.randn(rows, d, generator=gen)
         x_cpu = base[rows, d].clone()
         alpha = torch.from_numpy(a_np.copy())
         sat_out = sat_out_rows(perm) if kind == "b1" else []
         alpha[sat_out] = 0.0  # the exchange's α for a peer that sits out
         poison(x_cpu, sat_out)
+        w_cpu = w = None
+        if in_w:
+            w_cpu = x_cpu + torch.randn(rows, d, generator=gen).mul_(0.25)
+            poison(w_cpu, sat_out or [0])
+            w = layout(torch, w_cpu, device)
         x = layout(torch, x_cpu, device)
         if kind == "b1":
             left, right = merge.involution_pairs(perm, self_pairs=True)
             left_t, right_t = torch.from_numpy(left), torch.from_numpy(right)
             merge.pair_merge_(
                 x, left_t.to(device), right_t.to(device), alpha.to(device),
-                wire_bf16=wire, self_pairs=True,
+                wire=wire, self_pairs=True, w=w,
             )
             want = merge.torch_pair_merge_(
-                x_cpu, left_t, right_t, alpha, wire_bf16=wire, self_pairs=True
+                x_cpu, left_t, right_t, alpha, wire=wire, self_pairs=True, w=w_cpu
             )
             got = x
         else:
             partner = torch.from_numpy(perm.astype(np.int32))
-            got = merge.gather_merge(
-                x, partner.to(device), alpha.to(device), wire_bf16=wire
-            )
-            want = merge.torch_pairwise_merge(x_cpu, partner, alpha, wire_bf16=wire)
+            got = merge.gather_merge(x, partner.to(device), alpha.to(device), wire=wire, w=w)
+            want = merge.torch_pairwise_merge(x_cpu, partner, alpha, wire=wire, w=w_cpu)
         torch.cuda.synchronize()
         got = got.cpu()
-        del x
+        del x, w
         same, err = nan_equal(torch, got, want)
         if not same:
             raise AssertionError(
                 f"{kind} differs from its plain version: shape=[{rows}, {d}] "
-                f"map={map_name} alpha={a_name} bf16_wire={wire} max_abs_err={err}"
+                f"map={map_name} alpha={a_name} wire={wire} wire_form={in_w} max_abs_err={err}"
             )
         if sat_out and not bool(got[sat_out][:, :3].isnan().all()):
             raise AssertionError(f"b1 [{rows}, {d}]: a sat-out inf did not become NaN")
         max_err = max(max_err, err)
         n_checked += 1
+        del got, want, x_cpu, w_cpu
     del base
     torch.cuda.empty_cache()
 
     timings = {}
     map_name = next(iter(maps))
-    timed = [(n, d, layouts[d], maps[map_name]) for d in layouts]
+    # (key, rows, d, layout, perm, wire form?, iterations)
+    timed = [("main", n, MAIN_D, padded_rows, maps[map_name], False, 30),
+             ("main_wire", n, MAIN_D, padded_rows, maps[map_name], True, 30),
+             ("big", n, BIG_D, padded_rows, maps[map_name], False, 10),
+             ("big_wire", n, BIG_D, padded_rows, maps[map_name], True, 10),
+             ("resnet50", R50_PEERS, R50_D, padded_rows, r50_map[1], False, 5),
+             ("resnet50_wire", R50_PEERS, R50_D, padded_rows, r50_map[1], True, 5)]
     if llama_maps:
-        timed.append((LLAMA_PEERS, lora_w, llama_lora_rows, llama_maps["full"]))
-    for rows, d, layout, perm in timed:
-        gen = torch.Generator().manual_seed(11)
-        x = layout(torch, torch.randn(rows, d, generator=gen), device)
-        alpha = torch.from_numpy(alphas["random"][:rows]).to(device)
+        timed.append(("llama", LLAMA_PEERS, lora_w, llama_lora_rows, llama_maps["full"], False, 30))
+    for key, rows, d, layout, perm, in_w, iters in timed:
+        gen = torch.Generator(device=device).manual_seed(11)
+        x = timed_rows(layout, torch, rows, d, device, gen)
+        w = timed_rows(layout, torch, rows, d, device, gen) if in_w else None
+        wire = "int8" if in_w else "f32"
+        alpha = torch.from_numpy((r50_alpha if rows == R50_PEERS else alphas["random"])[:rows]).to(device)
         partner64 = torch.from_numpy(perm.astype(np.int64)).to(device)
-        y = x[partner64]  # pre-gathered rows for the library yardstick
+        y = (x if w is None else w)[partner64]  # pre-gathered rows for the library yardstick
         lib_out = torch.empty_like(y)
+        streams = 3 if in_w else 2  # rows read and written per touched row
         if kind == "b1":
             left, right = (
                 torch.from_numpy(v).to(device)
                 for v in merge.involution_pairs(perm, self_pairs=True)
             )
             touched = int(torch.unique(torch.cat([left, right])).numel())
-            kernel = lambda: merge.pair_merge_(x, left, right, alpha, self_pairs=True)
-            plain = lambda: merge.torch_pair_merge_(x, left, right, alpha, self_pairs=True)
-            n_bytes = 2 * touched * d * 4
+            kernel = lambda: merge.pair_merge_(x, left, right, alpha, wire=wire, self_pairs=True, w=w)
+            plain = lambda: merge.torch_pair_merge_(x, left, right, alpha, wire=wire, self_pairs=True, w=w)
+            n_bytes = streams * touched * d * 4
             flops = 3 * touched * d
         else:
             partner = partner64.to(torch.int32)
-            out = merge.gather_merge(x, partner, alpha)
-            kernel = lambda: merge.gather_merge(x, partner, alpha, out=out)
-            plain = lambda: merge.torch_pairwise_merge(x, partner, alpha)
-            n_bytes = 2 * rows * d * 4  # x read once, out written once
+            out = merge.gather_merge(x, partner, alpha, wire=wire, w=w)
+            kernel = lambda: merge.gather_merge(x, partner, alpha, wire=wire, out=out, w=w)
+            plain = lambda: merge.torch_pairwise_merge(x, partner, alpha, wire=wire, w=w)
+            n_bytes = streams * rows * d * 4  # x (and w) read once, out written once
             flops = 3 * rows * d
         library = lambda: torch.lerp(x, y, alpha[:, None], out=lib_out)
-        iters = 10 if d == BIG_D else 30
         ms = time_ms(torch, kernel, iters, flush)
-        plain_ms = time_ms(torch, plain, iters, flush)
+        plain_ms = time_ms(torch, plain, max(3, iters // 3), flush)
         library_ms = time_ms(torch, library, iters, flush)
         b_ms, b_by = bound_ms(n_bytes, flops)
-        key = "llama" if layout is llama_lora_rows else d
         timings[key] = {
-            "shape": [rows, d], "row_stride": x.stride(0),
+            "shape": [rows, d], "row_stride": x.stride(0), "wire_form": in_w, "wire": wire,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            "gb_per_s": n_bytes / (ms * 1e-3) / 1e9,
+            "gb_per_s": n_bytes / (ms * 1e-3) / 1e9, "share_of_bound": b_ms / ms,
         }
-        del x, y, lib_out
+        del x, w, y, lib_out
+        if kind == "b2":
+            del out
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return {"cases": n_checked, "max_abs_err": max_err, "timings": timings}
+
+
+def timed_rows(layout, torch, rows: int, d: int, device, gen):
+    """Normal values at ``[rows, d]`` on the card in ``layout``, drawn on the
+    card (the timed inputs need not come from the host)."""
+    if layout is padded_rows:
+        buf = torch.randn(rows, -(-d // 32) * 32, device=device, generator=gen)
+        return buf[:, :d]
+    return layout(torch, torch.randn(rows, d, generator=torch.Generator().manual_seed(11)), device)
 
 
 def flash_checks(torch, fa, device, flush, ptxas) -> dict:
@@ -842,6 +939,116 @@ def main(argv=None) -> int:
             "profile": res["profile"],
         })
 
+    for phase, extra, kernel in (
+        # The ResNet-20 path with partial participation and faults on the
+        # int8 wire: the host's draws, the wire's fake quantisation, and the
+        # wire form of B1 (pairwise) and of B2 (pull).
+        ("train_draws", [], "pair_merge_"),
+        ("train_draws_pull", ["--mode", "pull"], "gather_merge"),
+    ):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        steps = DRAWS["steps"]
+        config = os.path.join(HERE, "examples/cifar10/nodes.yaml")
+        argv = [
+            "--config", config, "--data-dir", os.path.join(HERE, "data/cifar10_fixture"),
+            "--steps", str(steps), "--batch-size", "64", "--log-every", "1",
+            "--wire-dtype", "int8",
+            "--fetch-probability", str(DRAWS["fetch_probability"]),
+            "--drop-probability", str(DRAWS["drop_probability"]), *extra,
+        ]
+        merge.reset_launch_counts()  # count the main path's launches only
+        res = cifar10.main(argv)
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+        }
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        if res["device"] != kind or res["final_step"] != steps:
+            raise AssertionError(f"{phase}: ran on {res['device']} for {res['final_step']} steps")
+        other = "gather_merge" if kernel == "pair_merge_" else "pair_merge_"
+        if launches[kernel] != steps or launches[other] != 0:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}")
+        # Each step's participation on the card against the draws on the host.
+        from dpwa_tpu_torch.config import load_config
+        from dpwa_tpu_torch.parallel import schedules
+        from dpwa_tpu_torch.utils.launch import apply_overrides
+
+        sched = schedules.build_schedule(apply_overrides(
+            load_config(config), "int8", "pull" if extra else None,
+            DRAWS["fetch_probability"], DRAWS["drop_probability"],
+        ))
+        want = [[sched.participates(step, i) for i in range(sched.n_peers)] for step in range(steps)]
+        if res["participated"] != want:
+            raise AssertionError(f"{phase}: participation {res['participated']} != host draws {want}")
+        paired = sum(int(sched.partner(step, i) != i) for step in range(steps) for i in range(sched.n_peers))
+        kept = sum(map(sum, want))
+        if not 0 < kept < paired:
+            raise AssertionError(f"{phase}: the draws kept {kept} of {paired} paired peers")
+        main_launches[phase] = launches
+        fq = {}
+        if kernel == "pair_merge_":
+            # The int8 wire's fake quantisation alone, at this path's layout
+            # and (once) at the ImageNet path's, against the step.
+            fq["fake_quant_ms"] = fake_quant_ms(torch, merge, resnet_shapes(False, device), N_PEERS, device, 10)
+            fq["fake_quant_share_of_step"] = fq["fake_quant_ms"] * res["steps_per_sec"] / 1e3
+            fq["fake_quant_ms_resnet50_32_peers"] = fake_quant_ms(
+                torch, merge, resnet_shapes(True, device), R50_PEERS, device, 1)
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "wire": "int8", **{k: v for k, v in DRAWS.items() if k != "steps"},
+            "steps_per_sec": res["steps_per_sec"], "step0_loss": losses[0], "losses": losses,
+            "participated": [sum(r) for r in want], "paired": paired, "launches": launches,
+            "payload_bytes": res["payload_bytes"], **fq,
+        })
+        torch.cuda.empty_cache()
+
+    from dpwa_tpu_torch.examples import imagenet
+
+    for phase, steps, profile in (
+        ("train_imagenet", IMAGENET_STEPS, False),
+        # The ImageNet path again under torch.profiler: where its device
+        # time goes, and B1's time inside the step at 3.27 GB.
+        ("profile_imagenet", 3, True),
+    ):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        merge.reset_launch_counts()  # count the main path's launches only
+        res = imagenet.main([
+            "--peers", str(R50_PEERS), "--steps", str(steps),
+            "--batch-size", str(IMAGENET_BATCH), "--image-size", "224", "--log-every", "1",
+            *(["--profile"] if profile else []),
+        ])
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+        }
+        torch.cuda.empty_cache()
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        if res["device"] != kind or res["final_step"] != steps:
+            raise AssertionError(f"{phase}: ran on {res['device']} for {res['final_step']} steps")
+        if res["params_per_peer"] != R50_D or res["n_peers"] != R50_PEERS:
+            raise AssertionError(f"{phase}: {res['n_peers']} peers of {res['params_per_peer']} parameters")
+        if launches != {"pair_merge_": steps, "gather_merge": 0}:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}")
+        main_launches[phase] = launches
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "n_peers": R50_PEERS, "batch_per_peer": IMAGENET_BATCH, "image_size": 224,
+            "params_per_peer": res["params_per_peer"], "nvidia_smi": name_limit,
+            "steps_per_sec": res["steps_per_sec"], "images_per_sec": res["images_per_sec"],
+            "init_seconds": res["init_seconds"], "step0_loss": losses[0], "losses": losses,
+            "launches": launches, "payload_bytes": res["payload_bytes"],
+            "peak_mem_bytes": res["peak_mem_bytes"], "profile": res["profile"],
+            "b1_ms_in_step": res["profile"]["merge_ms_per_step"] if profile else None,
+        })
+
     from dpwa_tpu_torch.examples import llama_lora
 
     for phase, steps, profile in (
@@ -953,26 +1160,38 @@ def main(argv=None) -> int:
         })
 
     kernels = []
-    for kind_name, name, phase, replaces in (
-        ("b1", "pair_merge_", "train", "dpwa_tpu/ops/merge.py:342"),
-        ("b2", "gather_merge", "train_pull", "dpwa_tpu/ops/merge.py:103"),
+    for kind_name, name, phase, draws_phase, replaces in (
+        ("b1", "pair_merge_", "train", "train_draws", "dpwa_tpu/ops/merge.py:342"),
+        ("b2", "gather_merge", "train_pull", "train_draws_pull", "dpwa_tpu/ops/merge.py:103"),
     ):
         if kind_name not in results:
             continue
-        at_main = results[kind_name]["timings"][MAIN_D]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "dpwa_tpu_torch/ops/csrc/merge.cu", "replaces": replaces,
-            "launches": main_launches.get(phase, {}).get(name),
-            "launches_phase": phase,
-            "launches_llama": main_launches.get("train_llama", {}).get(name),
-            "max_abs_err": results[kind_name]["max_abs_err"],
-            "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
-            "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
-            "library_ms": at_main["library_ms"], "at_shape": [N_PEERS, MAIN_D],
-            # B1 at the Llama path's LoRA column slice (1 launch per step there)
-            "at_llama": results[kind_name]["timings"].get("llama"),
-        })
+        timings = results[kind_name]["timings"]
+        for form, at_main, launch_phase in (
+            ("x", timings["main"], phase),
+            # The wire form (the partner's row from the int8 wire's buffer).
+            ("wire", timings["main_wire"], draws_phase),
+        ):
+            suffix = "" if form == "x" else "_wire"
+            kernels.append({
+                "name": name if form == "x" else f"{name}[wire]", "route": "cuda",
+                "source": "dpwa_tpu_torch/ops/csrc/merge.cu", "replaces": replaces,
+                "form": form, "wire": at_main["wire"],
+                "launches": main_launches.get(launch_phase, {}).get(name),
+                "launches_phase": launch_phase,
+                "launches_imagenet": (main_launches.get("train_imagenet", {}).get(name)
+                                      if form == "x" else None),
+                "launches_llama": (main_launches.get("train_llama", {}).get(name)
+                                   if form == "x" else None),
+                "max_abs_err": results[kind_name]["max_abs_err"],
+                "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
+                "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+                "library_ms": at_main["library_ms"], "at_shape": at_main["shape"],
+                "at_resnet50": timings["resnet50" + suffix],
+                "at_big": timings["big" + suffix],
+                # B1 at the Llama path's LoRA column slice (1 launch per step there)
+                "at_llama": timings.get("llama") if form == "x" else None,
+            })
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):
             at_main = results["b5"]["timings"][kind_name]

@@ -1,10 +1,11 @@
 """Carry parameters between the Flax models and the port's.
 
-ResNet (:func:`flax_to_torch`, :func:`torch_to_flax`): Flax keeps a conv kernel as HWIO and a Dense kernel as ``[in, out]``; the
-port's modules (:mod:`dpwa_tpu_torch.models.resnet`) keep OIHW and
-``[out, in]``.  Names map one to one: the Flax key path
-``params/BasicBlock_0/Conv_0/kernel`` is the port's
-``BasicBlock_0.Conv_0.kernel``.  Both directions work on numpy arrays, so
+ResNet (:func:`flax_to_torch`, :func:`torch_to_flax`; the CIFAR ResNets
+and ResNet-50's 161 leaves alike): Flax keeps a conv kernel as HWIO and a
+Dense kernel as ``[in, out]``; the port's modules
+(:mod:`dpwa_tpu_torch.models.resnet`) keep OIHW and ``[out, in]``.  Names
+map one to one: the Flax key path ``params/BasicBlock_0/Conv_0/kernel`` is
+the port's ``BasicBlock_0.Conv_0.kernel``.  Both directions work on numpy arrays, so
 tests can hand the same parameters to both packages and compare the
 updated ones.  A leading peer axis (``stacked=True``) rides along
 untouched.

@@ -110,6 +110,7 @@ def main(argv=None) -> dict:
     bundle = build_transport(
         load_config(args.config), args.transport, args.device,
         wire_dtype=args.wire_dtype, mode=args.mode,
+        fetch_probability=args.fetch_probability, drop_probability=args.drop_probability,
     )
     cfg, transport, device = bundle.config, bundle.transport, bundle.device
     if args.synthetic:
@@ -163,15 +164,16 @@ def main(argv=None) -> dict:
 
     # The first step (cuDNN's algorithm choice, the kernels' build and
     # load) runs outside the timed region.
-    state, losses, _ = step_fn(state, next(batches))
-    step_losses = [losses.mean()]
+    state, losses, info = step_fn(state, next(batches))
+    step_losses, participated = [losses.mean()], [info.participated]
     sync()
     tracer = trace.tracer(device) if args.profile else contextlib.nullcontext()
     with tracer:
         t0 = time.perf_counter()
         for _ in range(1, args.steps):
-            state, losses, _ = step_fn(state, next(batches))
+            state, losses, info = step_fn(state, next(batches))
             step_losses.append(losses.mean())
+            participated.append(info.participated)
         sync()
         dt = time.perf_counter() - t0
     steps_per_sec = (args.steps - 1) / dt if args.steps > 1 else float("nan")
@@ -201,6 +203,7 @@ def main(argv=None) -> dict:
         "steps_per_sec": steps_per_sec,
         "init_seconds": init_seconds,
         "losses": mean_losses,
+        "participated": torch.stack(participated).tolist(),
         "accuracy": accs,
         "payload_bytes": payload,
         "final_step": state.step,

@@ -1,4 +1,4 @@
-"""CIFAR ResNets (the port of :mod:`dpwa_tpu.models.resnet`).
+"""ResNets for CIFAR-10 and ImageNet (the port of :mod:`dpwa_tpu.models.resnet`).
 
 Module and parameter names mirror the Flax model's, so a parameter's name
 here is its Flax key path: ``BasicBlock_3.Conv_2.kernel`` is
@@ -10,13 +10,20 @@ The public call takes NHWC ``[B, H, W, 3]`` as the Flax model does and
 computes in NCHW inside.  What matches Flax, and why it matters:
 
 - ``Conv`` pads ``SAME``: for a stride-2 3×3 conv on an even size that is
-  (0, 1) on H and W, not PyTorch's symmetric ``padding=1``.
+  (0, 1) on H and W, not PyTorch's symmetric ``padding=1``; for the
+  ImageNet stem's 7×7 stride-2 conv on 224 it is (2, 3), not 3.
+- The ImageNet stem's 3×3 stride-2 ``max_pool`` pads ``SAME`` with −inf:
+  (0, 1) on an even size (:func:`max_pool_same`); ``max_pool2d(padding=1)``
+  would move every window by one.
+- The bottleneck block strides its 3×3 conv, as Flax's does.
 - ``GroupNorm`` uses 16 channels per group, epsilon 1e-6, and the variance
   ``E[x²] − E[x]²`` (Flax's ``use_fast_variance``), in float32.
 - ``dtype`` is the compute type of convolutions and norms (bf16 compute,
   float32 parameters); the final Dense layer computes in float32.
 
-ImageNet ResNet-50 and ``norm='batch'`` are not ported yet.
+Every model is built with the weights Flax's ``model.init`` draws from
+``jax.random.key(0)`` (:func:`init`), on ``device``.  ``norm='batch'``
+(BatchNorm's running statistics as merged model state) is not ported yet.
 """
 
 from __future__ import annotations
@@ -122,6 +129,57 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
+    """Flax ``nn.max_pool(x, (window, window), (stride, stride), "SAME")``
+    on NCHW: pad as ``SAME`` does, with −inf, then pool without padding."""
+    ph = _same_pads(x.shape[-2], window, stride)
+    pw = _same_pads(x.shape[-1], window, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class BottleneckBlock(nn.Module):
+    """1×1 → 3×3 (strided) → 1×1 bottleneck (the ResNet-50 family), with a
+    projected residual where the output's shape differs."""
+
+    def __init__(self, in_features: int, filters: int, strides: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, filters, 1, 1, dtype)
+        self.GroupNorm_0 = GroupNorm(filters, dtype=dtype)
+        self.Conv_1 = Conv(filters, filters, 3, strides, dtype)
+        self.GroupNorm_1 = GroupNorm(filters, dtype=dtype)
+        self.Conv_2 = Conv(filters, 4 * filters, 1, 1, dtype)
+        self.GroupNorm_2 = GroupNorm(4 * filters, dtype=dtype)
+        if strides != 1 or in_features != 4 * filters:
+            self.Conv_3 = Conv(in_features, 4 * filters, 1, strides, dtype)
+            self.GroupNorm_3 = GroupNorm(4 * filters, dtype=dtype)
+        else:
+            self.Conv_3 = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        y = F.relu(self.GroupNorm_1(self.Conv_1(y)))
+        y = self.GroupNorm_2(self.Conv_2(y))
+        residual = x if self.Conv_3 is None else self.GroupNorm_3(self.Conv_3(x))
+        return F.relu(y + residual)
+
+
+def _group_norm_only(norm_type: str) -> None:
+    if norm_type != "group":
+        raise NotImplementedError(
+            f"norm_type={norm_type!r}: only 'group' is ported (BatchNorm's "
+            "model state waits for the with_state train step)"
+        )
+
+
+def _start_from_key0(model: nn.Module, device) -> None:
+    """Fill ``model``'s parameters with :func:`init` from ``prng.key(0)``."""
+    with torch.no_grad():
+        for name, value in init(model, prng.key(0), device).items():
+            model.get_parameter(name).copy_(value)
+
+
 class CifarResNet(nn.Module):
     """CIFAR-style ResNet: 3×3 stem, 3 stages of n blocks at 16/32/64."""
 
@@ -130,11 +188,7 @@ class CifarResNet(nn.Module):
         super().__init__()
         if (depth - 2) % 6 != 0:
             raise ValueError("CIFAR ResNet depth must be 6n+2")
-        if norm_type != "group":
-            raise NotImplementedError(
-                f"norm_type={norm_type!r}: only 'group' is ported (BatchNorm's "
-                "model state waits for the with_state train step)"
-            )
+        _group_norm_only(norm_type)
         self.dtype = dtype
         n = (depth - 2) // 6
         self.Conv_0 = Conv(3, 16, 3, 1, dtype)
@@ -150,9 +204,7 @@ class CifarResNet(nn.Module):
                 in_features, index = filters, index + 1
         self.n_blocks = index
         self.Dense_0 = Dense(64, num_classes)
-        with torch.no_grad():
-            for name, value in init(self, prng.key(0)).items():
-                self.get_parameter(name).copy_(value)
+        _start_from_key0(self, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: NHWC ``[B, H, W, 3]`` → logits ``[B, num_classes]``."""
@@ -169,6 +221,51 @@ def ResNet20(**kw) -> CifarResNet:
 
 def ResNet56(**kw) -> CifarResNet:
     return CifarResNet(depth=56, **kw)
+
+
+class ImageNetResNet(nn.Module):
+    """ImageNet-style ResNet with bottleneck blocks (ResNet-50 by default):
+    a 7×7 stride-2 stem, a SAME 3×3 stride-2 max-pool, four stages of
+    bottleneck blocks at 64/128/256/512 filters (×4 out), the mean over
+    H and W and a float32 Dense.  Built on ``device`` (the CPU by default),
+    where its weights are drawn; on the meta device it holds no values, for
+    ``functional_call`` with parameters from elsewhere."""
+
+    def __init__(self, stage_sizes=(3, 4, 6, 3), num_classes: int = 1000,
+                 norm_type: str = "group", dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        _group_norm_only(norm_type)
+        self.dtype = dtype
+        with torch.device(device if device is not None else "cpu"):
+            self.Conv_0 = Conv(3, 64, 7, 2, dtype)
+            self.GroupNorm_0 = GroupNorm(64, dtype=dtype)
+            in_features, index = 64, 0
+            for stage, (size, filters) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):
+                for block in range(size):
+                    strides = 2 if stage > 0 and block == 0 else 1
+                    self.add_module(
+                        f"BottleneckBlock_{index}",
+                        BottleneckBlock(in_features, filters, strides, dtype),
+                    )
+                    in_features, index = 4 * filters, index + 1
+            self.n_blocks = index
+            self.Dense_0 = Dense(in_features, num_classes)
+        if torch.device(device if device is not None else "cpu").type != "meta":
+            _start_from_key0(self, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: NHWC ``[B, H, W, 3]`` → logits ``[B, num_classes]``."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        x = max_pool_same(x)
+        for i in range(self.n_blocks):
+            x = getattr(self, f"BottleneckBlock_{i}")(x)
+        return self.Dense_0(x.mean(dim=(2, 3)))
+
+
+def ResNet50(**kw) -> ImageNetResNet:
+    return ImageNetResNet(stage_sizes=(3, 4, 6, 3), **kw)
 
 
 def init(model: nn.Module, key: prng.Key, device=None) -> dict[str, torch.Tensor]:

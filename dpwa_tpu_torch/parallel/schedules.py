@@ -10,10 +10,11 @@ numpy and give the reference's pools exactly.
 A periodic schedule's row at ``step`` is ``branch_map[step % period]``;
 the ``random`` schedule draws its row i.i.d. per step from the threefry
 stream of :func:`pool_branch_draw` (:mod:`dpwa_tpu_torch.utils.prng`,
-bit-equal to the reference's ``jax.random`` draw).  The other threefry
-draws — ``fetch_probability < 1``, ``drop_probability > 0`` and the int8
-wire's stochastic rounding — raise :class:`NotImplementedError` in
-:func:`build_schedule` until they are ported.
+bit-equal to the reference's ``jax.random`` draw).  With
+``fetch_probability < 1`` or ``drop_probability > 0`` each pair also draws,
+per step, whether it exchanges (:func:`participation_draw`,
+:func:`fault_draw`): on the host, from the same threefry streams as the
+reference, and :meth:`Schedule.drawn` gives the round's mask.
 """
 
 from __future__ import annotations
@@ -33,6 +34,21 @@ def _pair_key(seed: int, step: int, pair_id: int, tag: int) -> prng.Key:
     tag folded in, in that order (step and pair id as int32)."""
     k = prng.fold_in(prng.key(seed), step)
     return prng.fold_in(prng.fold_in(k, pair_id), tag)
+
+
+def participation_draw(seed: int, step: int, pair_id: int, fetch_probability: float) -> bool:
+    """One Bernoulli per (step, pair), shared by both members of a pair:
+    the reference's ``uniform(_pair_key(seed, step, pair_id, 0)) <
+    fetch_probability``, compared in float32 as jax compares it."""
+    u = prng.uniform_scalar(_pair_key(seed, step, pair_id, _tags.TAG_PARTICIPATION))
+    return bool(u < np.float32(fetch_probability))
+
+
+def fault_draw(seed: int, step: int, pair_id: int, drop_probability: float) -> bool:
+    """Fault injection: True means this pair's exchange is DROPPED (tag 1,
+    independent of the participation stream)."""
+    u = prng.uniform_scalar(_pair_key(seed, step, pair_id, _tags.TAG_FAULT))
+    return bool(u < np.float32(drop_probability))
 
 
 def pool_branch_draw(seed: int, step: int, pool_size: int, periodic: bool) -> int:
@@ -223,8 +239,7 @@ class Schedule:
     Attributes:
       pool: [K, n] int32 — K static pairings (pairwise) or pull maps (pull).
       n_peers: stacked-axis size (length of the YAML ``nodes:`` list).
-      fetch_probability: per-step chance that a pair exchanges (only 1.0 is
-        ported).
+      fetch_probability: per-step chance that a pair exchanges.
       seed: RNG seed of the participation draws (and of a random pool).
       branch_map: optional [period] map from step-in-period to pool row
         (the hierarchical pool is deduplicated); None is the identity.
@@ -237,7 +252,7 @@ class Schedule:
     name: str
     drop_probability: float = 0.0
     mode: str = "pairwise"  # pairwise (involutions) | pull (one-sided maps)
-    wire_dtype: str = "f32"  # precision of the shipped replica (f32 | bf16)
+    wire_dtype: str = "f32"  # precision of the shipped replica (f32 | bf16 | int8)
     branch_map: Optional[np.ndarray] = None
 
     @property
@@ -274,40 +289,45 @@ class Schedule:
     def partner(self, step: int, i: int) -> int:
         return int(self.pairing(step)[i])
 
+    @property
+    def draws(self) -> bool:
+        """Whether a round draws its participation (``fetch_probability <
+        1``) or faults (``drop_probability > 0``)."""
+        return self.fetch_probability < 1.0 or self.drop_probability > 0.0
+
+    def keeps(self, step: int, pair_id: int) -> bool:
+        """Whether pair ``pair_id``'s exchange goes ahead at ``step``: its
+        participation draw passed and its fault draw did not."""
+        ok = self.fetch_probability >= 1.0 or participation_draw(
+            self.seed, step, pair_id, self.fetch_probability
+        )
+        if ok and self.drop_probability > 0.0:
+            ok = not fault_draw(self.seed, step, pair_id, self.drop_probability)
+        return ok
+
+    def drawn(self, step: int, partner) -> np.ndarray:
+        """bool ``[n]``: :meth:`keeps` for each peer's pair under the
+        round's ``partner`` map, one draw per pair id (a self-pair is
+        masked by the caller, as the reference masks it)."""
+        memo: dict[int, bool] = {}
+        out = np.empty(len(partner), dtype=bool)
+        for i, p in enumerate(partner):
+            pid = self.pair_id(i, int(p))
+            if pid not in memo:
+                memo[pid] = self.keeps(step, pid)
+            out[i] = memo[pid]
+        return out
+
     def participates(self, step: int, i: int) -> bool:
-        """Whether peer ``i`` exchanges at ``step``: with full participation
-        and no fault injection (the only ported case), iff it is paired."""
-        if self.fetch_probability < 1.0 or self.drop_probability > 0.0:
-            raise NotImplementedError(
-                "participation draws need threefry's uniform draw, which is "
-                "not ported yet"
-            )
-        return self.partner(step, i) != i
-
-
-def _threefry_settings(proto) -> list[str]:
-    needs = []
-    if proto.fetch_probability < 1.0:
-        needs.append(f"fetch_probability: {proto.fetch_probability}")
-    if proto.drop_probability > 0.0:
-        needs.append(f"drop_probability: {proto.drop_probability}")
-    if proto.wire_dtype == "int8":
-        needs.append("wire_dtype: int8")
-    return needs
+        """Whether peer ``i`` exchanges at ``step``: it is paired and its
+        pair :meth:`keeps` the round."""
+        p = self.partner(step, i)
+        return p != i and self.keeps(step, self.pair_id(i, p))
 
 
 def build_schedule(config: DpwaConfig) -> Schedule:
-    """Materialize the pairing/pull pool described by ``config.protocol``.
-
-    Raises :class:`NotImplementedError` for settings that need threefry
-    draws not ported yet (see the module docstring)."""
+    """Materialize the pairing/pull pool described by ``config.protocol``."""
     proto = config.protocol
-    needs = _threefry_settings(proto)
-    if needs:
-        raise NotImplementedError(
-            f"{', '.join(needs)} need(s) counter-based threefry draws that "
-            f"dpwa_tpu_torch does not port yet (uniform, the int8 wire's rounding)"
-        )
     n = config.n_peers
     pull = proto.mode == "pull"
     if n == 1:

@@ -5,21 +5,26 @@ flat ``[n_peers, P]`` float32 buffer (:class:`~dpwa_tpu_torch.utils.pytree.
 FlatParams`) on one card, and one gossip round is:
 
 1. pick this step's pool row (``schedule.branch(step)``, on the host);
-2. α from each peer's and its partner's ``(clock, loss)``, masked to 0 for
+2. with ``fetch_probability < 1`` or ``drop_probability > 0``, each pair's
+   participation and fault draws, on the host from the host's step
+   (:meth:`~dpwa_tpu_torch.parallel.schedules.Schedule.drawn`), copied to
+   the card as one ``[n]`` bool mask from pinned memory without waiting;
+3. α from each peer's and its partner's ``(clock, loss)``, masked to 0 for
    peers that sit the round out — elementwise ops on ``[n]`` tensors on the
    device, the reference's float32 arithmetic;
-3. the merge ``x ← (1−α)·x + α·x[partner]``: for a pairwise schedule ONE
-   launch of the in-place pair-merge kernel B1 over the row's pair list
-   (one per contiguous column range under ``exchange_filter``); for a pull
-   schedule, whose maps are not involutions, the gather-merge kernel B2.
+4. on the int8 wire, each sender's rows quantized and dequantized leaf by
+   leaf with the sender's keys (:func:`~dpwa_tpu_torch.ops.quantize.
+   fake_quant_rows`) into a second buffer ``w``: what each peer ships;
+5. the merge ``x ← (1−α)·x + α·y[partner]``, ``y`` = ``x`` or ``w``: for a
+   pairwise schedule ONE launch of the in-place pair-merge kernel B1 over
+   the row's pair list (one per contiguous column range under
+   ``exchange_filter``); for a pull schedule, whose maps are not
+   involutions, the gather-merge kernel B2.
 
 The pool's partner maps and pair lists go to the device once, when the
-transport is built; a step only picks a row of them, so the exchange does
-no host-to-device copy and no synchronisation.  The merged values are the
-reference's bit for bit (``tests/test_torch_stacked.py``).
-
-Only full participation is ported: the participation and fault draws need
-threefry (see :mod:`dpwa_tpu_torch.parallel.schedules`).
+transport is built; a step picks a row of them, so the exchange waits on
+nothing.  The merged values are the reference's bit for bit
+(``tests/test_torch_stacked.py``, ``tests/test_torch_exchange.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,13 @@ import torch
 
 from dpwa_tpu_torch.config import DpwaConfig
 from dpwa_tpu_torch.interpolation import PeerMeta, make_interpolation
-from dpwa_tpu_torch.ops.merge import gather_merge, involution_pairs, pair_merge_
+from dpwa_tpu_torch.ops.merge import (
+    empty_rows_like,
+    gather_merge,
+    involution_pairs,
+    pair_merge_,
+)
+from dpwa_tpu_torch.ops.quantize import WirePlan, fake_quant_rows
 from dpwa_tpu_torch.parallel import schedules
 from dpwa_tpu_torch.utils.devices import resolve_device
 from dpwa_tpu_torch.utils.pytree import FlatParams
@@ -84,6 +95,16 @@ class DevicePool:
         return self.left[branch, :k], self.right[branch, :k]
 
 
+def _host_mask(mask: np.ndarray, device) -> torch.Tensor:
+    """A host bool mask on ``device``: on the card through pinned memory,
+    copied without waiting (the caching host allocator keeps the pinned
+    block until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(mask))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def stacked_gossip_exchange(
     x: torch.Tensor,
     meta: PeerMeta,
@@ -94,22 +115,31 @@ def stacked_gossip_exchange(
     pool: DevicePool | None = None,
     columns: Columns | None = None,
     out: torch.Tensor | None = None,
+    plan: WirePlan | None = None,
+    w: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, ExchangeInfo]:
     """One gossip round over the float32 ``[n, d]`` stacked buffer ``x``:
     returns the merged replicas and the round's :class:`ExchangeInfo`.
 
     ``meta`` holds ``[n]`` float32 clocks and losses; ``step`` (an int)
-    selects the pool row.  ``columns`` restricts the merge to column ranges
-    ``[lo, hi)`` (the others stay bit-identical); None merges every column.
-    ``pool`` is the schedule's :class:`DevicePool` on ``x``'s device (built
-    here when not given).
+    selects the pool row and keys the round's draws.  ``columns`` restricts
+    the merge to column ranges ``[lo, hi)`` (the others stay
+    bit-identical); None merges every column.  ``pool`` is the schedule's
+    :class:`DevicePool` on ``x``'s device (built here when not given).
+
+    On the int8 wire, ``plan`` names the shipped leaves' columns in the
+    order whose index keys their draws (default: each range of
+    ``columns``, or the whole row, as one leaf) and ``w`` (``[n, d]``
+    float32, not sharing ``x``'s storage; allocated when not given)
+    receives every sender's dequantized rows there.
 
     A pairwise round merges ``x`` in place (B1) and returns it; a peer that
-    sits the round out is merged with itself at α = 0, as the reference
-    merges it (finite values stay bit-identical, an inf becomes NaN).  A pull
-    round merges out of place (B2): into ``out`` (``[n, d]``, not sharing
-    ``x``'s storage), which it returns with ``x`` left as it was; without
-    ``out``, or under ``columns``, it copies the result back into ``x``."""
+    sits the round out is merged with its own shipped row at α = 0, as the
+    reference merges it (finite values stay bit-identical, an inf becomes
+    NaN).  A pull round merges out of place (B2): into ``out`` (``[n, d]``,
+    not sharing ``x``'s storage), which it returns with ``x`` left as it
+    was; without ``out``, or under ``columns``, it copies the result back
+    into ``x``."""
     if pool is None:
         pool = DevicePool(schedule, x.device)
     if out is not None and (schedule.mode != "pull" or columns is not None):
@@ -118,22 +148,30 @@ def stacked_gossip_exchange(
     partner = pool.partner[branch]
     remote = PeerMeta(meta.clock[partner], meta.loss[partner])
     participated = partner != pool.me
+    if schedule.draws:
+        drawn = schedule.drawn(step, schedule.pool[branch])
+        participated = participated & _host_mask(drawn, x.device)
     alpha = torch.where(participated, interp(meta, remote), 0.0)
     alpha = alpha.to(torch.float32).contiguous()
-    wire_bf16 = schedule.wire_dtype == "bf16"
+    wire = schedule.wire_dtype
+    ranges = [(0, x.shape[1])] if columns is None else list(columns)
+    if wire == "int8":
+        if plan is None:
+            plan = WirePlan(ranges, x.device)
+        if w is None:
+            w = empty_rows_like(x)
+        fake_quant_rows(x, w, plan, schedule.seed, step)
     info = ExchangeInfo(partner, alpha, participated)
     if out is not None:
-        return gather_merge(x, partner, alpha, wire_bf16=wire_bf16, out=out), info
-    ranges = [(0, x.shape[1])] if columns is None else columns
+        return gather_merge(x, partner, alpha, wire=wire, out=out, w=w), info
     for lo, hi in ranges:
         part = x[:, lo:hi]
+        w_part = None if w is None else w[:, lo:hi]
         if schedule.mode == "pull":
-            part.copy_(gather_merge(part, partner, alpha, wire_bf16=wire_bf16))
+            part.copy_(gather_merge(part, partner, alpha, wire=wire, w=w_part))
         else:
             left, right = pool.pairs(branch)
-            pair_merge_(
-                part, left, right, alpha, wire_bf16=wire_bf16, self_pairs=True
-            )
+            pair_merge_(part, left, right, alpha, wire=wire, self_pairs=True, w=w_part)
     return x, info
 
 
@@ -143,7 +181,9 @@ class StackedTransport:
     The YAML config is the same one that drives the reference's transports:
     the length of ``nodes:`` sets the stacked-axis size, host/port entries
     are ignored.  ``device`` defaults to the CUDA card (and raises without
-    one); pass ``device="cpu"`` to run the plain merges on the CPU."""
+    one); pass ``device="cpu"`` to run the plain merges on the CPU.  On the
+    int8 wire the transport keeps the wire buffer and each leaf layout's
+    :class:`~dpwa_tpu_torch.ops.quantize.WirePlan` across steps."""
 
     def __init__(self, config: DpwaConfig, device=None):
         self.config = config
@@ -156,33 +196,58 @@ class StackedTransport:
             ),
         )
         self.pool = DevicePool(self.schedule, self.device)
+        self._plans: dict[tuple, WirePlan] = {}
+        self._wire: torch.Tensor | None = None
+
+    def _wire_args(self, x: torch.Tensor, leaves: Columns | None) -> dict:
+        """On the int8 wire, the plan for ``leaves`` and a wire buffer
+        shaped and aligned like ``x``, both kept for the next step."""
+        if self.schedule.wire_dtype != "int8":
+            return {}
+        key = tuple(map(tuple, leaves))
+        if key not in self._plans:
+            self._plans[key] = WirePlan(leaves, x.device)
+        w = self._wire
+        if w is None or w.shape != x.shape or w.data_ptr() % 16 != x.data_ptr() % 16:
+            self._wire = w = empty_rows_like(x)
+        return {"plan": self._plans[key], "w": w}
 
     def exchange(
         self, x: torch.Tensor, meta: PeerMeta, step: int,
-        columns: Columns | None = None,
+        columns: Columns | None = None, leaves: Columns | None = None,
     ) -> Tuple[torch.Tensor, ExchangeInfo]:
         """One gossip round over every stacked replica of ``x`` ``[n, d]``,
-        in place (see :func:`stacked_gossip_exchange`)."""
+        in place (see :func:`stacked_gossip_exchange`).  ``leaves`` are the
+        int8 wire's leaf ranges (default: each range of ``columns``, or the
+        whole row, as one leaf)."""
+        if leaves is None:
+            leaves = [(0, x.shape[1])] if columns is None else columns
         return stacked_gossip_exchange(
             x, meta, int(step), schedule=self.schedule, interp=self.interp,
-            pool=self.pool, columns=columns,
+            pool=self.pool, columns=columns, **self._wire_args(x, leaves),
         )
 
     def exchange_params(
         self, params: FlatParams, meta: PeerMeta, step: int,
-        columns: Columns | None = None,
+        pred: Callable[[str], bool] | None = None,
     ) -> ExchangeInfo:
-        """One gossip round over a :class:`FlatParams` holder, in place.  A
-        pull round over every column writes B2's result into the holder's
-        spare buffer and swaps it in, so it neither allocates nor copies."""
+        """One gossip round over a :class:`FlatParams` holder, in place,
+        over the leaves ``pred`` selects (all when None); on the int8 wire
+        each is its own leaf, indexed in the reference's flatten order of
+        the exchanged tree.  A pull round over every column writes B2's
+        result into the holder's spare buffer and swaps it in, so it
+        neither allocates nor copies."""
+        columns = None if pred is None else params.column_ranges(pred)
+        leaves = params.leaf_ranges(pred) if self.schedule.wire_dtype == "int8" else None
         if self.schedule.mode == "pull" and columns is None:
             _, info = stacked_gossip_exchange(
                 params.flat, meta, int(step), schedule=self.schedule,
                 interp=self.interp, pool=self.pool, out=params.spare_flat(),
+                **self._wire_args(params.flat, leaves),
             )
             params.swap()
             return info
-        return self.exchange(params.flat, meta, step, columns)[1]
+        return self.exchange(params.flat, meta, step, columns, leaves)[1]
 
 
 @dataclasses.dataclass
@@ -318,9 +383,6 @@ def make_step_from_grads(
                 "with_state=False, which would never update it"
             )
         params = state.params
-        columns = (
-            None if exchange_filter is None else params.column_ranges(exchange_filter)
-        )
         views = params.views()
         train = {k: v for k, v in views.items() if trainable is None or trainable(k)}
         frozen = {k: v for k, v in views.items() if k not in train}
@@ -331,13 +393,13 @@ def make_step_from_grads(
         if overlap:
             prev = state.loss if state.loss is not None else torch.zeros_like(clock)
             info = transport.exchange_params(
-                params, PeerMeta(clock, prev), state.step, columns
+                params, PeerMeta(clock, prev), state.step, exchange_filter
             )
             params.add_(updates, trainable)
         else:
             params.add_(updates, trainable)
             info = transport.exchange_params(
-                params, PeerMeta(clock, losses), state.step, columns
+                params, PeerMeta(clock, losses), state.step, exchange_filter
             )
         state.clock, state.step, state.loss = clock, state.step + 1, losses
         return state, losses, info

@@ -33,20 +33,35 @@ def add_transport_args(ap: argparse.ArgumentParser) -> None:
         "merges on the CPU on purpose)",
     )
     ap.add_argument(
-        "--wire-dtype", default=None, choices=("f32", "bf16"),
+        "--wire-dtype", default=None, choices=("f32", "bf16", "int8"),
         help="override protocol.wire_dtype (bf16: the partner's replica is "
-        "rounded to bf16, as if shipped at half the bytes)",
+        "rounded to bf16, as if shipped at half the bytes; int8: "
+        "stochastically rounded to int8 with a float32 scale per 256 "
+        "elements)",
     )
     ap.add_argument(
         "--mode", default=None, choices=("pairwise", "pull"),
         help="override protocol.mode (pull: one-sided pull maps)",
     )
+    ap.add_argument(
+        "--fetch-probability", type=float, default=None,
+        help="override protocol.fetch_probability (each pair's per-step "
+        "chance to exchange)",
+    )
+    ap.add_argument(
+        "--drop-probability", type=float, default=None,
+        help="override protocol.drop_probability (injected exchange faults)",
+    )
 
 
-def apply_overrides(cfg, wire_dtype: Optional[str] = None, mode: Optional[str] = None):
-    """``cfg`` with ``protocol.wire_dtype`` / ``protocol.mode`` overridden
-    (None = unchanged); ``dataclasses.replace`` re-runs validation."""
-    changes = {k: v for k, v in (("wire_dtype", wire_dtype), ("mode", mode)) if v is not None}
+def apply_overrides(cfg, wire_dtype: Optional[str] = None, mode: Optional[str] = None,
+                    fetch_probability: Optional[float] = None,
+                    drop_probability: Optional[float] = None):
+    """``cfg`` with the given ``protocol`` fields overridden (None =
+    unchanged); ``dataclasses.replace`` re-runs validation."""
+    given = (("wire_dtype", wire_dtype), ("mode", mode),
+             ("fetch_probability", fetch_probability), ("drop_probability", drop_probability))
+    changes = {k: v for k, v in given if v is not None}
     if not changes:
         return cfg
     return dataclasses.replace(
@@ -60,6 +75,8 @@ def build_transport(
     device=None,
     wire_dtype: Optional[str] = None,
     mode: Optional[str] = None,
+    fetch_probability: Optional[float] = None,
+    drop_probability: Optional[float] = None,
 ) -> TransportBundle:
     """Construct the transport on ``device`` (the CUDA card by default,
     raising without one); returns a :class:`TransportBundle`."""
@@ -74,7 +91,7 @@ def build_transport(
         make_stacked_train_step,
     )
 
-    cfg = apply_overrides(cfg, wire_dtype, mode)
+    cfg = apply_overrides(cfg, wire_dtype, mode, fetch_probability, drop_probability)
     t = StackedTransport(cfg, device=device)
     return TransportBundle(
         transport=t,

@@ -38,9 +38,13 @@ Llama-3-8B width):
   two: in erfinv's branch for |x| > 0.9966 XLA takes ``√w`` from the host's
   approximate square root, which is not correctly rounded.
 
-``permutation``, the participation and fault draws and the int8 wire's
-stochastic rounding are not ported yet; the settings that need them raise
-in :func:`dpwa_tpu_torch.parallel.schedules.build_schedule`.
+- :func:`uniform_scalar` — ``jax.random.uniform(k)`` at shape ``()``, the
+  schedules' participation and fault draws;
+- :func:`threefry_words` — the cipher on tensors, with the key's words
+  tensors too where each element has its own key (the int8 wire's
+  stochastic rounding, :mod:`dpwa_tpu_torch.ops.quantize`).
+
+``permutation`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -118,6 +122,13 @@ def randint(k: Key, minval: int, maxval: int) -> int:
     return minval + offset % span
 
 
+def uniform_scalar(k: Key) -> np.float32:
+    """``jax.random.uniform(k)`` at shape ``()`` in [0, 1): the top 23 bits
+    of :func:`random_bits` as the mantissa of a float in [1, 2), minus 1."""
+    one_two = np.array((random_bits(k) >> 9) | 0x3F800000, np.uint32).view(np.float32)
+    return one_two - np.float32(1.0)
+
+
 # ---------------------------------------------------------------------------
 # Tensor draws.
 # ---------------------------------------------------------------------------
@@ -137,9 +148,11 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
-def _threefry_tensor(k: Key, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
-    """``y0 ^ y1`` of :func:`threefry2x32` on int64 tensors of 32-bit
-    words (``x0``, ``x1`` are consumed)."""
+def threefry_words(k, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on int64 tensors of 32-bit words, in place
+    (``x0``, ``x1`` are consumed and returned).  The key's two words are
+    ints, or int64 tensors that broadcast against ``x0`` (one key per
+    element: the int8 wire's per-sender, per-leaf keys)."""
     k0, k1 = k[0] & _MASK, k[1] & _MASK
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0.add_(ks[0]).bitwise_and_(_MASK)
@@ -152,10 +165,16 @@ def _threefry_tensor(k: Key, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor
             del hi
         x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
         x1.add_((ks[(i + 2) % 3] + i + 1) & _MASK).bitwise_and_(_MASK)
-    return x0.bitwise_xor_(x1)
+    return x0, x1
 
 
-def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+def _threefry_tensor(k, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """``y0 ^ y1`` of :func:`threefry_words` (``x0``, ``x1`` are consumed)."""
+    y0, y1 = threefry_words(k, x0, x1)
+    return y0.bitwise_xor_(y1)
+
+
+def unit_floats(bits: torch.Tensor) -> torch.Tensor:
     """float32 in [0, 1) from 32-bit words: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1 (jax's ``_uniform``)."""
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
@@ -190,7 +209,7 @@ def random_bits_tensor(k: Key, shape, device=None) -> torch.Tensor:
 
 def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0, device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, minval, maxval)``, bit-equal."""
-    return _chunked(k, shape, device, lambda b: _scale_unit(_unit_floats(b), minval, maxval))
+    return _chunked(k, shape, device, lambda b: _scale_unit(unit_floats(b), minval, maxval))
 
 
 # XLA's float32 log1p on the CPU: Cephes' rational approximation for
@@ -268,7 +287,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
 def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    return erfinv(_scale_unit(_unit_floats(bits), lo, 1.0)) * SQRT2
+    return erfinv(_scale_unit(unit_floats(bits), lo, 1.0)) * SQRT2
 
 
 def normal(k: Key, shape, device=None) -> torch.Tensor:
@@ -278,7 +297,7 @@ def normal(k: Key, shape, device=None) -> torch.Tensor:
 
 
 def _truncated_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    out = erfinv(_scale_unit(_unit_floats(bits), ERF_LO_2, ERF_HI_2)) * SQRT2
+    out = erfinv(_scale_unit(unit_floats(bits), ERF_LO_2, ERF_HI_2)) * SQRT2
     ends = torch.tensor([-2.0, 2.0], dtype=torch.float32, device=bits.device)
     inner = torch.nextafter(ends, -ends)  # the open interval (-2, 2)
     return out.clamp_(inner[0], inner[1])

@@ -17,6 +17,8 @@ exchange is one kernel launch over ``[n, P]``:
 - :func:`partition` / :func:`combine` split a ``{name: tensor}`` dict by a
   predicate on the name, as the reference does by key path.
 - :func:`tree_wire_bytes` is the bytes one exchange ships.
+- :meth:`FlatParams.leaf_ranges` gives the exchanged leaves one by one in
+  the reference's flatten order, for the int8 wire.
 
 Names are the torch module's dotted parameter names (``BasicBlock_0.Conv_0.
 kernel``); the reference's key path of the same leaf is ``params/`` plus
@@ -28,6 +30,8 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Mapping, Sequence, Tuple
 
 import torch
+
+from dpwa_tpu_torch.ops.quantize import CHUNK, n_chunks
 
 ROW_ALIGN = 32  # floats: 128 bytes
 
@@ -160,6 +164,16 @@ class FlatParams:
             self.buffer[:, lo:hi].add_(packed[:, start : start + hi - lo])
             start += hi - lo
 
+    def leaf_ranges(self, pred: NamePredicate | None = None) -> list[Tuple[int, int]]:
+        """Column ranges ``[lo, hi)`` of the leaves whose name matches
+        ``pred`` (all when None), one per leaf in leaf order: the order in
+        which the reference flattens the exchanged tree, whose indices key
+        the int8 wire's draws."""
+        return [
+            self.offsets[i] for i, name in enumerate(self.names)
+            if pred is None or pred(name)
+        ]
+
     def column_ranges(self, pred: NamePredicate | None = None) -> list[Tuple[int, int]]:
         """Column ranges ``[lo, hi)`` of the leaves whose name matches
         ``pred`` (all leaves when None), in column order, adjacent leaves
@@ -207,17 +221,20 @@ def combine(
 
 
 def tree_wire_bytes(tree: Mapping[str, torch.Tensor], wire_dtype: str = "f32") -> int:
-    """Per-exchange bytes one replica ships at a wire format: float32
-    leaves at 2 bytes per element on the bf16 wire, everything else as is.
-    The int8 wire waits for the threefry port."""
-    if wire_dtype == "int8":
-        raise NotImplementedError("the int8 wire is not ported yet")
-    if wire_dtype not in ("f32", "bf16"):
+    """Per-exchange bytes one replica ships at a wire format, as the
+    reference counts them by default (``padded=True``, the stacked and ICI
+    transports' figure): float32 leaves at 2 bytes per element on the bf16
+    wire; on the int8 wire each float32 leaf padded on its own to whole
+    chunks, 1 byte per element plus one float32 scale per chunk; every
+    other leaf as it is."""
+    if wire_dtype not in ("f32", "bf16", "int8"):
         raise ValueError(f"unknown wire_dtype {wire_dtype!r}")
     total = 0
     for leaf in tree.values():
-        if wire_dtype == "bf16" and leaf.dtype == torch.float32:
+        if wire_dtype == "f32" or leaf.dtype != torch.float32:
+            total += leaf.numel() * leaf.element_size()
+        elif wire_dtype == "bf16":
             total += leaf.numel() * 2
         else:
-            total += leaf.numel() * leaf.element_size()
+            total += (CHUNK + 4) * n_chunks(leaf.numel())
     return total

@@ -47,6 +47,7 @@ def cuda_device():
 @pytest.mark.parametrize("wire_bf16", [False, True])
 @pytest.mark.parametrize("layout", ["contiguous", "padded", "offset"])
 def test_kernels_bit_equal_to_plain(cuda_device, layout, wire_bf16):
+    wire = "bf16" if wire_bf16 else "f32"
     d = 272474
     gen = torch.Generator().manual_seed(4)
     base = torch.randn(N, d, generator=gen)
@@ -65,13 +66,13 @@ def test_kernels_bit_equal_to_plain(cuda_device, layout, wire_bf16):
     left, right = (torch.from_numpy(v) for v in merge.involution_pairs(WITH_FIXED, pad_to=4))
     x = on_card(base)
     merge.pair_merge_(x, left.to(cuda_device), right.to(cuda_device),
-                      alpha.to(cuda_device), wire_bf16=wire_bf16)
-    want = merge.torch_pair_merge_(base.clone(), left, right, alpha, wire_bf16=wire_bf16)
+                      alpha.to(cuda_device), wire=wire)
+    want = merge.torch_pair_merge_(base.clone(), left, right, alpha, wire=wire)
     assert torch.equal(x.cpu(), want)
     partner = torch.from_numpy(RING_ODD.astype(np.int32))
     got = merge.gather_merge(on_card(base), partner.to(cuda_device),
-                             alpha.to(cuda_device), wire_bf16=wire_bf16)
-    want = merge.torch_pairwise_merge(base, partner, alpha, wire_bf16=wire_bf16)
+                             alpha.to(cuda_device), wire=wire)
+    want = merge.torch_pairwise_merge(base, partner, alpha, wire=wire)
     assert torch.equal(got.cpu(), want)
     assert merge.pair_merge_.launches == 1 and merge.gather_merge.launches == 1
 
@@ -83,6 +84,7 @@ def test_pair_merge_self_pairs_bit_equal_to_plain(cuda_device, layout, wire_bf16
     listed as self-pairs at α = 0 and merged with themselves, so their inf
     and NaN come out NaN.  Equal to the plain version bit for bit, except
     that a NaN may carry another payload on the card."""
+    wire = "bf16" if wire_bf16 else "f32"
     d = 4099
     gen = torch.Generator().manual_seed(5)
     base = torch.randn(N, d, generator=gen)
@@ -99,9 +101,9 @@ def test_pair_merge_self_pairs_bit_equal_to_plain(cuda_device, layout, wire_bf16
     left, right = (torch.from_numpy(v) for v in merge.involution_pairs(WITH_FIXED, self_pairs=True))
     merge.reset_launch_counts()
     merge.pair_merge_(x, left.to(cuda_device), right.to(cuda_device), alpha.to(cuda_device),
-                      wire_bf16=wire_bf16, self_pairs=True)
+                      wire=wire, self_pairs=True)
     want = merge.torch_pair_merge_(base.clone(), left, right, alpha,
-                                   wire_bf16=wire_bf16, self_pairs=True)
+                                   wire=wire, self_pairs=True)
     got = x.cpu()
     both_nan = got.isnan() & want.isnan()
     assert bool(((got.view(torch.int32) == want.view(torch.int32)) | both_nan).all())
@@ -607,3 +609,152 @@ def test_sp_lora_step_on_card_matches_cpu(cuda_device, layout, strategy):
             assert loose.float().mean().item() < 0.01
         else:
             assert torch.equal(got, params[name]) and torch.equal(want, params[name])
+
+
+def _card_rows(cpu: torch.Tensor, device, lead: int, pad: int) -> torch.Tensor:
+    """``cpu`` on the card as a column slice starting ``lead`` floats into
+    rows ``pad`` floats wider than needed (lead 3: rows off the 16-byte
+    boundary)."""
+    n, d = cpu.shape
+    buf = torch.zeros(n, lead + d + pad, device=device)
+    view = buf[:, lead:lead + d]
+    view.copy_(cpu)
+    return view
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "misaligned", "phase"])
+def test_wire_forms_bit_equal_to_plain(cuda_device, layout, wire):
+    """B1 and B2 reading the partner's row from a second buffer w (the int8
+    wire's dequantized rows), against their plain versions, bit for bit:
+    rows aligned, ragged (d not a multiple of 4), starting off the 16-byte
+    boundary in both buffers, and in buffers whose rows start at different
+    offsets within 16 bytes (the scalar form).  Sat-out rows hold inf, -inf
+    and NaN in x and in w, and come out NaN there."""
+    d = {"aligned": 4096, "ragged": 4099, "misaligned": 4099, "phase": 4096}[layout]
+    x_lead = 3 if layout in ("misaligned", "phase") else 0
+    w_lead = 3 if layout == "misaligned" else 0
+    gen = torch.Generator().manual_seed(d + len(wire))
+    base = torch.randn(N, d, generator=gen)
+    w_cpu = base + 0.25 * torch.randn(N, d, generator=gen)
+    alpha = torch.rand(N, generator=gen)
+    fixed = np.flatnonzero(WITH_FIXED == np.arange(N))
+    alpha[fixed] = 0.0
+    bad = torch.tensor([float("inf"), float("-inf"), float("nan"), -0.0, 3.0e38])
+    for t in (base, w_cpu):
+        t[fixed, :5] = bad
+        t[fixed, -5:] = bad
+    w = _card_rows(w_cpu, cuda_device, w_lead, 29)
+    merge.reset_launch_counts()
+    left, right = (torch.from_numpy(v) for v in merge.involution_pairs(WITH_FIXED, self_pairs=True))
+    x = _card_rows(base, cuda_device, x_lead, 29)
+    merge.pair_merge_(x, left.to(cuda_device), right.to(cuda_device), alpha.to(cuda_device),
+                      wire=wire, self_pairs=True, w=w)
+    want = merge.torch_pair_merge_(base.clone(), left, right, alpha, wire=wire,
+                                   self_pairs=True, w=w_cpu)
+    got = x.cpu()
+    both_nan = got.isnan() & want.isnan()
+    assert bool(((got.view(torch.int32) == want.view(torch.int32)) | both_nan).all())
+    assert bool(got[fixed][:, :3].isnan().all())
+    partner = torch.from_numpy(RING_ODD.astype(np.int32))
+    got = merge.gather_merge(_card_rows(base, cuda_device, x_lead, 29), partner.to(cuda_device),
+                             alpha.to(cuda_device), wire=wire, w=w).cpu()
+    want = merge.torch_pairwise_merge(base, partner, alpha, wire=wire, w=w_cpu)
+    both_nan = got.isnan() & want.isnan()
+    assert bool(((got.view(torch.int32) == want.view(torch.int32)) | both_nan).all())
+    assert merge.pair_merge_.launches == 1 and merge.gather_merge.launches == 1
+
+
+def test_wire_form_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device)
+    idx = torch.tensor([0, 2], dtype=torch.int32, device=cuda_device)
+    alpha = torch.zeros(4, device=cuda_device)
+    with pytest.raises(ValueError, match="pass w"):
+        merge.pair_merge_(x, idx, idx + 1, alpha, wire="int8")
+    with pytest.raises(ValueError, match="storage"):
+        merge.pair_merge_(x, idx, idx + 1, alpha, wire="int8", w=x[:, :8])
+    with pytest.raises(ValueError, match="shape"):
+        merge.gather_merge(x, torch.arange(4, dtype=torch.int32, device=cuda_device), alpha,
+                           wire="int8", w=torch.zeros(4, 7, device=cuda_device))
+    with pytest.raises(ValueError, match="unknown wire"):
+        merge.pair_merge_(x, idx, idx + 1, alpha, wire="int4", w=torch.zeros_like(x))
+
+
+def test_fake_quant_rows_on_card_bit_equal_to_cpu(cuda_device):
+    """The int8 wire's quantisation on the card (threefry in int64, IEEE
+    division, floor) gives the CPU's bits, inf and NaN chunks included."""
+    from dpwa_tpu_torch.ops.quantize import WirePlan, fake_quant_rows
+
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 5000, generator=gen)
+    x[1, 10], x[2, 300] = float("inf"), float("nan")
+    leaves = [(0, 300), (300, 301), (301, 4999)]
+    w_cpu = fake_quant_rows(x, torch.zeros_like(x), WirePlan(leaves, "cpu"), 3, 7)
+    w = fake_quant_rows(x.to(cuda_device), torch.zeros(4, 5000, device=cuda_device),
+                        WirePlan(leaves, cuda_device), 3, 7, max_elements=1024).cpu()
+    both_nan = w.isnan() & w_cpu.isnan()
+    assert bool(((w.view(torch.int32) == w_cpu.view(torch.int32)) | both_nan).all())
+
+
+def test_int8_draws_step_on_card_matches_cpu(cuda_device):
+    """Three steps of a 4-peer ResNet-8 with partial participation and
+    faults on the int8 wire, on the card (B1's wire form, the mask copied
+    from the host) and on the CPU: the same participation, losses rtol
+    1e-4, and parameters rtol 1e-3 / atol 1e-4 as the f32 step test except
+    where the stochastic rounding flipped: cuDNN and the CPU sum in other
+    orders, and a weight that differs in its last bits can round to the
+    next int8 code, one step of max|chunk|/127 times α.  So at most 0.1 %
+    of the parameters (4 of 312,168 in one card run) may differ by more,
+    and none by more than max|parameter|/127."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, steps = 4, 3
+    rng = np.random.default_rng(1)
+    batches = [
+        (torch.from_numpy(rng.random((n, 8, 32, 32, 3), np.float32)),
+         torch.from_numpy(rng.integers(0, 10, (n, 8)).astype(np.int32)))
+        for _ in range(steps)
+    ]
+    results = []
+    for device in ("cpu", cuda_device):
+        model = resnet.CifarResNet(depth=8).to(device)
+        cfg = make_local_config(n, schedule="random", pool_size=4, interpolation="loss",
+                                factor=0.9, wire_dtype="int8", fetch_probability=0.5,
+                                drop_probability=0.1)
+        t = stacked.StackedTransport(cfg, device=device)
+        opt = sgd(0.1, momentum=0.9)
+
+        def loss_fn(params, batch):
+            logits = torch.func.functional_call(model, params, (batch[0],))
+            return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean()
+
+        state = stacked.init_stacked_state(
+            init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), n, device), opt, t
+        )
+        step = stacked.make_stacked_train_step(loss_fn, opt, t)
+        merge.reset_launch_counts()
+        losses, masks = [], []
+        for x, y in batches:
+            state, loss, info = step(state, (x.to(device), y.to(device)))
+            losses.append(loss.cpu())
+            masks.append(info.participated.cpu())
+        results.append((torch.stack(losses), state.params.flat.cpu(), torch.stack(masks),
+                        merge.pair_merge_.launches))
+    (cpu_l, cpu_p, cpu_m, cpu_n), (gpu_l, gpu_p, gpu_m, gpu_n) = results
+    assert cpu_n == 0 and gpu_n == steps and torch.equal(cpu_m, gpu_m)
+    torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
+    diff = (gpu_p - cpu_p).abs()
+    flipped = diff > 1e-4 + 1e-3 * cpu_p.abs()
+    assert flipped.float().mean().item() <= 1e-3
+    assert diff.max().item() <= cpu_p.abs().max().item() / 127
+
+
+def test_resnet50_forward_on_card_matches_cpu(cuda_device):
+    """ResNet-50 at 64×64, batch 2, on the card against the CPU port, TF32
+    off: logits rtol 1e-4 / atol 1e-4 (cuDNN's and the CPU's sums)."""
+    torch.backends.cudnn.allow_tf32 = False
+    model = resnet.ResNet50()
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 64, 64, 3), np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda_device)(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

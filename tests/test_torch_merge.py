@@ -61,12 +61,12 @@ def test_plain_pair_merge_bit_equal_to_reference_exchange(pool, d, alpha_kind, w
     left, right = merge.involution_pairs(partner, pad_to=4)
     got = merge.torch_pair_merge_(
         torch.from_numpy(x.copy()), torch.from_numpy(left), torch.from_numpy(right),
-        torch.from_numpy(masked_alpha), wire_bf16=wire == "bf16",
+        torch.from_numpy(masked_alpha), wire=wire,
     )
     np.testing.assert_array_equal(got.numpy(), want)
     gathered = merge.torch_pairwise_merge(
         torch.from_numpy(x), torch.from_numpy(partner), torch.from_numpy(masked_alpha),
-        wire_bf16=wire == "bf16",
+        wire=wire,
     )
     np.testing.assert_array_equal(gathered.numpy(), want)
 
@@ -81,7 +81,7 @@ def test_plain_gather_merge_bit_equal_to_reference_pull(phase, d, alpha_kind, wi
     want, masked_alpha = _reference(x, partner, _alpha(alpha_kind, 1), "pull", wire)
     got = merge.torch_pairwise_merge(
         torch.from_numpy(x), torch.from_numpy(partner), torch.from_numpy(masked_alpha),
-        wire_bf16=wire == "bf16",
+        wire=wire,
     )
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -132,7 +132,9 @@ def test_pad_self_pairs_stay_bit_identical(wire_bf16):
     before = x.clone()
     alpha = torch.full((4,), 0.7)
     left, right = torch.tensor([0, 2, 2], dtype=torch.int32), torch.tensor([1, 2, 2], dtype=torch.int32)
-    merge.torch_pair_merge_(x, left, right, alpha, wire_bf16=wire_bf16)
+    merge.torch_pair_merge_(
+        x, left, right, alpha, wire="bf16" if wire_bf16 else "f32"
+    )
     assert torch.equal(x[2:].view(torch.int32), before[2:].view(torch.int32))
     assert not torch.equal(x[:2], before[:2])
 
@@ -169,8 +171,8 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     x = torch.from_numpy(rng.standard_normal((N, 777)).astype(np.float32))
     alpha = torch.from_numpy(rng.uniform(0, 1, N).astype(np.float32))
     left, right = (torch.from_numpy(v) for v in merge.involution_pairs(RING_EVEN))
-    want = merge.torch_pair_merge_(x.clone(), left, right, alpha, wire_bf16=True)
-    got = merge.pair_merge_(x.clone(), left, right, alpha, wire_bf16=True)
+    want = merge.torch_pair_merge_(x.clone(), left, right, alpha, wire="bf16")
+    got = merge.pair_merge_(x.clone(), left, right, alpha, wire="bf16")
     assert torch.equal(got, want)
     partner = torch.from_numpy(RING_ODD.astype(np.int32))
     want = merge.torch_pairwise_merge(x, partner, alpha)

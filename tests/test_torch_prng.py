@@ -108,8 +108,15 @@ def test_random_schedule_branch_equal(n, mode):
     ],
 )
 def test_draws_not_ported_still_raise(kw):
-    with pytest.raises(NotImplementedError, match="threefry"):
-        schedules.build_schedule(make_local_config(4, schedule="random", **kw))
+    """These settings raised until the participation and fault draws and
+    the int8 wire were ported; now they build, and a round's draws are the
+    reference's (``tests/test_torch_quantize.py`` holds them bit for bit)."""
+    ref = ref_schedules.build_schedule(ref_config(4, schedule="random", **kw))
+    port = schedules.build_schedule(make_local_config(4, schedule="random", **kw))
+    for step in range(20):
+        assert [port.participates(step, i) for i in range(4)] == [
+            ref.participates(step, i) for i in range(4)
+        ]
 
 
 def test_tag_registry_is_the_reference_copy():

@@ -1,7 +1,7 @@
 """The port's gossip schedules against the reference: pools, branch maps and
 the pool row of every step are equal (the random schedule's per-step
-threefry draw included); settings that need threefry draws the port does
-not have yet raise."""
+threefry draw included), and so is every peer's participation under the
+participation and fault draws."""
 
 import numpy as np
 import pytest
@@ -67,9 +67,18 @@ def test_pools_and_branches_equal(n, mode, kw):
     ],
 )
 def test_threefry_settings_raise(kw):
-    ref_schedules.build_schedule(ref_config(8, **kw))  # fine in the reference
-    with pytest.raises(NotImplementedError, match="threefry"):
-        schedules.build_schedule(make_local_config(8, **kw))
+    """The settings that need threefry draws used to raise here; since
+    the draws and the int8 wire are ported they build as the reference's
+    do, and every peer's participation follows the reference's draws."""
+    ref = ref_schedules.build_schedule(ref_config(8, **kw))
+    port = schedules.build_schedule(make_local_config(8, **kw))
+    np.testing.assert_array_equal(port.pool, ref.pool)
+    assert (port.fetch_probability, port.drop_probability, port.wire_dtype) == (
+        ref.fetch_probability, ref.drop_probability, ref.wire_dtype
+    )
+    for step in range(6):
+        for i in range(8):
+            assert port.participates(step, i) == ref.participates(step, i)
 
 
 @pytest.mark.parametrize("seed", [0, 3])

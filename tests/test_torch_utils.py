@@ -143,10 +143,10 @@ def test_partition_combine_and_wire_bytes_match_reference():
     assert all(torch.equal(back[k], tree[k]) for k in tree)
     with pytest.raises(ValueError):
         pytree.combine(sel, sel)
-    for wire in ("f32", "bf16"):
+    for wire in ("f32", "bf16", "int8"):
         assert pytree.tree_wire_bytes(tree, wire) == ref_pytree.tree_wire_bytes(jtree, wire)
-    with pytest.raises(NotImplementedError):
-        pytree.tree_wire_bytes(tree, "int8")
+    with pytest.raises(ValueError):
+        pytree.tree_wire_bytes(tree, "int4")
 
 
 def test_resolve_device_never_picks_the_cpu_by_itself():
