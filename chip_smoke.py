@@ -27,6 +27,11 @@ that they went through the kernels:
   the depth cut to 2 layers, LoRA rank 8, T = 2048, the random schedule,
   Adam, the LoRA-only exchange (B1) and flash attention (B5) — once timed
   and once under the profiler;
+- ``dpwa_tpu_torch.examples.bert``: 16 peers of BERT-base at full width
+  and depth (132,953,658 parameters a peer, 8.51 GB for 16), T 128, batch 8
+  a peer, the hierarchical schedule (groups of 8, every 4th step across
+  groups), AdamW, f32 wire (B1 over the whole model) — once timed and once
+  under the profiler;
 - ``dpwa_tpu_torch.examples.longcontext``: 2 peers at Llama-3-8B width, 2
   layers, LoRA rank 8, each peer's T = 8192 over a virtual sequence-parallel
   axis of 4 ranks, the ring schedule, Adam, the LoRA-only exchange (B1):
@@ -68,11 +73,16 @@ WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
-    "train_llama", "profile_llama", "train_sp", "train_sp_zigzag", "train_sp_a2a",
-    "profile_sp",
+    "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
+    "train_sp_zigzag", "train_sp_a2a", "profile_sp",
 )
 # The ImageNet path: 32 peers of ResNet-50 at 224×224, batch 4 a peer.
 IMAGENET_BATCH, IMAGENET_STEPS = 4, 6
+# The BERT path: 16 peers of BERT-base (BASELINE config 4, 64 peers cut to
+# 16), two groups of 8, every 4th step across groups, T 128, batch 8 a peer.
+BERT_D = 132953658  # BERT-base's parameters per peer: the BERT path's row
+BERT_PEERS, BERT_GROUP, BERT_INTER, BERT_T, BERT_BATCH, BERT_STEPS = 16, 8, 4, 128, 8, 6
+BERT_VOCAB = 30522
 # The draws path: the ResNet-20 example with partial participation and
 # injected faults on the int8 wire.
 DRAWS = {"fetch_probability": 0.5, "drop_probability": 0.1, "steps": 5}
@@ -332,6 +342,17 @@ def random_sat_out_map(peers: int):
     return perm
 
 
+def bert_map():
+    """Row 0 of the BERT path's hierarchical pool (16 peers, groups of 8):
+    an intra-group matching, what three steps in four merge with."""
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.parallel import schedules
+
+    return schedules.build_schedule(make_local_config(
+        BERT_PEERS, schedule="hierarchical", group_size=BERT_GROUP, inter_period=BERT_INTER,
+    )).pool[0].copy()
+
+
 def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     """B1 (kind "b1") or B2 (kind "b2"): bit-equality against the plain
     version on CPU copies, then times.  Both forms: the partner's value from
@@ -340,7 +361,8 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     arithmetic.  B2 and B1 at the ResNet-20 path's padded ``[8, 272474]``
     rows, at ``[8, 24·2^20]`` and at the ImageNet path's ``[32, 25557032]``
     (ResNet-50, 3.27 GB); B1 also at the Llama path's ``[4, 1310720]`` LoRA
-    column slice.  B1 runs as the main paths run it, with ``self_pairs``: a
+    column slice and at the BERT path's ``[16, 132953658]`` (8.51 GB, the
+    hierarchical schedule's intra-group matching, f32 wire).  B1 runs as the main paths run it, with ``self_pairs``: a
     row that sits the round out gets α = 0 and is merged with itself (its
     own wire row), which must turn the inf and NaN put into it here into
     NaN (``1·x + 0·y``, as the reference computes it)."""
@@ -371,6 +393,9 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
         "random": rng.uniform(0.0, 1.0, n).astype(np.float32),
     }
     r50_alpha = rng.uniform(0.0, 1.0, R50_PEERS).astype(np.float32)
+    bert_alpha = rng.uniform(0.0, 1.0, BERT_PEERS).astype(np.float32)
+    row_alpha = {N_PEERS: alphas["random"], LLAMA_PEERS: alphas["random"][:LLAMA_PEERS],
+                 R50_PEERS: r50_alpha, BERT_PEERS: bert_alpha}
     # (rows, d, layout, map, perm, alpha name, alpha, wire, wire form?)
     cases = []
     for d in (MAIN_D, BIG_D):
@@ -391,6 +416,9 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
                               "random", a_np, wire, False))
     for wire, in_w in (("f32", False), ("bf16", False), ("int8", True)):
         cases.append((R50_PEERS, R50_D, padded_rows, *r50_map, "random", r50_alpha, wire, in_w))
+    if kind == "b1":
+        cases.append((BERT_PEERS, BERT_D, padded_rows, "hierarchical_intra", bert_map(),
+                      "random", bert_alpha, "f32", False))
     max_err, n_checked = 0.0, 0
     gen = torch.Generator().manual_seed(7)
     base = {}
@@ -452,12 +480,14 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
              ("resnet50_wire", R50_PEERS, R50_D, padded_rows, r50_map[1], True, 5)]
     if llama_maps:
         timed.append(("llama", LLAMA_PEERS, lora_w, llama_lora_rows, llama_maps["full"], False, 30))
+    if kind == "b1":
+        timed.append(("bert", BERT_PEERS, BERT_D, padded_rows, bert_map(), False, 5))
     for key, rows, d, layout, perm, in_w, iters in timed:
         gen = torch.Generator(device=device).manual_seed(11)
         x = timed_rows(layout, torch, rows, d, device, gen)
         w = timed_rows(layout, torch, rows, d, device, gen) if in_w else None
         wire = "int8" if in_w else "f32"
-        alpha = torch.from_numpy((r50_alpha if rows == R50_PEERS else alphas["random"])[:rows]).to(device)
+        alpha = torch.from_numpy(row_alpha[rows]).to(device)
         partner64 = torch.from_numpy(perm.astype(np.int64)).to(device)
         y = (x if w is None else w)[partner64]  # pre-gathered rows for the library yardstick
         lib_out = torch.empty_like(y)
@@ -1049,6 +1079,75 @@ def main(argv=None) -> int:
             "b1_ms_in_step": res["profile"]["merge_ms_per_step"] if profile else None,
         })
 
+    from dpwa_tpu_torch.examples import bert as bert_example
+
+    for phase, steps, profile in (
+        ("train_bert", BERT_STEPS, False),
+        # The BERT path again under torch.profiler: where its device time
+        # goes (GEMMs, AdamW, the exchange) and B1's time inside the step.
+        ("profile_bert", 3, True),
+    ):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        merge.reset_launch_counts()  # count the main path's launches only
+        res = bert_example.main([
+            "--peers", str(BERT_PEERS), "--group-size", str(BERT_GROUP),
+            "--inter-period", str(BERT_INTER), "--steps", str(steps),
+            "--batch-size", str(BERT_BATCH), "--seq-len", str(BERT_T), "--lr", "1e-4",
+            "--log-every", "1", *(["--profile"] if profile else []),
+        ])
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+        }
+        torch.cuda.empty_cache()
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        # Every peer starts from the same init and the MLM head's logits
+        # start near 0: the first loss is near ln(vocab).
+        if not abs(losses[0] - math.log(BERT_VOCAB)) < 2.0:
+            raise AssertionError(f"{phase}: step-0 loss {losses[0]}, ln V = {math.log(BERT_VOCAB)}")
+        if res["device"] != kind or res["final_step"] != steps:
+            raise AssertionError(f"{phase}: ran on {res['device']} for {res['final_step']} steps")
+        if res["params_per_peer"] != BERT_D or res["n_peers"] != BERT_PEERS:
+            raise AssertionError(f"{phase}: {res['n_peers']} peers of {res['params_per_peer']} parameters")
+        if launches != {"pair_merge_": steps, "gather_merge": 0}:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}")
+        # Each step's pairing: a perfect matching, inside the groups on three
+        # steps in four and across them on every fourth.
+        groups = [i // BERT_GROUP for i in range(BERT_PEERS)]
+        for step, partner in enumerate(res["partners"]):
+            inter = step % BERT_INTER == BERT_INTER - 1
+            if any(partner[partner[i]] != i or partner[i] == i
+                   or (groups[partner[i]] != groups[i]) != inter for i in range(BERT_PEERS)):
+                raise AssertionError(f"{phase}: step {step} pairs {partner}")
+        main_launches[phase] = launches
+        out = {
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "n_peers": BERT_PEERS, "group_size": BERT_GROUP, "inter_period": BERT_INTER,
+            "batch_per_peer": BERT_BATCH, "seq_len": BERT_T,
+            "params_per_peer": res["params_per_peer"], "nvidia_smi": name_limit,
+            "steps_per_sec": res["steps_per_sec"], "tokens_per_sec": res["tokens_per_sec"],
+            "init_seconds": res["init_seconds"], "step0_loss": losses[0],
+            "last_loss": losses[-1], "losses": losses, "launches": launches,
+            "payload_bytes": res["payload_bytes"], "peak_mem_bytes": res["peak_mem_bytes"],
+            "profile": res["profile"],
+        }
+        if profile:
+            prof = res["profile"]
+            busy = prof["device_busy_ms_per_step"]
+            b1_bound = bound_ms(2 * BERT_PEERS * BERT_D * 4, 3 * BERT_PEERS * BERT_D)[0]
+            out.update(
+                busy_ms_per_step=busy, idle_share=prof["device_idle_share"],
+                ops_per_step=prof["device_ops_per_step"],
+                gemm_share_of_busy=prof["gemm_ms_per_step"] / busy,
+                adamw_share_of_busy=prof["optimizer_ms_per_step"] / busy,
+                b1_ms_in_step=prof["merge_ms_per_step"], b1_bound_ms=b1_bound,
+            )
+        emit(out)
+
     from dpwa_tpu_torch.examples import llama_lora
 
     for phase, steps, profile in (
@@ -1183,6 +1282,8 @@ def main(argv=None) -> int:
                                       if form == "x" else None),
                 "launches_llama": (main_launches.get("train_llama", {}).get(name)
                                    if form == "x" else None),
+                "launches_bert": (main_launches.get("train_bert", {}).get(name)
+                                  if form == "x" else None),
                 "max_abs_err": results[kind_name]["max_abs_err"],
                 "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
                 "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -1191,6 +1292,8 @@ def main(argv=None) -> int:
                 "at_big": timings["big" + suffix],
                 # B1 at the Llama path's LoRA column slice (1 launch per step there)
                 "at_llama": timings.get("llama") if form == "x" else None,
+                # B1 at the BERT path's whole-model rows (1 launch per step there)
+                "at_bert": timings.get("bert") if form == "x" else None,
             })
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):

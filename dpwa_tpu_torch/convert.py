@@ -10,10 +10,12 @@ tests can hand the same parameters to both packages and compare the
 updated ones.  A leading peer axis (``stacked=True``) rides along
 untouched.
 
-Llama (:func:`flax_llama_to_torch`, :func:`torch_llama_to_flax`): the port
-keeps Flax's layouts (kernels ``[in, out]``, the embedding ``[vocab, d]``),
-so only the names change, ``params/layer_0/attn/wq/lora_a`` ↔
-``layer_0.attn.wq.lora_a``, with or without a leading peer axis.
+Llama (:func:`flax_llama_to_torch`, :func:`torch_llama_to_flax`) and BERT
+(:func:`flax_bert_to_torch`, :func:`torch_bert_to_flax`): the port keeps
+Flax's layouts (kernels ``[in, out]``, the attention's ``[d, heads,
+head_dim]``, the embeddings ``[vocab, d]``), so only the names change,
+``params/layer_0/attn/wq/lora_a`` ↔ ``layer_0.attn.wq.lora_a``, with or
+without a leading peer axis.
 """
 
 from __future__ import annotations
@@ -71,18 +73,13 @@ def torch_to_flax(named: Mapping[str, Any], *, stacked: bool = False) -> Dict[st
     return {"params": params}
 
 
-def flax_llama_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Flax Llama variables (``{"params": {...}}`` or the params dict) →
-    ``{port name: array}`` (writable copies) in the reference's leaf order,
-    ``embed.embedding``, ``final_norm.scale``, ``layer_0.…``,
-    ``lm_head.kernel``."""
+def _by_name_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     params = variables.get("params", variables)
     named = {".".join(path): value for path, value in _flatten(params).items()}
     return {name: np.array(named[name], order="C") for name in leaf_order(named)}
 
 
-def torch_llama_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
-    """``{port name: array}`` → Flax Llama variables ``{"params": {...}}``."""
+def _by_name_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
     params: Dict[str, Any] = {}
     for name in leaf_order(named):
         node = params
@@ -91,3 +88,30 @@ def torch_llama_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[leaf] = np.array(named[name], order="C")
     return {"params": params}
+
+
+def flax_llama_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax Llama variables (``{"params": {...}}`` or the params dict) →
+    ``{port name: array}`` (writable copies) in the reference's leaf order,
+    ``embed.embedding``, ``final_norm.scale``, ``layer_0.…``,
+    ``lm_head.kernel``."""
+    return _by_name_to_torch(variables)
+
+
+def torch_llama_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{port name: array}`` → Flax Llama variables ``{"params": {...}}``."""
+    return _by_name_to_flax(named)
+
+
+def flax_bert_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax BERT variables (``{"params": {...}}`` or the params dict) →
+    ``{port name: array}`` (writable copies) in the reference's leaf order,
+    ``embed_ln.bias``, …, ``layer_0.attn.key.bias``, …, ``pos_embed``,
+    ``tok_embed.embedding``; a leading peer axis rides along."""
+    return _by_name_to_torch(variables)
+
+
+def torch_bert_to_flax(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{port name: array}`` → Flax BERT variables ``{"params": {...}}``,
+    with or without a leading peer axis."""
+    return _by_name_to_flax(named)

@@ -7,6 +7,8 @@ returned updates to the parameters (``optax.apply_updates``).
 
 - :func:`sgd` — ``optax.sgd`` (with or without momentum);
 - :func:`adam` — ``optax.adam``;
+- :func:`adamw` — ``optax.adamw``: Adam's update plus ``wd·p``, which is
+  why ``update_`` takes the parameters (the others ignore them);
 - :func:`lora_optimizer` — the reference's ``lora_optimizer``
   (``optax.multi_transform`` of an optimizer on the LoRA leaves and
   ``set_to_zero`` on the rest): a :class:`Masked` optimizer whose state and
@@ -41,7 +43,8 @@ class SGD:
         """The optimizer state for ``params``: the zero trace, or None."""
         return torch.zeros_like(params) if self.momentum else None
 
-    def update_(self, grads: torch.Tensor, state: torch.Tensor | None) -> torch.Tensor:
+    def update_(self, grads: torch.Tensor, state: torch.Tensor | None,
+                params: torch.Tensor | None = None) -> torch.Tensor:
         """Advance ``state`` in place by ``grads``; return the updates."""
         if state is None:
             return grads * (-self.lr)
@@ -81,8 +84,13 @@ class Adam:
         """Zero moments shaped like ``params`` and a count of 0."""
         return AdamState(torch.zeros_like(params), torch.zeros_like(params))
 
-    def update_(self, grads: torch.Tensor, state: AdamState) -> torch.Tensor:
+    def update_(self, grads: torch.Tensor, state: AdamState,
+                params: torch.Tensor | None = None) -> torch.Tensor:
         """Advance ``state`` in place by ``grads``; return the updates."""
+        return self._scaled(grads, state).mul_(-self.lr)
+
+    def _scaled(self, grads: torch.Tensor, state: AdamState) -> torch.Tensor:
+        """``optax.scale_by_adam``: advance the moments, return m̂ / (√v̂ + ε)."""
         # optax's ``(1 − b)·g + b·m``, each product rounded (XLA does not
         # fuse these into one FMA).
         state.mu.mul_(self.b1).add_(grads * (1.0 - self.b1))
@@ -93,11 +101,40 @@ class Adam:
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
         denom = (state.nu / bc2).add_(self.eps_root).sqrt_().add_(self.eps)
-        return (state.mu / bc1).div_(denom).mul_(-self.lr)
+        return (state.mu / bc1).div_(denom)
 
 
 def adam(lr: float) -> Adam:
     return Adam(lr)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(Adam):
+    """``optax.adamw(lr, weight_decay)`` with optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8, no mask, so every leaf decays, LayerNorm and biases
+    included): ``scale_by_adam``, then ``add_decayed_weights``
+    (:meth:`decayed_`), then ``−lr``."""
+
+    weight_decay: float = 1e-4
+
+    def update_(self, grads: torch.Tensor, state: AdamState,
+                params: torch.Tensor | None = None) -> torch.Tensor:
+        """Advance ``state`` in place by ``grads``; return the updates of
+        ``params`` (needed: the decay is proportional to them)."""
+        if params is None:
+            raise ValueError("adamw's update needs the parameters")
+        return self.decayed_(self._scaled(grads, state), params).mul_(-self.lr)
+
+    def decayed_(self, updates: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+        """``optax.add_decayed_weights``: ``updates + wd·params`` in place,
+        as one fused multiply-add (``addcmul`` is one on the CPU and on the
+        card), the form the reference's compiled step computes."""
+        wd = torch.full((), self.weight_decay, dtype=updates.dtype, device=updates.device)
+        return updates.addcmul_(params, wd)
+
+
+def adamw(lr: float, weight_decay: float = 1e-4) -> AdamW:
+    return AdamW(lr, weight_decay)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +153,11 @@ class Masked:
         """The base optimizer's state for the packed trainable ``[n, T]``."""
         return self.base.init(params)
 
-    def update_(self, grads: torch.Tensor, state: Any) -> torch.Tensor:
-        """The base optimizer's update of the packed trainable gradients."""
-        return self.base.update_(grads, state)
+    def update_(self, grads: torch.Tensor, state: Any,
+                params: torch.Tensor | None = None) -> torch.Tensor:
+        """The base optimizer's update of the packed trainable gradients
+        (``params``: the packed trainable parameters)."""
+        return self.base.update_(grads, state, params)
 
 
 def lora_optimizer(base_opt, is_lora: Callable[[str], bool]) -> Masked:

@@ -45,6 +45,7 @@ from dpwa_tpu_torch.ops.merge import (
 )
 from dpwa_tpu_torch.ops.quantize import WirePlan, fake_quant_rows
 from dpwa_tpu_torch.parallel import schedules
+from dpwa_tpu_torch.utils import trace
 from dpwa_tpu_torch.utils.devices import resolve_device
 from dpwa_tpu_torch.utils.pytree import FlatParams
 
@@ -386,21 +387,34 @@ def make_step_from_grads(
         views = params.views()
         train = {k: v for k, v in views.items() if trainable is None or trainable(k)}
         frozen = {k: v for k, v in views.items() if k not in train}
-        grads, losses = grads_and_losses(train, frozen, batch)
-        updates = optimizer.update_(params.pack(grads, trainable), state.opt_state)
+        with trace.span("step.grads"):
+            grads, losses = grads_and_losses(train, frozen, batch)
+        with trace.span("step.optimizer"):
+            packed = params.pack(grads, trainable)
+            del grads  # the packed copy is all the optimizer reads
+            # The current parameters in the packed layout (AdamW decays
+            # them): the buffer's leading columns, where init_stacked_state
+            # places the trainable leaves.
+            width = packed.shape[1]
+            if params.column_ranges(trainable) != [(0, width)]:
+                raise ValueError("the trainable leaves must lead the flat buffer "
+                                 "(build the state with init_stacked_state)")
+            updates = optimizer.update_(packed, state.opt_state, params.flat[:, :width])
+            del packed
         losses = losses.to(torch.float32)
         clock = state.clock + 1.0
-        if overlap:
-            prev = state.loss if state.loss is not None else torch.zeros_like(clock)
-            info = transport.exchange_params(
-                params, PeerMeta(clock, prev), state.step, exchange_filter
-            )
-            params.add_(updates, trainable)
-        else:
-            params.add_(updates, trainable)
-            info = transport.exchange_params(
-                params, PeerMeta(clock, losses), state.step, exchange_filter
-            )
+        with trace.span("step.exchange"):
+            if overlap:
+                prev = state.loss if state.loss is not None else torch.zeros_like(clock)
+                info = transport.exchange_params(
+                    params, PeerMeta(clock, prev), state.step, exchange_filter
+                )
+                params.add_(updates, trainable)
+            else:
+                params.add_(updates, trainable)
+                info = transport.exchange_params(
+                    params, PeerMeta(clock, losses), state.step, exchange_filter
+                )
         state.clock, state.step, state.loss = clock, state.step + 1, losses
         return state, losses, info
 

@@ -18,6 +18,23 @@ from dpwa_tpu_torch.utils.pytree import FlatParams, NamePredicate, leaf_order
 Params = Mapping[str, torch.Tensor]
 
 
+def stack_params(params: Params, n_peers: int, device=None) -> FlatParams:
+    """One set of parameters replicated on every peer — an identical warm
+    start, as the reference's ``stack_params`` (every process builds the
+    same model).  Each peer's row of a :class:`FlatParams` on ``device``
+    (the CUDA card by default) holds its own copy, since the train step
+    updates the buffer in place."""
+    device = resolve_device(device)
+    names = leaf_order(params)
+    flat = FlatParams(
+        names, [tuple(params[k].shape) for k in names], n_peers,
+        device=device, dtype=params[names[0]].dtype,
+    )
+    for name, view in flat.views().items():
+        view.copy_(params[name].to(device).expand_as(view))
+    return flat
+
+
 def init_params_per_peer(
     init_fn: Callable[[prng.Key], Params],
     key: prng.Key,

@@ -85,3 +85,13 @@ def embed_normal(key: prng.Key, shape: Sequence[int], device=None) -> torch.Tens
     normal times ``√(1/features)``."""
     fan_in, _ = compute_fans(shape, out_axis=0)
     return prng.normal(key, shape, device=device).mul_(float(np.sqrt(_f32(1.0 / fan_in))))
+
+
+def dense_general_kernel(key: prng.Key, shape: Sequence[int], n_in: int = 1, device=None) -> torch.Tensor:
+    """Flax ``nn.DenseGeneral``'s kernel over ``n_in`` input axes (``nn.Dense``
+    is ``n_in = 1`` on a 2-D shape): :func:`lecun_normal` drawn on the
+    flattened ``[prod(shape[:n_in]), prod(shape[n_in:])]`` shape, so its
+    fans are the flat ones, then reshaped (flax ``linear.py``'s
+    ``kernel_init_wrap``)."""
+    flat = (math.prod(shape[:n_in]), math.prod(shape[n_in:]))
+    return lecun_normal(key, flat, device).reshape(tuple(shape))

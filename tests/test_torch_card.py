@@ -19,15 +19,16 @@ import pytest
 import torch
 
 from dpwa_tpu_torch.config import make_local_config
-from dpwa_tpu_torch.models import llama, resnet
+from dpwa_tpu_torch.models import bert, llama, resnet
 from dpwa_tpu_torch import train_sp
 from dpwa_tpu_torch.ops import flash_attention, flash_ring, merge
-from dpwa_tpu_torch.optim import adam, lora_optimizer, sgd
+from dpwa_tpu_torch.optim import adam, adamw, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
 from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.train import (
     init_params_per_peer,
     softmax_cross_entropy_with_integer_labels,
+    stack_params,
 )
 
 N = 8
@@ -758,3 +759,59 @@ def test_resnet50_forward_on_card_matches_cpu(cuda_device):
         want = model(x)
         got = model.to(cuda_device)(x.to(cuda_device)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+BERT_NARROW = bert.BertConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+                              max_seq_len=32)
+
+
+def test_bert_hierarchical_step_on_card_matches_cpu(cuda_device):
+    """Four steps of 8 narrow BERTs in 2 groups of 4 on the hierarchical
+    schedule (three intra-group slots, then the inter-group one), AdamW at
+    lr 1e-3, from one init stacked on every peer: on the card (the exchange
+    through B1) and on the CPU (the plain merge), from the same batches,
+    TF32 off.  Losses within rtol 1e-4 and the pairings equal; parameters
+    within rtol 1e-3 / atol 1e-5 on 99 % of their elements and atol 4·lr
+    on all (Adam takes steps of size lr whatever the gradient's size, so a
+    gradient that nearly cancels moves its element by lr times its
+    relative error; the attention's key biases, whose gradient is 0 in
+    exact arithmetic, are all such elements and are left out of the 99 %)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, group, steps, lr, t = 8, 4, 4, 1e-3, 32
+    model = bert.BertMLM(BERT_NARROW)
+    init = bert.init(model, prng.key(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(steps):
+        seq = [rng.integers(1, BERT_NARROW.vocab_size, (n, 2, 1))]
+        for _ in range(t - 1):
+            seq.append((2 * seq[-1] + 1) % BERT_NARROW.vocab_size)
+        batches.append(bert.mlm_mask_batch(np.concatenate(seq, axis=-1), rng))
+    results = []
+    for device in ("cpu", cuda_device):
+        cfg = make_local_config(n, schedule="hierarchical", group_size=group, inter_period=4)
+        t_ = stacked.StackedTransport(cfg, device=device)
+        opt = adamw(lr)
+        state = stacked.init_stacked_state(stack_params(init, n, device), opt, t_)
+        step = stacked.make_stacked_train_step(bert.mlm_loss_fn(model), opt, t_)
+        merge.reset_launch_counts()
+        losses, partners = [], []
+        for batch in batches:
+            state, loss, info = step(state, tuple(torch.from_numpy(a).to(device) for a in batch))
+            losses.append(loss.cpu())
+            partners.append(info.partner.cpu())
+        views = {k: v.cpu() for k, v in state.params.views().items()}
+        results.append((torch.stack(losses), torch.stack(partners), views,
+                        merge.pair_merge_.launches))
+    (cpu_l, cpu_p, cpu_v, cpu_n), (gpu_l, gpu_p, gpu_v, gpu_n) = results
+    assert cpu_n == 0 and gpu_n == steps
+    assert torch.equal(gpu_p, cpu_p)
+    groups = torch.arange(n) // group
+    assert bool((groups[cpu_p[3].long()] != groups).all())
+    torch.testing.assert_close(gpu_l, cpu_l, rtol=1e-4, atol=1e-6)
+    for name, want in cpu_v.items():
+        got = gpu_v[name]
+        torch.testing.assert_close(got, want, rtol=0, atol=4 * lr)
+        if not name.endswith("attn.key.bias"):
+            loose = (got - want).abs() > 1e-5 + 1e-3 * want.abs()
+            assert loose.float().mean().item() < 0.01, name

@@ -2,7 +2,13 @@
 
 ``Adam`` against ``optax.adam`` over five steps of random gradients
 (updates and moments at rtol 1e-6: both compute the same float32 formulas,
-in another order); the LoRA-masked optimizer against the reference's
+in another order); ``AdamW`` against ``optax.adamw`` as the reference's
+train step runs it, compiled, over three steps (updates within 1e-6·lr,
+moments within 1e-6 of their largest value: XLA fuses Adam's moment
+updates, which moves a moment that nearly cancels far in relative terms),
+and its decay term bit for bit (XLA contracts ``u + wd·p`` into one fused
+multiply-add; two roundings miss on many elements); the LoRA-masked
+optimizer against the reference's
 ``lora_optimizer(optax.adam)``: exact zeros (no state, no update) on the
 frozen leaves, optax's updates on the rest.
 """
@@ -15,7 +21,9 @@ import torch
 
 from dpwa_tpu.models.llama import lora_optimizer as ref_lora_optimizer
 from dpwa_tpu_torch.models.llama import lora_filter
-from dpwa_tpu_torch.optim import adam, lora_optimizer
+import pytest
+
+from dpwa_tpu_torch.optim import adam, adamw, lora_optimizer
 from dpwa_tpu_torch.utils.pytree import FlatParams
 
 
@@ -35,6 +43,37 @@ def test_adam_matches_optax():
         np.testing.assert_allclose(state.mu.numpy(), np.asarray(ref_state[0].mu), rtol=1e-6)
         np.testing.assert_allclose(state.nu.numpy(), np.asarray(ref_state[0].nu), rtol=1e-6)
         assert state.count == int(ref_state[0].count[0]) == step + 1
+
+
+@pytest.mark.parametrize("wd", [1e-4, 0.3])
+def test_adamw_matches_compiled_optax(wd):
+    rng = np.random.default_rng(2)
+    n, p, lr = 3, 4099, 1e-3
+    x = rng.standard_normal((n, p)).astype(np.float32)
+    ref = optax.adamw(lr, weight_decay=wd)
+    ref_update = jax.jit(jax.vmap(ref.update))
+    ref_state = jax.vmap(ref.init)(jnp.asarray(x))
+    opt = adamw(lr, weight_decay=wd)
+    state = opt.init(torch.from_numpy(x))
+    for step in range(3):
+        g = (rng.standard_normal((n, p)) * 10.0 ** rng.integers(-4, 2, (n, p))).astype(np.float32)
+        want, ref_state = ref_update(jnp.asarray(g), ref_state, jnp.asarray(x))
+        got = opt.update_(torch.from_numpy(g), state, torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6 * lr)
+        for ours, theirs in ((state.mu, ref_state[0].mu), (state.nu, ref_state[0].nu)):
+            theirs = np.asarray(theirs)
+            assert np.abs(ours.numpy() - theirs).max() <= 1e-6 * np.abs(theirs).max()
+        assert state.count == int(ref_state[0].count[0]) == step + 1
+    with pytest.raises(ValueError, match="parameters"):
+        opt.update_(torch.from_numpy(g), state)
+
+    decay = jax.jit(jax.vmap(optax.add_decayed_weights(wd).update))
+    u = rng.standard_normal((n, p)).astype(np.float32)
+    want, _ = decay(jnp.asarray(u), optax.EmptyState(), jnp.asarray(x))
+    got = opt.decayed_(torch.from_numpy(u.copy()), torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    two_roundings = torch.from_numpy(u) + torch.from_numpy(x) * wd
+    assert (two_roundings.numpy() != np.asarray(want)).any()
 
 
 def test_lora_masked_adam_matches_reference():

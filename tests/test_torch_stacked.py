@@ -250,7 +250,8 @@ import dpwa_tpu_torch.examples.cifar10, dpwa_tpu_torch.convert, dpwa_tpu_torch.d
 import dpwa_tpu_torch.models.llama, dpwa_tpu_torch.ops.ulysses, dpwa_tpu_torch.utils.prng
 import dpwa_tpu_torch.utils.flax_rng
 import dpwa_tpu_torch.train_sp, dpwa_tpu_torch.ops.flash_ring, dpwa_tpu_torch.ops.zigzag_ring
-from dpwa_tpu_torch.examples import llama_lora, longcontext
+from dpwa_tpu_torch.examples import bert, llama_lora, longcontext
+import dpwa_tpu_torch.models.bert
 
 b = build_transport(load_config("examples/cifar10/nodes.yaml"), device="cpu")
 model = resnet.CifarResNet(depth=8)
@@ -268,6 +269,9 @@ assert res["final_step"] == 1 and all(v == v for v in res["losses"]), res
 res = longcontext.main(["--device", "cpu", "--peers", "2", "--sp", "2", "--steps", "1",
                         "--seq-len", "16", "--d-model", "16", "--n-layers", "1", "--lora", "2"])
 assert res["final_step"] == 1 and res["frozen_unchanged"], res
+res = bert.main(["--tiny", "--device", "cpu", "--peers", "4", "--group-size", "2", "--steps", "1",
+                 "--batch-size", "1", "--seq-len", "8"])
+assert res["final_step"] == 1 and all(v == v for v in res["losses"]), res
 bad = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "dpwa_tpu")
              or m.startswith(("jax.", "flax.", "optax.", "dpwa_tpu.")))
 print("FORBIDDEN", bad)

@@ -158,3 +158,40 @@ def test_resolve_device_never_picks_the_cpu_by_itself():
             resolve_device()
         with pytest.raises(RuntimeError):
             resolve_device("cuda")
+
+
+def test_breakdown_counts_each_part_by_its_launches_on_the_host():
+    """``trace.breakdown`` on a hand-made trace: the busy time is the union
+    of the kernels' intervals, and each part of the step (a
+    ``record_function`` range on the host) gets the kernels its operations
+    launched inside its range — also those of another thread (the
+    backward's), and not the part's own range on the card's timeline."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from dpwa_tpu_torch.utils import trace
+
+    def event(name, device, start, end, kernels=()):
+        rng = SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+        return SimpleNamespace(name=name, device_type=device, time_range=rng,
+                               kernels=[SimpleNamespace(duration=d) for d in kernels])
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        event("step.grads", cpu, 0, 100), event("step.optimizer", cpu, 100, 150),
+        event("aten::mm", cpu, 10, 12, [30]),  # the forward, main thread
+        event("MmBackward0", cpu, 60, 61, [50]),  # the backward's thread, inside grads
+        event("aten::add_", cpu, 120, 121, [7]),
+        event("aten::copy_", cpu, 200, 201, [3]),  # outside every part
+        event("step.grads", cuda, 1000, 1040),  # the annotation on the card
+        event("gemm_kernel", cuda, 1000, 1030), event("gemm_kernel", cuda, 1030, 1080),
+        event("add_kernel", cuda, 1100, 1107), event("copy_kernel", cuda, 1105, 1108),
+    ]
+    out = trace.breakdown(SimpleNamespace(events=lambda: events), wall_s=200e-6, steps=1)
+    assert out["device_busy_ms_per_step"] == 88e-3
+    assert out["device_ops_per_step"] == 4
+    assert out["grads_ms_per_step"] == 80e-3 and out["optimizer_ms_per_step"] == 7e-3
+    assert out["exchange_ms_per_step"] == 0.0
+    assert out["gemm_ms_per_step"] == 80e-3
+    assert [t["name"] for t in out["top"]] == ["gemm_kernel", "add_kernel", "copy_kernel"]
