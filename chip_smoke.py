@@ -19,6 +19,14 @@ that they went through the kernels:
   and once more under the profiler; and with partial participation and
   injected faults on the int8 wire, pairwise and pull (the wire forms of
   B1 and B2), each step's participation held against the host's draws;
+- ``dpwa_tpu_torch.examples.mnist`` (BASELINE config 1 on the stacked
+  transport): 2 peers of SmallNet on the 8×8 digits fixture, ring, Adam,
+  300 steps (B1 once a step), once more under the profiler, and a 14-step
+  run saved at step 10 and resumed from there, which must land on the
+  straight run's state bit for bit (as must a second straight run);
+- ResNet-20 with BatchNorm, 8 peers on the CIFAR-10 fixture, through the
+  stacked step with model state: the parameters and the running statistics
+  merged by one B1 launch a step;
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -72,10 +80,18 @@ R50_PEERS = 32
 WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
+    "train_mnist", "profile_mnist", "resume_mnist", "train_bn",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
 )
+# The MNIST path (BASELINE config 1, stacked): 2 peers of SmallNet on the
+# digits, 66,410 parameters a peer; the resume check's run and save step.
+MNIST_D, MNIST_PEERS, MNIST_STEPS = 66410, 2, 300
+RESUME_STEPS, RESUME_SAVE = 14, 10
+# The BatchNorm path: ResNet-20's parameters and, right after them in each
+# row, its 1,568 running statistics; 5 steps.
+BN_D, BN_STEPS = MAIN_D + 1568, 5
 # The ImageNet path: 32 peers of ResNet-50 at 224×224, batch 4 a peer.
 IMAGENET_BATCH, IMAGENET_STEPS = 4, 6
 # The BERT path: 16 peers of BERT-base (BASELINE config 4, 64 peers cut to
@@ -361,8 +377,10 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     arithmetic.  B2 and B1 at the ResNet-20 path's padded ``[8, 272474]``
     rows, at ``[8, 24·2^20]`` and at the ImageNet path's ``[32, 25557032]``
     (ResNet-50, 3.27 GB); B1 also at the Llama path's ``[4, 1310720]`` LoRA
-    column slice and at the BERT path's ``[16, 132953658]`` (8.51 GB, the
-    hierarchical schedule's intra-group matching, f32 wire).  B1 runs as the main paths run it, with ``self_pairs``: a
+    column slice, at the BERT path's ``[16, 132953658]`` (8.51 GB, the
+    hierarchical schedule's intra-group matching, f32 wire), at the MNIST
+    path's ``[2, 66410]`` and at the BatchNorm path's ``[8, 274042]``
+    (ResNet-20's parameters and running statistics in one row).  B1 runs as the main paths run it, with ``self_pairs``: a
     row that sits the round out gets α = 0 and is merged with itself (its
     own wire row), which must turn the inf and NaN put into it here into
     NaN (``1·x + 0·y``, as the reference computes it)."""
@@ -395,7 +413,9 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     r50_alpha = rng.uniform(0.0, 1.0, R50_PEERS).astype(np.float32)
     bert_alpha = rng.uniform(0.0, 1.0, BERT_PEERS).astype(np.float32)
     row_alpha = {N_PEERS: alphas["random"], LLAMA_PEERS: alphas["random"][:LLAMA_PEERS],
-                 R50_PEERS: r50_alpha, BERT_PEERS: bert_alpha}
+                 MNIST_PEERS: alphas["random"][:MNIST_PEERS], R50_PEERS: r50_alpha,
+                 BERT_PEERS: bert_alpha}
+    mnist_map = np.array([1, 0])  # the 2-peer ring's only pairing
     # (rows, d, layout, map, perm, alpha name, alpha, wire, wire form?)
     cases = []
     for d in (MAIN_D, BIG_D):
@@ -419,6 +439,10 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     if kind == "b1":
         cases.append((BERT_PEERS, BERT_D, padded_rows, "hierarchical_intra", bert_map(),
                       "random", bert_alpha, "f32", False))
+        cases.append((MNIST_PEERS, MNIST_D, padded_rows, "mnist_ring", mnist_map, "random",
+                      row_alpha[MNIST_PEERS], "f32", False))
+        cases.append((n, BN_D, padded_rows, "ring_even", maps["ring_even"], "random",
+                      alphas["random"], "f32", False))
     max_err, n_checked = 0.0, 0
     gen = torch.Generator().manual_seed(7)
     base = {}
@@ -482,6 +506,8 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
         timed.append(("llama", LLAMA_PEERS, lora_w, llama_lora_rows, llama_maps["full"], False, 30))
     if kind == "b1":
         timed.append(("bert", BERT_PEERS, BERT_D, padded_rows, bert_map(), False, 5))
+        timed.append(("mnist", MNIST_PEERS, MNIST_D, padded_rows, mnist_map, False, 30))
+        timed.append(("bn", n, BN_D, padded_rows, maps[map_name], False, 30))
     for key, rows, d, layout, perm, in_w, iters in timed:
         gen = torch.Generator(device=device).manual_seed(11)
         x = timed_rows(layout, torch, rows, d, device, gen)
@@ -828,6 +854,80 @@ def ring_checks(torch, fr, device, flush, kind: str, ptxas) -> dict:
             "max_abs_err": max_err, "max_normwise": worst, "tolerance": tol, "timings": timings}
 
 
+def run_differences(torch, a: dict, b: dict) -> list[str]:
+    """What differs, bit for bit, between two MNIST example runs' final
+    states and data streams (an empty list when nothing does)."""
+    sa, sb = a["state"], b["state"]
+    pairs = {
+        "params": (sa.params.flat, sb.params.flat),
+        "adam_mu": (sa.opt_state.mu, sb.opt_state.mu),
+        "adam_nu": (sa.opt_state.nu, sb.opt_state.nu),
+        "clock": (sa.clock, sb.clock), "loss": (sa.loss, sb.loss),
+    }
+    diff = [k for k, (x, y) in pairs.items() if not torch.equal(x, y)]
+    if (sa.step, sa.opt_state.count) != (sb.step, sb.opt_state.count):
+        diff.append("step")
+    if a["stream"].state_dict() != b["stream"].state_dict():
+        diff.append("stream")
+    return diff
+
+
+def train_bn(torch, merge, device, steps: int) -> dict:
+    """ResNet-20 with BatchNorm (``norm_type="batch"``), the peers of
+    ``examples/cifar10/nodes.yaml`` (8, ring, α 0.5), batch 64 a peer of the
+    CIFAR-10 fixture, momentum SGD at 0.1, through the stacked step with
+    model state: each step's losses, the running statistics after the last,
+    B1's launches and the rate (the first step untimed)."""
+    from dpwa_tpu_torch.config import load_config
+    from dpwa_tpu_torch.data import device_batches, peer_batches
+    from dpwa_tpu_torch.examples.cifar10 import load_cifar10
+    from dpwa_tpu_torch.models import resnet
+    from dpwa_tpu_torch.optim import sgd
+    from dpwa_tpu_torch.parallel import stacked
+    from dpwa_tpu_torch.train import init_params_per_peer, softmax_cross_entropy_with_integer_labels
+    from dpwa_tpu_torch.utils import prng
+
+    cfg = load_config(os.path.join(HERE, "examples/cifar10/nodes.yaml"))
+    n = cfg.n_peers
+    transport = stacked.StackedTransport(cfg, device=device)
+    model = resnet.ResNet20(norm_type="batch").to(device)
+    params = init_params_per_peer(lambda k: resnet.init(model, k, device), prng.key(0), n, device)
+    stats = {k: v.expand(n, *v.shape).clone() for k, v in resnet.batch_stats(model, device).items()}
+    opt = sgd(0.1, momentum=0.9)
+    state = stacked.init_stacked_state(params, opt, transport, stats)
+
+    def loss_fn(p, model_state, batch):
+        logits, new = resnet.apply_batch_norm(model, p, model_state, batch[0])
+        return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean(), new
+
+    step_fn = stacked.make_stacked_train_step(loss_fn, opt, transport, with_state=True)
+    x_tr, y_tr, _, _ = load_cifar10(os.path.join(HERE, "data/cifar10_fixture"))
+    batches = device_batches(peer_batches(x_tr, y_tr, n, 64, seed=cfg.protocol.seed), device)
+    width = state.params.size + state.model_state.size
+    merge.reset_launch_counts()  # count the main path's launches only
+    state, losses, _ = step_fn(state, next(batches))
+    step_losses = [losses.mean()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1, steps):
+        state, losses, _ = step_fn(state, next(batches))
+        step_losses.append(losses.mean())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"pair_merge_": merge.pair_merge_.launches,
+                "gather_merge": merge.gather_merge.launches}
+    moved = state.model_state.flat
+    return {
+        "steps": steps, "steps_per_sec": (steps - 1) / dt, "losses": torch.stack(step_losses).tolist(),
+        "launches": launches, "row": [n, width], "params_per_peer": state.params.size,
+        "stats_per_peer": state.model_state.size,
+        "stats_finite": bool(torch.isfinite(moved).all()),
+        "stats_moved": not torch.equal(moved, torch.cat(
+            [v.reshape(n, -1) for k, v in sorted(stats.items(), key=lambda kv: kv[0].split("."))], 1)),
+        "final_step": state.step,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -923,7 +1023,7 @@ def main(argv=None) -> int:
 
     from dpwa_tpu_torch.examples import cifar10
 
-    main_launches = {}
+    main_launches, rates = {}, {}
     for phase, extra, steps, kernel in (
         ("train", [], 20, "pair_merge_"),
         ("train_pull", ["--mode", "pull"], 5, "gather_merge"),
@@ -960,6 +1060,7 @@ def main(argv=None) -> int:
                 f"{kernel} per step"
             )
         main_launches[phase] = launches
+        rates[phase] = res["steps_per_sec"]
         emit({
             "phase": phase, "steps": steps, "steps_per_sec": res["steps_per_sec"],
             "init_seconds": res["init_seconds"], "step0_loss": losses[0],
@@ -968,6 +1069,106 @@ def main(argv=None) -> int:
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
             "profile": res["profile"],
         })
+
+    from dpwa_tpu_torch.examples import mnist as mnist_example
+
+    for phase, steps, profile in (
+        ("train_mnist", MNIST_STEPS, False),
+        # The MNIST path under torch.profiler: where a step's time goes.
+        ("profile_mnist", 11, True),
+    ):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        merge.reset_launch_counts()  # count the main path's launches only
+        res = mnist_example.main([
+            "--steps", str(steps), "--log-every", "50", *(["--profile"] if profile else []),
+        ])
+        launches = {
+            "pair_merge_": merge.pair_merge_.launches,
+            "gather_merge": merge.gather_merge.launches,
+        }
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: bad losses {losses}")
+        if res["device"] != kind or res["final_step"] != steps or res["n_peers"] != MNIST_PEERS:
+            raise AssertionError(f"{phase}: ran {res['n_peers']} peers on {res['device']} "
+                                 f"for {res['final_step']} steps")
+        if res["state"].params.size != MNIST_D or res["dataset"] != "digits":
+            raise AssertionError(f"{phase}: {res['state'].params.size} parameters on {res['dataset']}")
+        if launches != {"pair_merge_": steps, "gather_merge": 0}:
+            raise AssertionError(f"{phase}: {steps} steps launched {launches}")
+        mean_acc = sum(res["accuracy"]) / len(res["accuracy"])
+        # The reference's own bar for SmallNet on the digits
+        # (tests/test_train.py:71-92).
+        if not profile and not mean_acc >= 0.9:
+            raise AssertionError(f"{phase}: mean test accuracy {mean_acc} < 0.9")
+        main_launches[phase] = launches
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": steps,
+            "n_peers": MNIST_PEERS, "params_per_peer": MNIST_D, "dataset": res["dataset"],
+            "nvidia_smi": name_limit, "steps_per_sec": res["steps_per_sec"],
+            "init_seconds": res["init_seconds"], "step0_loss": losses[0], "last_loss": losses[-1],
+            "mean_accuracy": mean_acc, "accuracy": res["accuracy"], "launches": launches,
+            "payload_bytes": res["payload_bytes"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device), "profile": res["profile"],
+        })
+
+    if "resume_mnist" in phases:
+        # A 14-step run saved at step 10, a second straight run, and a
+        # resume from the step-10 checkpoint: all three must end in the same
+        # state and stream position, bit for bit.
+        t0 = time.perf_counter()
+        root = os.path.join(HERE, "build", "resume_mnist")
+        shutil.rmtree(root, ignore_errors=True)
+        base = ["--steps", str(RESUME_STEPS), "--log-every", "100"]
+        ck = os.path.join(root, "ck")
+        merge.reset_launch_counts()  # count the main path's launches only
+        full = mnist_example.main(base + ["--checkpoint", ck, "--save-every", str(RESUME_SAVE)])
+        again = mnist_example.main(base + ["--checkpoint", os.path.join(root, "again"),
+                                           "--save-every", str(RESUME_STEPS + 1)])
+        resumed = mnist_example.main(base + ["--checkpoint", ck, "--resume"])
+        launches = {"pair_merge_": merge.pair_merge_.launches,
+                    "gather_merge": merge.gather_merge.launches}
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dirpath, f))
+                         for dirpath, _, files in os.walk(root) for f in files
+                         if os.path.join(dirpath, f).startswith(ck))
+        straight_diff = run_differences(torch, full, again)
+        resume_diff = run_differences(torch, full, resumed)
+        want_launches = 2 * RESUME_STEPS + RESUME_STEPS - RESUME_SAVE
+        phase = "resume_mnist"
+        main_launches[phase] = launches
+        emit({
+            "phase": phase, "seconds": time.perf_counter() - t0, "steps": RESUME_STEPS,
+            "save_every": RESUME_SAVE, "resumed_at": resumed["start_step"],
+            "nvidia_smi": name_limit, "straight_runs_differ_in": straight_diff,
+            "resume_differs_in": resume_diff, "save_seconds": full["save_seconds"],
+            "restore_seconds": resumed["restore_seconds"], "checkpoint_bytes": ckpt_bytes,
+            "launches": launches, "losses_full": full["losses"], "losses_resumed": resumed["losses"],
+        })
+        shutil.rmtree(root, ignore_errors=True)
+        if straight_diff or resume_diff:
+            raise AssertionError(f"{phase}: two straight runs differ in {straight_diff}, "
+                                 f"the resumed run in {resume_diff}")
+        if resumed["start_step"] != RESUME_SAVE or launches != {
+                "pair_merge_": want_launches, "gather_merge": 0}:
+            raise AssertionError(f"{phase}: resumed at {resumed['start_step']}, launched {launches}")
+
+    if "train_bn" in phases:
+        t0 = time.perf_counter()
+        res = train_bn(torch, merge, device, BN_STEPS)
+        if len(res["losses"]) != BN_STEPS or not all(math.isfinite(v) for v in res["losses"]):
+            raise AssertionError(f"train_bn: bad losses {res['losses']}")
+        if not (res["stats_finite"] and res["stats_moved"]) or res["final_step"] != BN_STEPS:
+            raise AssertionError(f"train_bn: statistics finite {res['stats_finite']}, moved "
+                                 f"{res['stats_moved']}, {res['final_step']} steps")
+        if res["launches"] != {"pair_merge_": BN_STEPS, "gather_merge": 0} or res["row"][1] != BN_D:
+            raise AssertionError(f"train_bn: {BN_STEPS} steps over {res['row']} launched {res['launches']}")
+        main_launches["train_bn"] = res["launches"]
+        emit({"phase": "train_bn", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              "group_norm_train_steps_per_sec": rates.get("train"), **res})
+        torch.cuda.empty_cache()
 
     for phase, extra, kernel in (
         # The ResNet-20 path with partial participation and faults on the
@@ -1284,6 +1485,10 @@ def main(argv=None) -> int:
                                    if form == "x" else None),
                 "launches_bert": (main_launches.get("train_bert", {}).get(name)
                                   if form == "x" else None),
+                "launches_mnist": (main_launches.get("train_mnist", {}).get(name)
+                                   if form == "x" else None),
+                "launches_batchnorm": (main_launches.get("train_bn", {}).get(name)
+                                       if form == "x" else None),
                 "max_abs_err": results[kind_name]["max_abs_err"],
                 "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
                 "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -1294,6 +1499,10 @@ def main(argv=None) -> int:
                 "at_llama": timings.get("llama") if form == "x" else None,
                 # B1 at the BERT path's whole-model rows (1 launch per step there)
                 "at_bert": timings.get("bert") if form == "x" else None,
+                # B1 at the MNIST path's rows, and at ResNet-20's parameters
+                # with the running statistics after them (1 launch a step each)
+                "at_mnist": timings.get("mnist") if form == "x" else None,
+                "at_batchnorm": timings.get("bn") if form == "x" else None,
             })
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):

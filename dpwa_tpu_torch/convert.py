@@ -1,13 +1,16 @@
 """Carry parameters between the Flax models and the port's.
 
-ResNet (:func:`flax_to_torch`, :func:`torch_to_flax`; the CIFAR ResNets
-and ResNet-50's 161 leaves alike): Flax keeps a conv kernel as HWIO and a
-Dense kernel as ``[in, out]``; the port's modules
-(:mod:`dpwa_tpu_torch.models.resnet`) keep OIHW and ``[out, in]``.  Names
+ResNet and the MNIST ConvNets (:func:`flax_to_torch`, :func:`torch_to_flax`;
+the CIFAR ResNets, ResNet-50's 161 leaves, ``ConvNet`` and ``SmallNet``
+alike): Flax keeps a conv kernel as HWIO and a Dense kernel as ``[in,
+out]``; the port's modules (:mod:`dpwa_tpu_torch.models.resnet`,
+:mod:`dpwa_tpu_torch.models.mnist`) keep OIHW and ``[out, in]``.  Names
 map one to one: the Flax key path ``params/BasicBlock_0/Conv_0/kernel`` is
-the port's ``BasicBlock_0.Conv_0.kernel``.  Both directions work on numpy arrays, so
-tests can hand the same parameters to both packages and compare the
-updated ones.  A leading peer axis (``stacked=True``) rides along
+the port's ``BasicBlock_0.Conv_0.kernel``.  ``collection="batch_stats"``
+carries BatchNorm's running statistics (``batch_stats/BatchNorm_0/mean``
+↔ ``BatchNorm_0.mean``, unchanged inside).  Both directions work on numpy
+arrays, so tests can hand the same parameters to both packages and compare
+the updated ones.  A leading peer axis (``stacked=True``) rides along
 untouched.
 
 Llama (:func:`flax_llama_to_torch`, :func:`torch_llama_to_flax`) and BERT
@@ -51,26 +54,29 @@ def _carry(name: str, value, lead: int, perms: Mapping[int, tuple]) -> np.ndarra
     return np.array(value, order="C")  # a writable copy
 
 
-def flax_to_torch(variables: Mapping[str, Any], *, stacked: bool = False) -> Dict[str, np.ndarray]:
-    """Flax ResNet variables (``{"params": {...}}`` or the params dict
-    itself, nested dicts of arrays) → ``{port name: array}``."""
-    params = variables.get("params", variables)
+def flax_to_torch(variables: Mapping[str, Any], *, stacked: bool = False,
+                  collection: str = "params") -> Dict[str, np.ndarray]:
+    """Flax ResNet or ConvNet variables (``{"params": {...}, ...}`` or the
+    collection's dict itself, nested dicts of arrays) → ``{port name:
+    array}`` for ``collection`` (``"params"`` or ``"batch_stats"``)."""
+    tree = variables.get(collection, variables)
     lead = 1 if stacked else 0
-    named = {".".join(path): value for path, value in _flatten(params).items()}
+    named = {".".join(path): value for path, value in _flatten(tree).items()}
     return {name: _carry(name, value, lead, _TO_PORT) for name, value in named.items()}
 
 
-def torch_to_flax(named: Mapping[str, Any], *, stacked: bool = False) -> Dict[str, Any]:
-    """``{port name: array}`` → Flax variables ``{"params": {...}}``."""
+def torch_to_flax(named: Mapping[str, Any], *, stacked: bool = False,
+                  collection: str = "params") -> Dict[str, Any]:
+    """``{port name: array}`` → Flax variables ``{collection: {...}}``."""
     lead = 1 if stacked else 0
-    params: Dict[str, Any] = {}
+    tree: Dict[str, Any] = {}
     for name, value in named.items():
-        node = params
+        node = tree
         *parents, leaf = name.split(".")
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = _carry(name, value, lead, _TO_FLAX)
-    return {"params": params}
+    return {collection: tree}
 
 
 def _by_name_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -1,21 +1,107 @@
-"""Per-peer data streams (the port of :mod:`dpwa_tpu.data`).
+"""Offline datasets and per-peer data streams (the port of
+:mod:`dpwa_tpu.data`).
 
 Each peer trains on its own stream: :func:`peer_batches` deals every peer a
 disjoint shard of one dataset and an independent shuffle, and yields
 peer-stacked ``[n_peers, batch, ...]`` numpy arrays — the same arrays, from
 the same seed, as the reference.  :func:`device_batches` stages them on the
 device ahead of use.
+
+The loaders need no network and no scikit-learn: the 8×8 digits that the
+reference reads through ``sklearn.datasets.load_digits`` are committed as
+``data/digits_fixture/digits.npz`` (its README says where they come from),
+and a full MNIST is used where an ``mnist.npz`` lies under one of
+:data:`MNIST_ROOTS`.  :func:`gaussian_blobs` is the synthetic task of the
+unit tests.  Each returns the reference's arrays bit for bit.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Iterator, Tuple
+import os
+from pathlib import Path
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Array = np.ndarray
+
+REPO = Path(__file__).resolve().parents[1]
+DIGITS_NPZ = REPO / "data" / "digits_fixture" / "digits.npz"
+# Where :func:`find_mnist_dir` looks: inside the checkout only.
+MNIST_ROOTS = (str(REPO / "data" / "mnist"),)
+
+
+def gaussian_blobs(
+    n_classes: int = 4,
+    dim: int = 16,
+    n_per_class: int = 256,
+    seed: int = 0,
+    spread: float = 0.5,
+) -> Tuple[Array, Array]:
+    """Linearly separable-ish classification task for fast tests."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_classes, dim)) * 3.0
+    xs, ys = [], []
+    for c in range(n_classes):
+        xs.append(centers[c] + spread * rng.standard_normal((n_per_class, dim)))
+        ys.append(np.full(n_per_class, c))
+    x = np.concatenate(xs).astype(np.float32)
+    y = np.concatenate(ys).astype(np.int32)
+    order = rng.permutation(len(x))
+    return x[order], y[order]
+
+
+def load_digits_dataset(
+    test_fraction: float = 0.2, seed: int = 0, path: str | os.PathLike = DIGITS_NPZ
+) -> Tuple[Array, Array, Array, Array]:
+    """The 8×8 grayscale digits (1797 samples) as NHWC float32 in [0, 1]:
+    ``(x_train, y_train, x_test, y_test)``, shuffled by ``seed`` and split
+    with the first ``test_fraction`` as the test set."""
+    with np.load(path) as d:
+        images, target = d["images"], d["target"]
+    x = (images.astype(np.float32) / 16.0)[..., None]  # [N, 8, 8, 1]
+    y = target.astype(np.int32)
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(x))
+    x, y = x[order], y[order]
+    n_test = int(len(x) * test_fraction)
+    return x[n_test:], y[n_test:], x[:n_test], y[:n_test]
+
+
+def find_mnist_dir(roots: Sequence[str] = MNIST_ROOTS) -> str | None:
+    """The first of ``roots`` that holds an MNIST (``mnist.npz`` or the idx
+    files), or None; reads no network."""
+    for root in roots:
+        if os.path.isdir(root):
+            for name in ("mnist.npz", "train-images-idx3-ubyte"):
+                if os.path.exists(os.path.join(root, name)):
+                    return root
+    return None
+
+
+def load_mnist_or_digits(
+    roots: Sequence[str] = MNIST_ROOTS,
+) -> Tuple[Array, Array, Array, Array, str]:
+    """Full MNIST if an ``mnist.npz`` lies under one of ``roots``, else the
+    8×8 digits: ``(x_train, y_train, x_test, y_test, dataset_name)``."""
+    root = find_mnist_dir(roots)
+    if root is not None:
+        npz = os.path.join(root, "mnist.npz")
+        if os.path.exists(npz):
+            with np.load(npz) as d:
+                x_tr = d["x_train"].astype(np.float32)[..., None] / 255.0
+                x_te = d["x_test"].astype(np.float32)[..., None] / 255.0
+                return (
+                    x_tr,
+                    d["y_train"].astype(np.int32),
+                    x_te,
+                    d["y_test"].astype(np.int32),
+                    "mnist",
+                )
+    x_tr, y_tr, x_te, y_te = load_digits_dataset()
+    return x_tr, y_tr, x_te, y_te, "digits"
 
 
 def peer_split(

@@ -25,6 +25,14 @@ The pool's partner maps and pair lists go to the device once, when the
 transport is built; a step picks a row of them, so the exchange waits on
 nothing.  The merged values are the reference's bit for bit
 (``tests/test_torch_stacked.py``, ``tests/test_torch_exchange.py``).
+
+Model state (BatchNorm's running statistics, ``with_state=True``) is merged
+with the parameters, same pairs, same α, same wire, as the reference merges
+the tuple ``(params, model_state)``.  :func:`init_stacked_state` places the
+state's columns right after the parameters' in one buffer
+(:func:`~dpwa_tpu_torch.utils.pytree.stack_with_state`), outside the
+optimizer's leading range, so a step without ``exchange_filter`` merges
+both in ONE launch of B1 (one per contiguous column range otherwise).
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from dpwa_tpu_torch.ops.quantize import WirePlan, fake_quant_rows
 from dpwa_tpu_torch.parallel import schedules
 from dpwa_tpu_torch.utils import trace
 from dpwa_tpu_torch.utils.devices import resolve_device
-from dpwa_tpu_torch.utils.pytree import FlatParams
+from dpwa_tpu_torch.utils.pytree import FlatParams, joint_flat, stack_with_state
 
 Columns = Sequence[Tuple[int, int]]
 
@@ -254,9 +262,11 @@ class StackedTransport:
 @dataclasses.dataclass
 class StackedTrainState:
     """Stacked training state; every per-peer tensor's leading axis is
-    n_peers.  ``loss`` is each peer's most recent training loss (the
-    metadata an overlapped exchange ships).  The train step updates the
-    state in place."""
+    n_peers.  ``model_state`` (a :class:`FlatParams` sharing the
+    parameters' buffer, or None) holds BatchNorm's running statistics.
+    ``loss`` is each peer's most recent training loss (the metadata an
+    overlapped exchange ships).  The train step updates the state in
+    place."""
 
     params: FlatParams
     opt_state: Any
@@ -283,35 +293,41 @@ def init_stacked_state(
     transport's device becomes the state's buffer, updated in place by the
     train step: the caller hands it over, as the reference donates its
     state.  Anything else (``{name: [n, *shape]}``, another layout) is
-    copied into a new buffer."""
-    if stacked_model_state is not None:
-        raise NotImplementedError(
-            "model state (BatchNorm statistics) is not ported yet"
-        )
+    copied into a new buffer.
+
+    ``stacked_model_state`` (``{name: [n, *shape]}`` or a
+    :class:`FlatParams`, e.g. BatchNorm's running statistics) is copied
+    with the parameters into one new buffer, its columns right after
+    theirs (:func:`~dpwa_tpu_torch.utils.pytree.stack_with_state`)."""
     n = transport.config.n_peers
     trainable = optimizer.trainable
-    if isinstance(stacked_params, FlatParams):
-        leading = {stacked_params.n_peers}
-    else:
-        leading = {int(v.shape[0]) for v in stacked_params.values()}
-    if leading != {n}:
-        raise ValueError(
-            f"stacked params must have leading peer axis {n}, got {leading}"
+    as_dict = lambda t: t.views() if isinstance(t, FlatParams) else t
+    for what, tree in (("params", stacked_params), ("model state", stacked_model_state)):
+        if tree is None:
+            continue
+        leading = {int(v.shape[0]) for v in as_dict(tree).values()}
+        if leading != {n}:
+            raise ValueError(
+                f"stacked {what} must have leading peer axis {n}, got {leading}"
+            )
+    params, model_state = stacked_params, None
+    if stacked_model_state is not None:
+        params, model_state = stack_with_state(
+            as_dict(params), as_dict(stacked_model_state),
+            device=transport.device, first=trainable,
         )
-    params = stacked_params
-    if not (
+    elif not (
         isinstance(params, FlatParams)
         and params.first is trainable
         and params.buffer.device == transport.device
     ):
-        if isinstance(params, FlatParams):
-            params = params.views()
-        params = FlatParams.stack(params, device=transport.device, first=trainable)
+        params = FlatParams.stack(as_dict(params), device=transport.device, first=trainable)
     return StackedTrainState(
         params=params,
         opt_state=optimizer.init(params.pack(params.views(), trainable)),
         clock=torch.zeros(n, dtype=torch.float32, device=transport.device),
         step=0,
+        model_state=model_state,
         loss=torch.zeros(n, dtype=torch.float32, device=transport.device),
     )
 
@@ -331,7 +347,14 @@ def make_stacked_train_step(
 
     ``loss_fn(params, batch)`` is one peer's scalar loss, with ``params`` a
     ``{name: tensor}`` dict of that peer's parameters and ``batch`` that
-    peer's slice of the peer-stacked ``(x[n, b, ...], y[n, b])``.
+    peer's slice of the peer-stacked ``(x[n, b, ...], y[n, b])``.  With
+    ``with_state=True`` it is ``loss_fn(params, model_state, batch) ->
+    (loss, new_model_state)``, both states ``{name: tensor}`` dicts (e.g.
+    :func:`~dpwa_tpu_torch.models.resnet.apply_batch_norm`'s statistics);
+    the state then needs ``stacked_model_state`` at
+    :func:`init_stacked_state`, and the new statistics are merged with the
+    parameters (``overlap=True``: the old ones are merged and this step's
+    change ``new − old`` added, as the reference does).
 
     The reference donates its state; here ``state`` is updated **in place**
     (parameters, optimizer state, clock, step and loss) and returned.
@@ -349,46 +372,82 @@ def make_stacked_train_step(
     bit-identical — the reference computes their gradients and multiplies
     them by zero."""
     if with_state:
-        raise NotImplementedError(
-            "with_state=True (BatchNorm statistics as merged model state) is "
-            "not ported yet"
-        )
+        def split_loss(train, frozen, model_state, batch):
+            return loss_fn({**frozen, **train}, model_state, batch)
 
-    def split_loss(train, frozen, batch):
-        return loss_fn({**frozen, **train}, batch)
+        grad_fn = torch.func.vmap(torch.func.grad_and_value(split_loss, has_aux=True))
 
-    per_peer = torch.func.vmap(torch.func.grad_and_value(split_loss))
-    return make_step_from_grads(per_peer, optimizer, transport, exchange_filter, overlap)
+        def per_peer(train, frozen, model_state, batch):
+            grads, (losses, new_model_state) = grad_fn(train, frozen, model_state, batch)
+            return grads, losses, new_model_state
+    else:
+        def split_loss(train, frozen, batch):
+            return loss_fn({**frozen, **train}, batch)
+
+        per_peer = torch.func.vmap(torch.func.grad_and_value(split_loss))
+    return make_step_from_grads(per_peer, optimizer, transport, exchange_filter, overlap,
+                                with_state)
+
+
+def _state_columns(params: FlatParams, model_state: FlatParams,
+                   pred: Callable[[str], bool] | None) -> Tuple[list, list]:
+    """The exchange's column ranges and int8 leaves over :func:`joint_flat`:
+    the parameters ``pred`` selects, then every column of the state (the
+    reference's flatten order of ``(params, model_state)``), adjacent
+    ranges merged."""
+    shift = lambda ranges: [(params.ld + lo, params.ld + hi) for lo, hi in ranges]
+    columns = []
+    for lo, hi in params.column_ranges(pred) + shift(model_state.column_ranges()):
+        if columns and columns[-1][1] == lo:
+            columns[-1] = (columns[-1][0], hi)
+        else:
+            columns.append((lo, hi))
+    leaves = params.leaf_ranges(pred) + shift(model_state.leaf_ranges())
+    return columns, leaves
 
 
 def make_step_from_grads(
-    grads_and_losses: Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor], Any],
-                               Tuple[Mapping[str, torch.Tensor], torch.Tensor]],
+    grads_and_losses: Callable[..., tuple],
     optimizer,
     transport: StackedTransport,
     exchange_filter: Optional[Callable[[str], bool]] = None,
     overlap: bool = False,
+    with_state: bool = False,
 ):
     """The stacked train step around ``grads_and_losses(train, frozen,
     batch) -> (grads, losses)``, which gives every peer's gradients of the
-    ``train`` leaves (``{name: [n, ...]}``) and its float ``[n]`` losses:
-    the optimizer on the flat buffer, then the exchange, as
-    :func:`make_stacked_train_step` describes.  The sequence-parallel step
-    (:mod:`dpwa_tpu_torch.train_sp`) shares it."""
+    ``train`` leaves (``{name: [n, ...]}``) and its float ``[n]`` losses
+    (with ``with_state``: ``grads_and_losses(train, frozen, model_state,
+    batch) -> (grads, losses, new_model_state)``): the optimizer on the
+    flat buffer, then the exchange, as :func:`make_stacked_train_step`
+    describes.  The sequence-parallel step (:mod:`dpwa_tpu_torch.train_sp`)
+    shares it."""
     trainable = optimizer.trainable  # None: every leaf
 
     def train_step(state: StackedTrainState, batch):
-        if state.model_state is not None:
+        # The reference's misuse guards: silently frozen statistics are
+        # worse than an error.
+        if not with_state and state.model_state is not None:
             raise ValueError(
                 "state carries model_state but this step was built with "
-                "with_state=False, which would never update it"
+                "with_state=False, which would never update it; pass "
+                "with_state=True"
             )
-        params = state.params
+        if with_state and state.model_state is None:
+            raise ValueError(
+                "step built with with_state=True but state.model_state is "
+                "None; pass stacked_model_state to init_stacked_state"
+            )
+        params, model_state = state.params, state.model_state
         views = params.views()
         train = {k: v for k, v in views.items() if trainable is None or trainable(k)}
         frozen = {k: v for k, v in views.items() if k not in train}
         with trace.span("step.grads"):
-            grads, losses = grads_and_losses(train, frozen, batch)
+            if with_state:
+                grads, losses, new_model_state = grads_and_losses(
+                    train, frozen, model_state.views(), batch)
+            else:
+                grads, losses = grads_and_losses(train, frozen, batch)
         with trace.span("step.optimizer"):
             packed = params.pack(grads, trainable)
             del grads  # the packed copy is all the optimizer reads
@@ -404,7 +463,13 @@ def make_step_from_grads(
         losses = losses.to(torch.float32)
         clock = state.clock + 1.0
         with trace.span("step.exchange"):
-            if overlap:
+            if with_state:
+                info = _exchange_with_state(
+                    transport, params, model_state, model_state.pack(new_model_state),
+                    updates, trainable, exchange_filter, clock,
+                    state.loss if overlap else losses, state.step, overlap,
+                )
+            elif overlap:
                 prev = state.loss if state.loss is not None else torch.zeros_like(clock)
                 info = transport.exchange_params(
                     params, PeerMeta(clock, prev), state.step, exchange_filter
@@ -419,3 +484,27 @@ def make_step_from_grads(
         return state, losses, info
 
     return train_step
+
+
+def _exchange_with_state(transport, params, model_state, new_state, updates, trainable,
+                         exchange_filter, clock, loss, step, overlap) -> ExchangeInfo:
+    """The exchange of the parameters and the model state together, in place
+    over their shared buffer: the updated parameters with ``new_state``
+    ``[n, S]``; or, with ``overlap``, the pre-update ones with the old state,
+    after which the updates and the state's change ``new − old`` are added."""
+    x = joint_flat(params, model_state)
+    columns, leaves = _state_columns(params, model_state, exchange_filter)
+    if transport.schedule.wire_dtype != "int8":
+        leaves = None
+    if loss is None:
+        loss = torch.zeros_like(clock)
+    if overlap:
+        delta = new_state - model_state.flat
+        _, info = transport.exchange(x, PeerMeta(clock, loss), step, columns, leaves)
+        params.add_(updates, trainable)
+        model_state.add_(delta)
+    else:
+        params.add_(updates, trainable)
+        model_state.flat.copy_(new_state)
+        _, info = transport.exchange(x, PeerMeta(clock, loss), step, columns, leaves)
+    return info

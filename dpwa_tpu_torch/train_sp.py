@@ -15,7 +15,11 @@ reference's collectives do becomes arithmetic on one card:
   transpose sums over ``sp``, is the gradient of that sum;
 - the loss is ``loss_sum / max(count, 1)`` and the gradient is divided by
   the same, as ``train_sp.py:179-184`` does;
-- the exchange, ``exchange_filter`` and ``overlap`` are the stacked step's.
+- the exchange, ``exchange_filter`` and ``overlap`` are the stacked step's;
+- with model state, each rank's statistics of its own block (a leading
+  ``[sp]`` axis on what ``loss_fn`` returns) are averaged over the ranks,
+  the reference's ``pmean`` over ``sp``, and then merged with the
+  parameters as in the stacked step.
 """
 
 from __future__ import annotations
@@ -77,29 +81,67 @@ def make_gossip_sp_train_step(
     token loss.  ``exchange_filter`` and ``overlap`` are as in
     :func:`~dpwa_tpu_torch.parallel.stacked.make_stacked_train_step`;
     ``state`` is updated in place."""
+    return _make_sp_step(loss_fn, optimizer, transport, exchange_filter, overlap, sp_axis,
+                         sp, with_state=False)
 
-    def split_loss(train, frozen, batch):
-        return loss_fn({**frozen, **train}, batch)
+
+def make_gossip_sp_train_step_with_state(
+    loss_fn: Callable[[Any, Any, Any], tuple],
+    optimizer,
+    transport: StackedTransport,
+    exchange_filter: Optional[Callable[[str], bool]] = None,
+    overlap: bool = False,
+    sp_axis: str = SP_AXIS,
+    *,
+    sp: int,
+):
+    """:func:`make_gossip_sp_train_step` for models with non-parameter
+    variables: ``loss_fn(params, model_state, batch) -> ((loss_sum, count),
+    new_model_state)``, where each leaf of ``new_model_state`` is
+    ``[sp, *shape]``: row ``r`` the statistics that rank ``r`` computes on
+    its own block of the sequence.  The step averages them over the ranks
+    (the reference's ``pmean`` over ``sp``), so every rank of a replica
+    holds the same state, and exchanges them with the parameters, same
+    pairs and α, as :func:`~dpwa_tpu_torch.parallel.stacked.
+    make_stacked_train_step` with ``with_state=True``.  The state needs
+    ``stacked_model_state`` at :func:`init_gossip_sp_state`."""
+    return _make_sp_step(loss_fn, optimizer, transport, exchange_filter, overlap, sp_axis,
+                         sp, with_state=True)
+
+
+def _make_sp_step(loss_fn, optimizer, transport, exchange_filter, overlap, sp_axis, sp,
+                  with_state: bool):
+    if with_state:
+        # grad needs a scalar primal: the count and the new state ride as aux.
+        def split_loss(train, frozen, model_state, batch):
+            (loss_sum, count), new_model_state = loss_fn({**frozen, **train}, model_state, batch)
+            return loss_sum, (count, new_model_state)
+    else:
+        def split_loss(train, frozen, batch):
+            return loss_fn({**frozen, **train}, batch)
 
     per_peer = torch.func.vmap(torch.func.grad_and_value(split_loss, has_aux=True))
 
-    def grads_and_losses(train, frozen, batch):
+    def grads_and_losses(train, frozen, *rest):
+        batch = rest[-1]
         for x in batch:
             if x.shape[-1] % sp:
                 raise ValueError(f"batch sequence length {x.shape[-1]} is not divisible by sp={sp}")
         with virtual_axis.bind(sp_axis, sp):
-            grads, (loss_sum, count) = per_peer(train, frozen, batch)
+            grads, (loss_sum, aux) = per_peer(train, frozen, *rest)
+        count, new_model_state = aux if with_state else (aux, None)
         count = count.to(torch.float32).clamp_min(1.0)
         grads = {k: g / count.reshape(-1, *[1] * (g.dim() - 1)).to(g.dtype)
                  for k, g in grads.items()}
-        return grads, loss_sum / count
+        if not with_state:
+            return grads, loss_sum / count
+        for name, v in new_model_state.items():
+            if v.dim() < 2 or v.shape[1] != sp:
+                raise ValueError(
+                    f"model state {name!r} must come back [sp={sp}, ...] per peer, "
+                    f"got {tuple(v.shape[1:])}"
+                )
+        return grads, loss_sum / count, {k: v.mean(dim=1) for k, v in new_model_state.items()}
 
-    return make_step_from_grads(grads_and_losses, optimizer, transport, exchange_filter, overlap)
-
-
-def make_gossip_sp_train_step_with_state(*args, **kwargs):
-    """The reference's step with model state (sp-averaged statistics): not
-    ported, as the stacked step's ``with_state`` is not."""
-    raise NotImplementedError(
-        "make_gossip_sp_train_step_with_state (model state over sp) is not ported yet"
-    )
+    return make_step_from_grads(grads_and_losses, optimizer, transport, exchange_filter, overlap,
+                                with_state)

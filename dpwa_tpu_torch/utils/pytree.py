@@ -19,6 +19,11 @@ exchange is one kernel launch over ``[n, P]``:
 - :func:`tree_wire_bytes` is the bytes one exchange ships.
 - :meth:`FlatParams.leaf_ranges` gives the exchanged leaves one by one in
   the reference's flatten order, for the int8 wire.
+- :func:`stack_with_state` lays out parameters and model state (BatchNorm's
+  running statistics) as two holders side by side in one buffer, the
+  state's columns right after the parameters', and :func:`joint_flat`
+  gives the ``[n, P + S]`` matrix over both, so that one merge launch
+  exchanges both.
 
 Names are the torch module's dotted parameter names (``BasicBlock_0.Conv_0.
 kernel``); the reference's key path of the same leaf is ``params/`` plus
@@ -44,14 +49,22 @@ def leaf_order(names: Iterable[str]) -> list[str]:
     return sorted(names, key=lambda name: name.split("."))
 
 
+def padded_width(size: int) -> int:
+    """``size`` floats rounded up to whole :data:`ROW_ALIGN` blocks (at least one)."""
+    return -(-max(size, 1) // ROW_ALIGN) * ROW_ALIGN
+
+
 class FlatParams:
     """Every peer's parameters in one ``[n, P]`` float32 buffer.
 
     ``flat`` is the ``[n, P]`` view the optimizer and the exchange work on
-    (row stride :attr:`ld` ≥ P); :meth:`views` gives the named
-    ``[n, *shape]`` views of it, always in leaf order.  ``first`` (a name
-    predicate) places the leaves it selects in the leading columns.  The
-    buffer is updated in place.
+    (in a buffer :attr:`ld` ≥ P columns wide); :meth:`views` gives the
+    named ``[n, *shape]`` views of it, always in leaf order.  ``first`` (a
+    name predicate) places the leaves it selects in the leading columns.
+    The buffer is updated in place.  It is a new zeroed ``[n, P]`` tensor
+    padded to :data:`ROW_ALIGN` floats, or the given ``buffer`` (an
+    ``[n, ≥ P]`` view with unit column stride, e.g. columns of a larger
+    one).
     """
 
     def __init__(
@@ -63,6 +76,7 @@ class FlatParams:
         device=None,
         dtype: torch.dtype = torch.float32,
         first: NamePredicate | None = None,
+        buffer: torch.Tensor | None = None,
     ):
         if list(names) != leaf_order(names):
             raise ValueError("names must be in leaf order (see leaf_order)")
@@ -82,8 +96,19 @@ class FlatParams:
             self.offsets[i] = (start, start + sizes[i])
             start += sizes[i]
         self.size = start
-        self.ld = -(-max(start, 1) // ROW_ALIGN) * ROW_ALIGN
-        self.buffer = torch.zeros(self.n_peers, self.ld, dtype=dtype, device=device)
+        if buffer is None:
+            self.ld = padded_width(start)
+            buffer = torch.zeros(self.n_peers, self.ld, dtype=dtype, device=device)
+        elif (
+            buffer.dim() != 2 or buffer.shape[0] != self.n_peers or buffer.shape[1] < start
+            or buffer.dtype != dtype or buffer.stride(1) != 1
+        ):
+            raise ValueError(
+                f"buffer must be [{self.n_peers}, >= {start}] {dtype} with unit column "
+                f"stride, got {tuple(buffer.shape)} {buffer.dtype}"
+            )
+        self.ld = buffer.shape[1]
+        self.buffer = buffer
         self._spare: torch.Tensor | None = None
 
     @classmethod
@@ -188,6 +213,51 @@ class FlatParams:
             else:
                 ranges.append((lo, hi))
         return ranges
+
+
+def stack_with_state(
+    params: Mapping[str, torch.Tensor], state: Mapping[str, torch.Tensor], *,
+    device=None, first: NamePredicate | None = None,
+) -> Tuple[FlatParams, FlatParams]:
+    """Parameters and model state (each ``{name: [n, *shape]}``, copied) as
+    two :class:`FlatParams` over one new buffer: the parameters' ``P``
+    columns (``first`` placing theirs as usual), then right after them the
+    state's ``S``, the row padded to :data:`ROW_ALIGN` floats once.
+    :func:`joint_flat` gives the ``[n, P + S]`` matrix over both."""
+    groups = []
+    for tensors in (params, state):
+        names = leaf_order(tensors)
+        groups.append((names, [tuple(tensors[k].shape[1:]) for k in names]))
+    lead = params[groups[0][0][0]]
+    n, dtype = lead.shape[0], lead.dtype
+    device = device if device is not None else lead.device
+    sizes = [sum(int(torch.Size(s).numel()) for s in shapes) for _, shapes in groups]
+    buffer = torch.zeros(n, padded_width(sum(sizes)), dtype=dtype, device=device)
+    holders = (
+        FlatParams(*groups[0], n, dtype=dtype, first=first, buffer=buffer[:, : sizes[0]]),
+        FlatParams(*groups[1], n, dtype=dtype, buffer=buffer[:, sizes[0]:]),
+    )
+    for holder, tensors in zip(holders, (params, state)):
+        for name, view in holder.views().items():
+            view.copy_(tensors[name])
+    return holders
+
+
+def joint_flat(params: FlatParams, state: FlatParams) -> torch.Tensor:
+    """The ``[n, P + S]`` matrix over ``params``' columns and ``state``'s
+    right after them, as :func:`stack_with_state` lays them out; raises if
+    the two do not sit so."""
+    a, b = params.buffer, state.buffer
+    if not (
+        a.device == b.device
+        and a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+        and b.storage_offset() == a.storage_offset() + params.ld
+        and a.stride() == b.stride()
+        and a.stride(0) >= params.ld + state.size
+    ):
+        raise ValueError("model state must sit right after the parameters in one "
+                         "buffer (build the state with init_stacked_state)")
+    return a.as_strided((params.n_peers, params.ld + state.size), a.stride())
 
 
 def partition(

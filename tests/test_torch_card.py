@@ -18,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from dpwa_tpu_torch import checkpoint, train_sp
 from dpwa_tpu_torch.config import make_local_config
-from dpwa_tpu_torch.models import bert, llama, resnet
-from dpwa_tpu_torch import train_sp
+from dpwa_tpu_torch.models import bert, llama, mnist, resnet
 from dpwa_tpu_torch.ops import flash_attention, flash_ring, merge
 from dpwa_tpu_torch.optim import adam, adamw, lora_optimizer, sgd
 from dpwa_tpu_torch.parallel import stacked
@@ -815,3 +815,121 @@ def test_bert_hierarchical_step_on_card_matches_cpu(cuda_device):
         if not name.endswith("attn.key.bias"):
             loose = (got - want).abs() > 1e-5 + 1e-3 * want.abs()
             assert loose.float().mean().item() < 0.01, name
+
+
+@pytest.mark.parametrize("which,hw", [("SmallNet", 8), ("ConvNet", 28)])
+def test_mnist_models_on_card_match_cpu(cuda_device, which, hw):
+    """SmallNet and ConvNet (each from prng.key(0)) on the card against the
+    CPU port, batch 16, TF32 off: logits rtol 1e-4 / atol 1e-5."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = getattr(mnist, which)()
+    x = torch.from_numpy(np.random.default_rng(hw).random((16, hw, hw, 1), np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda_device)(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _batchnorm_steps(device, overlap, steps=3, n=4, nudge=0.0):
+    """``steps`` with_state steps of 4 ResNet-8 (BatchNorm) peers on
+    ``device``, each peer's inputs offset by its index (``nudge``: each
+    input scaled by ``1 + nudge·N(0, 1)``): the losses, the parameters, the
+    statistics and the pair-merge launches."""
+    rng, noise = np.random.default_rng(0), np.random.default_rng(1)
+    shifts = np.arange(n, dtype=np.float32)[:, None, None, None, None]
+    batches = []
+    for _ in range(steps):
+        x = rng.random((n, 8, 16, 16, 3), np.float32) + shifts
+        x = (x * (1 + nudge * noise.standard_normal(x.shape))).astype(np.float32)
+        batches.append((torch.from_numpy(x), torch.from_numpy(rng.integers(0, 10, (n, 8)).astype(np.int32))))
+    model = resnet.CifarResNet(depth=8, norm_type="batch").to(device)
+    t = stacked.StackedTransport(
+        make_local_config(n, interpolation="loss", factor=0.9), device=device)
+    opt = sgd(0.05, momentum=0.9)
+
+    def loss_fn(params, model_state, batch):
+        logits, new = resnet.apply_batch_norm(model, params, model_state, batch[0])
+        return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean(), new
+
+    params = init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), n, device)
+    stats = {k: v.expand(n, *v.shape).clone() for k, v in resnet.batch_stats(model, device).items()}
+    state = stacked.init_stacked_state(params, opt, t, stats)
+    step = stacked.make_stacked_train_step(loss_fn, opt, t, with_state=True, overlap=overlap)
+    merge.reset_launch_counts()
+    losses = []
+    for x, y in batches:
+        state, loss, _ = step(state, (x.to(device), y.to(device)))
+        losses.append(loss.cpu())
+    return (torch.stack(losses), state.params.flat.cpu(), state.model_state.flat.cpu(),
+            merge.pair_merge_.launches)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_batchnorm_stacked_step_on_card_matches_cpu(cuda_device, overlap):
+    """Three with_state steps of 4 ResNet-8 peers with BatchNorm on the card
+    (the parameters and the statistics merged by ONE pair-merge launch a
+    step) and on the CPU (the plain merge), TF32 off: losses rtol 1e-4 /
+    atol 1e-6, parameters rtol 1e-3 / atol 1e-4, statistics rtol 1e-4 /
+    atol 1e-5, each atol raised to 4× the CPU run's own change when its
+    inputs are nudged by 1e-7 relative (float32 rounding).  On the CPU that
+    nudge moves the parameters by up to 3.5e-5 without overlap and 4.7e-4
+    with it (the losses by 5e-7 and 1.3e-4): the overlapped run of these
+    peer-offset inputs is ill-conditioned, and a fixed atol would test the
+    rounding, not the card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = _batchnorm_steps("cpu", overlap)
+    nudged = _batchnorm_steps("cpu", overlap, nudge=1e-7)
+    gpu = _batchnorm_steps(cuda_device, overlap)
+    assert cpu[3] == 0 and gpu[3] == 3
+    for i, (rtol, atol) in enumerate(((1e-4, 1e-6), (1e-3, 1e-4), (1e-4, 1e-5))):
+        spread = float((nudged[i] - cpu[i]).abs().max())
+        torch.testing.assert_close(gpu[i], cpu[i], rtol=rtol, atol=max(atol, 4 * spread))
+
+
+def test_checkpoint_round_trip_of_a_card_state(cuda_device, tmp_path):
+    """A card state with Adam and model state, saved and restored into a
+    fresh card state's buffers (in place, the shared buffer kept): bit for
+    bit, and the next step from each is the same."""
+    torch.backends.cudnn.allow_tf32 = False
+    n = 2
+    model = mnist.SmallNet().to(cuda_device)
+    t = stacked.StackedTransport(make_local_config(n), device=cuda_device)
+    opt = adam(2e-3)
+
+    def loss_fn(params, model_state, batch):
+        logits = torch.func.functional_call(model, params, (batch[0],))
+        new = {"m": 0.9 * model_state["m"] + 0.1 * logits.mean(0)}
+        return softmax_cross_entropy_with_integer_labels(logits, batch[1]).mean(), new
+
+    init = lambda seed: stacked.init_stacked_state(
+        init_params_per_peer(lambda k: mnist.init(model, k), prng.key(seed), n, cuda_device),
+        opt, t, {"m": torch.zeros(n, 10, device=cuda_device)})
+    step = stacked.make_stacked_train_step(loss_fn, opt, t, with_state=True)
+    rng = np.random.default_rng(1)
+    batch = lambda: (torch.from_numpy(rng.random((n, 32, 8, 8, 1), np.float32)).to(cuda_device),
+                     torch.from_numpy(rng.integers(0, 10, (n, 32)).astype(np.int32)).to(cuda_device))
+    state = init(0)
+    for _ in range(3):
+        state, _, _ = step(state, batch())
+    torch.cuda.synchronize()
+    ckpt = str(tmp_path / "ck")
+    checkpoint.save_checkpoint(ckpt, state)
+    like = init(5)
+    buffer = like.params.buffer
+    restored = checkpoint.restore_checkpoint(ckpt, like=like)
+    assert restored is like and restored.params.buffer is buffer
+    assert restored.params.buffer.device.type == "cuda" and restored.step == 3
+    for a, b in ((restored.params.flat, state.params.flat), (restored.model_state.flat, state.model_state.flat),
+                 (restored.opt_state.mu, state.opt_state.mu), (restored.opt_state.nu, state.opt_state.nu),
+                 (restored.clock, state.clock), (restored.loss, state.loss)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert restored.opt_state.count == state.opt_state.count == 3
+    last = batch()
+    merge.reset_launch_counts()
+    s1, _, _ = step(state, last)
+    s2, _, _ = step(restored, last)
+    assert merge.pair_merge_.launches == 2
+    torch.testing.assert_close(s2.params.flat, s1.params.flat, rtol=0, atol=0)
+    torch.testing.assert_close(s2.model_state.flat, s1.model_state.flat, rtol=0, atol=0)

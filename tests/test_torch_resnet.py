@@ -121,8 +121,10 @@ def test_bf16_compute_knob_keeps_dense_in_f32():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        resnet.CifarResNet(depth=8, norm_type="batch")
+    # norm_type="batch" is ported (tests/test_torch_batchnorm.py); an
+    # unknown norm raises as the reference's ``_norm`` does.
+    with pytest.raises(ValueError, match="unknown norm"):
+        resnet.CifarResNet(depth=8, norm_type="layer")
     with pytest.raises(ValueError):
         resnet.CifarResNet(depth=9)
 

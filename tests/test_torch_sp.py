@@ -244,8 +244,6 @@ def test_sp_sequence_checks_and_unported_state():
         train_sp.check_sp_sequence(30, 4)
     with pytest.raises(ValueError, match="2\\*sp"):
         train_sp.check_sp_sequence(33, 3, "zigzag")
-    with pytest.raises(NotImplementedError):
-        train_sp.make_gossip_sp_train_step_with_state(None, None, None)
     port_t = stacked.StackedTransport(make_local_config(N_PEERS), device="cpu")
     opt = adam(1e-2)
     step = train_sp.make_gossip_sp_train_step(lambda p, b: (p["w"].sum(), torch.tensor(1.0)),
@@ -253,6 +251,16 @@ def test_sp_sequence_checks_and_unported_state():
     state = train_sp.init_gossip_sp_state({"w": torch.zeros(N_PEERS, 3)}, opt, port_t)
     with pytest.raises(ValueError, match="not divisible by sp"):
         step(state, (torch.zeros(N_PEERS, 1, 6),))
+    # The state-carrying step (ported; tests/test_torch_batchnorm.py) wants
+    # model state, and each rank's statistics on a leading [sp] axis.
+    state_step = train_sp.make_gossip_sp_train_step_with_state(
+        lambda p, s, b: ((p["w"].sum(), torch.tensor(1.0)), s), opt, port_t, sp=4)
+    with pytest.raises(ValueError, match="model_state"):
+        state_step(state, (torch.zeros(N_PEERS, 1, 8),))
+    with_ms = train_sp.init_gossip_sp_state(
+        {"w": torch.zeros(N_PEERS, 3)}, opt, port_t, {"m": torch.zeros(N_PEERS, 2)})
+    with pytest.raises(ValueError, match="sp=4"):
+        state_step(with_ms, (torch.zeros(N_PEERS, 1, 8),))
 
 
 def test_longcontext_example_runs_on_the_cpu():

@@ -191,10 +191,18 @@ def test_init_state_and_step_guards():
     opt = sgd(0.1)
     with pytest.raises(ValueError, match="leading peer axis"):
         stacked.init_stacked_state({"w": torch.zeros(3, 2)}, opt, t)
-    with pytest.raises(NotImplementedError):
-        stacked.init_stacked_state({"w": torch.zeros(4, 2)}, opt, t, {"bn": torch.zeros(4)})
-    with pytest.raises(NotImplementedError):
-        stacked.make_stacked_train_step(lambda p, b: p["w"].sum(), opt, t, with_state=True)
+    with pytest.raises(ValueError, match="model state must have leading peer axis"):
+        stacked.init_stacked_state({"w": torch.zeros(4, 2)}, opt, t, {"bn": torch.zeros(3)})
+    # The reference's misuse guards (tests/test_stacked.py:194-205): model
+    # state with a step that would never update it, and the reverse.
+    batch = (torch.zeros(4, 1),)
+    with_ms = stacked.init_stacked_state({"w": torch.zeros(4, 2)}, opt, t, {"bn": torch.zeros(4, 3)})
+    with pytest.raises(ValueError, match="model_state"):
+        stacked.make_stacked_train_step(lambda p, b: p["w"].sum(), opt, t)(with_ms, batch)
+    step_ws = stacked.make_stacked_train_step(
+        lambda p, s, b: (p["w"].sum(), s), opt, t, with_state=True)
+    with pytest.raises(ValueError, match="model_state"):
+        step_ws(stacked.init_stacked_state({"w": torch.zeros(4, 2)}, opt, t), batch)
     src = {"w": torch.ones(4, 2)}
     state = stacked.init_stacked_state(src, opt, t)
     state.params.views()["w"].add_(1.0)
