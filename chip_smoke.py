@@ -27,6 +27,13 @@ that they went through the kernels:
 - ResNet-20 with BatchNorm, 8 peers on the CIFAR-10 fixture, through the
   stacked step with model state: the parameters and the running statistics
   merged by one B1 launch a step;
+- ``dpwa_tpu_torch.examples.mnist --transport tcp`` (BASELINE config 1 as
+  the reference deploys it): two OS processes, one per node of a copy of
+  ``examples/mnist/nodes.yaml`` on two free ports, SmallNet, 300 steps,
+  each replica on the card and every fetched frame merged there by one B2
+  launch over ``[1, 66410]``; and the TCP exchange itself as ``bench.py``
+  times it (2 nodes in one process, lock-step) with device-resident
+  replicas of ResNet-50's 25,557,032 parameters on the f32 and bf16 wires;
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -80,7 +87,7 @@ R50_PEERS = 32
 WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
-    "train_mnist", "profile_mnist", "resume_mnist", "train_bn",
+    "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "tcp_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -89,6 +96,12 @@ ALL_PHASES = (
 # digits, 66,410 parameters a peer; the resume check's run and save step.
 MNIST_D, MNIST_PEERS, MNIST_STEPS = 66410, 2, 300
 RESUME_STEPS, RESUME_SAVE = 14, 10
+# The TCP path (BASELINE config 1 as the reference deploys it): two OS
+# processes of the MNIST example, one per node of examples/mnist/nodes.yaml,
+# on the one card; the exchange bench at ResNet-50's vector (bench.py's TCP
+# leg: 3 warm-up rounds, then 3 passes of 10, median of the pass medians).
+TCP_TIMEOUT_S = 420
+TCP_WARMUPS, TCP_PASSES, TCP_ITERS = 3, 3, 10
 # The BatchNorm path: ResNet-20's parameters and, right after them in each
 # row, its 1,568 running statistics; 5 steps.
 BN_D, BN_STEPS = MAIN_D + 1568, 5
@@ -872,6 +885,253 @@ def run_differences(torch, a: dict, b: dict) -> list[str]:
     return diff
 
 
+def tcp_merge_checks(torch, merge, device, flush) -> dict:
+    """B2 as the TCP transport's merge runs it: one row, x the replica and
+    w the landed frame, at the MNIST TCP path's ``[1, 66410]`` (SmallNet,
+    ``train_tcp``) and at ResNet-50's ``[1, 25557032]`` (``tcp_exchange``);
+    a float32 frame (the int8 wire's form, ``fma(1-α, x, α·y)``) and a
+    bf16 frame read as it landed (widened in the kernel).  Bit-equality
+    against the plain version on a CPU copy, inf and NaN in both rows, then
+    times: bytes x and out 4 each and w 4 or 2 (at ResNet-50 306.7 or
+    255.6 MB)."""
+    from dpwa_tpu_torch.device.engine import BF16_FORM, F32_FORM
+
+    gen = torch.Generator().manual_seed(21)
+    zero_cpu = torch.zeros(1, dtype=torch.int32)
+    alpha_cpu = torch.tensor([0.3])
+    zero, alpha = zero_cpu.to(device), alpha_cpu.to(device)
+    out = {}
+    for shape_name, d, iters in (("mnist", MNIST_D, 30), ("resnet50", R50_D, 10)):
+        out[shape_name] = {}
+        for wire, dtype, form in (("f32", torch.float32, F32_FORM),
+                                  ("bf16", torch.bfloat16, BF16_FORM)):
+            x_cpu = torch.randn(1, d, generator=gen)
+            w_cpu = torch.randn(1, d, generator=gen)
+            poison(x_cpu, [0])
+            w_cpu[0, -5:] = torch.tensor([float("inf"), float("-inf"), float("nan"), -0.0, 3.0e38])
+            w_cpu = w_cpu.to(dtype)
+            x, w = x_cpu.to(device), w_cpu.to(device)
+            got = merge.gather_merge(x, zero, alpha, wire=form, w=w)
+            torch.cuda.synchronize()
+            same, err = nan_equal(torch, got.cpu(), merge.torch_pairwise_merge(
+                x_cpu, zero_cpu, alpha_cpu, wire=form, w=w_cpu))
+            if not same:
+                raise AssertionError(f"b2 [1, {d}] with a {wire} frame differs from its plain "
+                                     f"version: max_abs_err={err}")
+            res = torch.empty_like(got)
+            kernel = lambda: merge.gather_merge(x, zero, alpha, wire=form, out=res, w=w)
+            plain = lambda: merge.torch_pairwise_merge(x, zero, alpha, wire=form, w=w)
+            w32 = w.to(torch.float32)  # the library call takes the frame pre-widened
+            lib_out = torch.empty_like(x)
+            library = lambda: torch.lerp(x, w32, alpha[:, None], out=lib_out)
+            n_bytes = d * (4 + w.element_size() + 4)
+            b_ms, b_by = bound_ms(n_bytes, 3 * d)
+            ms = time_ms(torch, kernel, iters, flush)
+            out[shape_name][wire] = {
+                "shape": [1, d], "form": form, "w_dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err, "ms": ms, "plain_ms": time_ms(torch, plain, 3, flush),
+                "library_ms": time_ms(torch, library, iters, flush), "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": n_bytes, "share_of_bound": b_ms / ms,
+            }
+            del x, w, w32, got, res, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def free_ports(n: int) -> list:
+    """``n`` ports the OS calls free now (bound to port 0, then released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def train_tcp(kind: str) -> dict:
+    """Two OS processes of ``dpwa_tpu_torch.examples.mnist --transport tcp``,
+    node0 and node1 of a copy of ``examples/mnist/nodes.yaml`` on two free
+    ports, each with its replica on the card, free-running 300 steps as the
+    reference's ``run_tcp.sh`` runs them; each process's summary line."""
+    workdir = os.path.join(HERE, "build", "train_tcp")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(HERE, "examples/mnist/nodes.yaml")) as f:
+        text = f.read()
+    for old, new in zip(("port: 45000", "port: 45001"), free_ports(2)):
+        if old not in text:
+            raise AssertionError(f"examples/mnist/nodes.yaml has no {old!r}")
+        text = text.replace(old, f"port: {new}")
+    config = os.path.join(workdir, "nodes.yaml")
+    with open(config, "w") as f:
+        f.write(text)
+    procs = []
+    try:
+        for i in range(MNIST_PEERS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dpwa_tpu_torch.examples.mnist", "--transport", "tcp",
+                 "--name", f"node{i}", "--config", config, "--steps", str(MNIST_STEPS),
+                 "--batch-size", "32"],
+                cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nodes = []
+    for i, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        lines = stdout.strip().splitlines()
+        if p.returncode != 0 or not lines:
+            print(stdout[-3000:], stderr[-3000:], file=sys.stderr)
+            raise AssertionError(f"train_tcp: node{i} exited {p.returncode}")
+        res = json.loads(lines[-1])
+        if res["device"] != kind or res["steps"] != MNIST_STEPS:
+            raise AssertionError(f"train_tcp: node{i} ran on {res['device']} for {res['steps']} steps")
+        if not res["accuracy"] >= 0.9:
+            raise AssertionError(f"train_tcp: node{i} test accuracy {res['accuracy']} < 0.9")
+        if res["merged_rounds"] < 1 or res["b2_launches"] != res["merged_rounds"]:
+            raise AssertionError(
+                f"train_tcp: node{i} merged {res['merged_rounds']} rounds with "
+                f"{res['b2_launches']} B2 launches")
+        nodes.append(res)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"nodes": nodes}
+
+
+def tcp_exchange(torch, merge, device, wire: str) -> dict:
+    """``bench.py``'s TCP leg on the card: two nodes in this process on
+    port 0, each with a device-resident replica of ResNet-50's d; 3 warm-up
+    rounds, then 3 passes of 10 lock-step rounds (both publish, then both
+    exchange on their own threads); a round's clock starts after the
+    publishes, as bench's, and stops when both merges are done on the card;
+    GB/s per peer as bench counts it (2·d·4 bytes a round) from the median
+    of the pass medians.  Each exchange republishes its node's published
+    replica from the host mirror: one readback a node a round.  The last
+    round's merge is held bit for bit against the plain version on a CPU
+    copy; the readback to publish, the landing copy and B2 are timed
+    alone with CUDA events."""
+    import threading
+
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.device import handoff
+    from dpwa_tpu_torch.device.engine import BF16_FORM, F32_FORM
+    from dpwa_tpu_torch.device.replica import DeviceReplica, bf16_wire
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    cfg = make_local_config(2, schedule="ring", interpolation="constant", factor=0.3,
+                            timeout_ms=10000, wire_dtype=wire)
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+    try:
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        gen = torch.Generator(device=device).manual_seed(31)
+        vecs = [torch.randn(R50_D, generator=gen, device=device) for _ in range(2)]
+        merge.reset_launch_counts()  # count the exchange's launches only
+        handoff.reset_handoff_stats()
+
+        def one_round(step: int) -> tuple:
+            """Both publish, then both exchange; the seconds from the
+            exchanges' start to their merges done on the card (bench
+            starts its clock after the publishes too)."""
+            for i, t in enumerate(nodes):
+                t.publish(vecs[i], step, 0)
+            results = [None, None]
+
+            def run(i):
+                results[i] = nodes[i].exchange_on_device(vecs[i], step, 0, 0)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            torch.cuda.synchronize(device)
+            elapsed = time.perf_counter() - t0
+            if any(th.is_alive() for th in threads) or any(r is None or r[1] == 0.0 for r in results):
+                raise AssertionError(f"tcp_exchange: round {step} did not merge: "
+                                     f"{[t.last_fetch for t in nodes]}")
+            return results, elapsed
+
+        for w in range(TCP_WARMUPS):
+            one_round(w)
+        medians = []
+        for rep in range(TCP_PASSES):
+            durations = []
+            for it in range(TCP_ITERS):
+                last, elapsed = one_round(TCP_WARMUPS + rep * TCP_ITERS + it)
+                durations.append(elapsed)
+            medians.append(float(np.median(durations)))
+        rounds = TCP_WARMUPS + TCP_PASSES * TCP_ITERS
+        launches = merge.gather_merge.launches
+        stats = handoff.handoff_stats()
+        if launches != 2 * rounds or merge.pair_merge_.launches != 0:
+            raise AssertionError(f"tcp_exchange: {rounds} rounds on 2 nodes launched B2 {launches} times")
+        # One readback a node a round: the exchange republishes the
+        # publish's host mirror.
+        if stats["d2h_readbacks"] != 2 * rounds:
+            raise AssertionError(f"tcp_exchange: {rounds} rounds on 2 nodes read back "
+                                 f"{stats['d2h_readbacks']} times")
+        # The last round's merge on node 0 against the plain version.
+        frame = bf16_wire(vecs[1]) if wire == "bf16" else vecs[1]
+        form = BF16_FORM if wire == "bf16" else F32_FORM
+        want = merge.torch_pairwise_merge(
+            vecs[0].cpu()[None], torch.zeros(1, dtype=torch.int32),
+            torch.tensor([last[0][1]]), wire=form, w=frame.cpu()[None])[0]
+        same, err = nan_equal(torch, last[0][0].cpu(), want)
+        if not same:
+            raise AssertionError(f"tcp_exchange {wire}: the merged replica differs from the "
+                                 f"plain version, max_abs_err={err}")
+        # The round's device legs alone, with CUDA events.
+        readback = cuda_event_ms(torch, lambda: DeviceReplica(vecs[0]).payload(wire), 5)
+        host = DeviceReplica(vecs[1]).payload(wire)  # pinned, as a landing frame is
+        landing = cuda_event_ms(torch, lambda: handoff.to_device(host, device), 5)
+        partner = torch.zeros(1, dtype=torch.int32, device=device)
+        alpha = torch.tensor([0.3], device=device)
+        w = frame[None].contiguous()
+        b2 = cuda_event_ms(torch, lambda: merge.gather_merge(vecs[0][None], partner, alpha,
+                                                             wire=form, w=w), 10)
+        median_s = float(np.median(medians))
+        return {
+            "wire": wire, "d": R50_D, "frame_bytes": R50_D * (2 if wire == "bf16" else 4),
+            "gbps": 2 * R50_D * 4 / median_s / 1e9,
+            "rep_gbps": [2 * R50_D * 4 / m / 1e9 for m in medians],
+            "round_ms": median_s * 1e3, "pass_median_ms": [m * 1e3 for m in medians],
+            "warmups": TCP_WARMUPS, "passes": TCP_PASSES, "iters": TCP_ITERS,
+            "b2_launches": launches, "max_abs_err": err, "alpha": last[0][1],
+            "readback_ms": readback, "landing_ms": landing, "b2_ms": b2,
+            "frame_pinned": host.is_pinned(),
+            "handoff": stats, "ring": nodes[0].ring.stats(),
+            "outcomes": [t.stats["outcomes"] for t in nodes],
+        }
+    finally:
+        for t in nodes:
+            t.close()
+
+
+def cuda_event_ms(torch, fn, iters: int) -> float:
+    """Mean time of ``fn`` between two CUDA events on the current stream
+    (host work inside ``fn`` that waits on the card shows up too)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def train_bn(torch, merge, device, steps: int) -> dict:
     """ResNet-20 with BatchNorm (``norm_type="batch"``), the peers of
     ``examples/cifar10/nodes.yaml`` (8, ring, α 0.5), batch 64 a peer of the
@@ -987,6 +1247,8 @@ def main(argv=None) -> int:
             continue
         t0 = time.perf_counter()
         res = kernel_checks(torch, merge, device, flush, kind_name)
+        if kind_name == "b2":  # B2 over one row, as the TCP transport runs it
+            res["tcp"] = tcp_merge_checks(torch, merge, device, flush)
         results[kind_name] = res
         emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **res})
     if "b5" in phases:
@@ -1169,6 +1431,27 @@ def main(argv=None) -> int:
         emit({"phase": "train_bn", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
               "group_norm_train_steps_per_sec": rates.get("train"), **res})
         torch.cuda.empty_cache()
+
+    if "train_tcp" in phases:
+        # The launches are counted in each process (fresh counts there).
+        t0 = time.perf_counter()
+        res = train_tcp(kind)
+        main_launches["train_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(n["b2_launches"] for n in res["nodes"])}
+        emit({"phase": "train_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              "steps": MNIST_STEPS, "nodes": res["nodes"],
+              "mean_accuracy": sum(n["accuracy"] for n in res["nodes"]) / len(res["nodes"])})
+
+    if "tcp_exchange" in phases:
+        for wire in ("f32", "bf16"):
+            t0 = time.perf_counter()
+            res = tcp_exchange(torch, merge, device, wire)
+            main_launches[f"tcp_exchange_{wire}"] = {
+                "pair_merge_": 0, "gather_merge": res["b2_launches"]}
+            results[f"tcp_exchange_{wire}"] = res
+            emit({"phase": "tcp_exchange", "seconds": time.perf_counter() - t0,
+                  "nvidia_smi": name_limit, **res})
+            torch.cuda.empty_cache()
 
     for phase, extra, kernel in (
         # The ResNet-20 path with partial participation and faults on the
@@ -1504,6 +1787,19 @@ def main(argv=None) -> int:
                 "at_mnist": timings.get("mnist") if form == "x" else None,
                 "at_batchnorm": timings.get("bn") if form == "x" else None,
             })
+            if kind_name == "b2" and form == "wire":
+                # B2 over one row, the TCP transport's merge: its launches
+                # in the two MNIST processes, with its checks and times at
+                # their [1, 66410], and in the exchange bench, with those at
+                # ResNet-50's [1, 25557032].
+                tcp_rows = results[kind_name].get("tcp", {})
+                kernels[-1].update({
+                    "launches_tcp": main_launches.get("train_tcp", {}).get(name),
+                    "at_tcp_mnist": tcp_rows.get("mnist"),
+                    "launches_tcp_exchange": [
+                        main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],
+                    "at_tcp": tcp_rows.get("resnet50"),
+                })
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):
             at_main = results["b5"]["timings"][kind_name]

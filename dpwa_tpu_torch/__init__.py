@@ -9,7 +9,10 @@ flash-attention kernel (:mod:`dpwa_tpu_torch.ops.flash_attention`); and the
 long-context fine-tune (:mod:`dpwa_tpu_torch.train_sp`), whose sequences
 span a virtual sequence-parallel axis walked by ring attention on
 hand-written hop kernels (:mod:`dpwa_tpu_torch.ops.flash_ring`) or by
-Ulysses.  The package imports torch, numpy and yaml, never jax or anything
-of ``dpwa_tpu``.  Entry points run on ``cuda``
+Ulysses.  The TCP transport (:mod:`dpwa_tpu_torch.parallel.tcp`) runs the
+reference's deployment, one OS process per node, speaking the reference's
+frames byte for byte; each replica stays on the card and each fetched frame
+is merged there by the gather-merge kernel.  The package imports torch,
+numpy and yaml, never jax or anything of ``dpwa_tpu``.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """

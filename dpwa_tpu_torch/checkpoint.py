@@ -110,6 +110,7 @@ def _encode(value, key: str, tensors: dict):
         return {
             "flat": key, "names": list(value.names), "shapes": [list(s) for s in value.shapes],
             "first": None if first is None else [n for n in value.names if first(n)],
+            "axes": {name: list(perm) for name, perm in value.axes.items()},
         }
     if isinstance(value, torch.Tensor):
         tensors[key] = _host(value)
@@ -126,7 +127,8 @@ def _encode(value, key: str, tensors: dict):
 
 def _flat_from_spec(spec, n: int) -> FlatParams:
     first = None if spec["first"] is None else set(spec["first"]).__contains__
-    return FlatParams(spec["names"], [tuple(s) for s in spec["shapes"]], n, first=first)
+    axes = {name: tuple(perm) for name, perm in spec.get("axes", {}).items()}
+    return FlatParams(spec["names"], [tuple(s) for s in spec["shapes"]], n, first=first, axes=axes)
 
 
 def _decode(spec, tensors: dict):

@@ -2,8 +2,8 @@
 :mod:`dpwa_tpu.config`, for the blocks the stacked trainer reads).
 
 The same YAML file that drives ``dpwa_tpu`` drives the port: ``nodes:``
-lists the peers (its length is the stacked peer axis; host/port are kept
-for the TCP transport and unused here), ``protocol:`` the schedule,
+lists the peers (its length is the stacked peer axis; host/port are where
+each node of the TCP transport serves), ``protocol:`` the schedule,
 ``interpolation:`` the merge coefficient and ``recovery:`` the bound of the
 α = 1 rescue.  Every other top-level block belongs to a plane the port does
 not have yet; a file that sets one raises :class:`NotImplementedError`
@@ -38,8 +38,12 @@ class ProtocolConfig:
     """``protocol:`` block.  The TCP-only knobs (``timeout_ms``,
     ``min_wire_mb_per_s``, ``wire_codec``, ``topk_*``,
     ``overlap_prefetch``, ``rx_server``) are validated as in the reference
-    and unused by the stacked transport, as there; ``async_rounds`` is a
-    TCP plane the port does not have (see :func:`config_from_dict`)."""
+    and unused by the stacked transport, as there; the TCP transport reads
+    ``timeout_ms`` and ``min_wire_mb_per_s`` and raises for the values that
+    ask for what it does not have yet (``wire_dtype: int8``, ``wire_codec:
+    topk``, ``overlap_prefetch: true``, ``rx_server: reactor``);
+    ``async_rounds`` is a TCP plane the port does not have (see
+    :func:`config_from_dict`)."""
 
     schedule: str = "ring"
     mode: str = "pairwise"  # pairwise (mutual merge) | pull (one-sided)

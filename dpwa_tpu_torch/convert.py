@@ -6,7 +6,9 @@ alike): Flax keeps a conv kernel as HWIO and a Dense kernel as ``[in,
 out]``; the port's modules (:mod:`dpwa_tpu_torch.models.resnet`,
 :mod:`dpwa_tpu_torch.models.mnist`) keep OIHW and ``[out, in]``.  Names
 map one to one: the Flax key path ``params/BasicBlock_0/Conv_0/kernel`` is
-the port's ``BasicBlock_0.Conv_0.kernel``.  ``collection="batch_stats"``
+the port's ``BasicBlock_0.Conv_0.kernel``; :func:`reference_axes` gives
+the same carry as axis orders, for a flat buffer to ship its leaves in
+the reference's element order.  ``collection="batch_stats"``
 carries BatchNorm's running statistics (``batch_stats/BatchNorm_0/mean``
 ↔ ``BatchNorm_0.mean``, unchanged inside).  Both directions work on numpy
 arrays, so tests can hand the same parameters to both packages and compare
@@ -46,9 +48,15 @@ _TO_PORT = {4: (3, 2, 0, 1), 2: (1, 0)}  # HWIO -> OIHW, [in, out] -> [out, in]
 _TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
+def _axes(name: str, ndim: int, perms: Mapping[int, tuple]) -> tuple | None:
+    """The axis order that carries leaf ``name`` of rank ``ndim`` across,
+    or None for a leaf both packages lay out alike."""
+    return perms.get(ndim) if name.endswith("kernel") else None
+
+
 def _carry(name: str, value, lead: int, perms: Mapping[int, tuple]) -> np.ndarray:
     value = np.asarray(value)
-    perm = perms.get(value.ndim - lead) if name.endswith("kernel") else None
+    perm = _axes(name, value.ndim - lead, perms)
     if perm is not None:
         value = value.transpose(*range(lead), *(lead + a for a in perm))
     return np.array(value, order="C")  # a writable copy
@@ -77,6 +85,22 @@ def torch_to_flax(named: Mapping[str, Any], *, stacked: bool = False,
             node = node.setdefault(key, {})
         node[leaf] = _carry(name, value, lead, _TO_FLAX)
     return {collection: tree}
+
+
+def reference_axes(shapes: Mapping[str, Any]) -> Dict[str, tuple]:
+    """For a ResNet's or ConvNet's leaves (``{port name: shape}``, or
+    ``{port name: tensor}``, no peer axis): the axis order that lays each
+    leaf out as the reference does, the one :func:`torch_to_flax` applies,
+    for the leaves whose layouts differ (the conv and Dense kernels).  A
+    :class:`~dpwa_tpu_torch.utils.pytree.FlatParams` given these ``axes``
+    ships its leaves in the reference's element order (the int8 wire's
+    chunks, the TCP frame)."""
+    out = {}
+    for name, shape in shapes.items():
+        perm = _axes(name, len(tuple(getattr(shape, "shape", shape))), _TO_FLAX)
+        if perm is not None:
+            out[name] = perm
+    return out
 
 
 def _by_name_to_torch(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -1,15 +1,29 @@
 #!/usr/bin/env python
-"""MNIST gossip training on one card — the port of
-``examples/mnist/main.py`` with ``--transport stacked``.
+"""MNIST gossip training on the card — the port of ``examples/mnist/main.py``
+with ``--transport stacked`` and ``--transport tcp``.
+
+Stacked (one process, every peer on one device)::
 
     python -m dpwa_tpu_torch.examples.mnist --config examples/mnist/nodes.yaml
 
+TCP (the reference's deployment: one process per YAML node, here all on
+one card)::
+
+    python -m dpwa_tpu_torch.examples.mnist --transport tcp --name node0 &
+    python -m dpwa_tpu_torch.examples.mnist --transport tcp --name node1 &
+
 Every peer of the YAML config (2 in ``examples/mnist/nodes.yaml``, ring, α
-0.5) trains its own replica on its own shard with Adam; all peers live on
-one device as a stacked axis and gossip their parameters every step
-through the pair-merge kernel.  The data are full MNIST (``ConvNet``) when
-an ``mnist.npz`` lies under ``data/mnist``, else the 8×8 digits committed
-in ``data/digits_fixture`` (``SmallNet``).
+0.5) trains its own replica on its own shard with Adam.  Stacked, all
+peers live on one device as a stacked axis and gossip their parameters
+every step through the pair-merge kernel.  Over TCP each process inits its
+replica from ``jax.random.key(me)``'s draws, draws its batches from
+``default_rng(1000 + me)``, and gossips through
+:class:`~dpwa_tpu_torch.adapters.tcp_adapter.DpwaTcpAdapter` (B2 merges
+each fetched frame on the card), as the reference's ``run_tcp``; at the
+end it prints its test accuracy and one JSON line of its counts.  The
+data are full MNIST (``ConvNet``) when an ``mnist.npz`` lies under
+``data/mnist``, else the 8×8 digits committed in ``data/digits_fixture``
+(``SmallNet``).
 
 ``--checkpoint DIR`` saves the whole state and the data stream's position
 every ``--save-every`` steps; ``--resume`` continues from DIR the exact run
@@ -21,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import time
 from pathlib import Path
 
@@ -62,6 +77,12 @@ def main(argv=None) -> dict:
         ap.error("--resume requires --checkpoint DIR")
     if args.steps < 1 or args.save_every < 1:
         ap.error("--steps and --save-every must be >= 1")
+    if args.transport == "tcp":
+        if not args.name:
+            ap.error("--transport tcp requires --name (this node's identity)")
+        if args.checkpoint or args.profile:
+            ap.error("--checkpoint and --profile are not wired into the per-process tcp loop")
+        return run_tcp(args)
 
     from dpwa_tpu_torch import checkpoint
     from dpwa_tpu_torch.config import load_config
@@ -185,5 +206,105 @@ def main(argv=None) -> dict:
     }
 
 
+def run_tcp(args) -> dict:
+    """One node of the TCP deployment (the reference's ``run_tcp``):
+    train this node's replica and gossip it every step; returns the
+    node's losses, test accuracy, rate, merged rounds, fetch outcomes, wire
+    bytes, host copies per received frame, B2 launches and peak device
+    memory."""
+    from dpwa_tpu_torch.adapters.tcp_adapter import DpwaTcpAdapter
+    from dpwa_tpu_torch.config import load_config
+    from dpwa_tpu_torch.data import load_mnist_or_digits, peer_split
+    from dpwa_tpu_torch.models import mnist
+    from dpwa_tpu_torch.ops import merge
+    from dpwa_tpu_torch.optim import adam
+    from dpwa_tpu_torch.parallel import ingest
+    from dpwa_tpu_torch.train import softmax_cross_entropy_with_integer_labels
+    from dpwa_tpu_torch.utils import prng
+    from dpwa_tpu_torch.utils.launch import build_transport
+
+    bundle = build_transport(
+        load_config(args.config), "tcp", args.device, wire_dtype=args.wire_dtype,
+        mode=args.mode, fetch_probability=args.fetch_probability,
+        drop_probability=args.drop_probability, name=args.name,
+    )
+    cfg, device = bundle.config, bundle.device
+    me = cfg.node_index(args.name)
+    x_tr, y_tr, x_te, y_te, dataset = load_mnist_or_digits()
+    xs, ys = peer_split(x_tr, y_tr, cfg.n_peers, seed=cfg.protocol.seed)
+    x_my = torch.from_numpy(xs[me]).to(device)
+    y_my = torch.from_numpy(ys[me]).to(device)
+    model = mnist.build_model(x_tr.shape[1:]).to(device)
+    params = mnist.init(model, prng.key(me), device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    adapter = DpwaTcpAdapter(params, args.name, cfg, transport=bundle.transport)
+    params = adapter.params
+    flat = adapter.flat
+    opt = adam(args.lr)
+    opt_state = opt.init(flat.flat)
+
+    def loss_fn(p, xb, yb):
+        logits = torch.func.functional_call(model, p, (xb,))
+        return softmax_cross_entropy_with_integer_labels(logits, yb).mean()
+
+    grad_fn = torch.func.grad_and_value(loss_fn)
+    rng = np.random.default_rng(1000 + me)
+    launches0 = merge.gather_merge.launches
+    losses = []
+    t0 = None
+    try:
+        for step in range(args.steps):
+            if step == 1:  # the first step (the kernels' build and load) untimed
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+            idx = torch.from_numpy(rng.integers(0, len(xs[me]), size=args.batch_size)).to(device)
+            grads, loss = grad_fn(params, x_my[idx], y_my[idx])
+            updates = opt.update_(flat.pack({k: g[None] for k, g in grads.items()}), opt_state)
+            flat.add_(updates)
+            loss = float(loss)
+            params = adapter.update(loss)
+            losses.append(loss)
+            if step % args.log_every == 0:
+                print(json.dumps({"step": step, "node": args.name, "loss": loss,
+                                  "alpha": adapter.last_alpha, "partner": adapter.last_partner}),
+                      flush=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0 if t0 is not None else float("nan")
+        with torch.no_grad():
+            logits = torch.func.functional_call(model, params, (torch.from_numpy(x_te).to(device),))
+        acc = float((logits.argmax(-1).cpu().numpy() == y_te).mean())
+        print(f"[{args.name}] {dataset} test accuracy: {acc:.4f}", flush=True)
+        stats = adapter.transport.stats
+        result = {
+            "node": args.name,
+            "dataset": dataset,
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            "steps": args.steps,
+            "steps_per_sec": (args.steps - 1) / dt if args.steps > 1 else float("nan"),
+            "losses": losses,
+            "accuracy": acc,
+            "rounds": stats["rounds"],
+            "merged_rounds": stats["merged"],
+            "outcomes": dict(stats["outcomes"]),
+            "wire_bytes_published": stats["wire_bytes_published"],
+            "wire_bytes_fetched": stats["wire_bytes_fetched"],
+            # host copies of a landed payload before its copy to the device
+            # (0: the frame crossed from the receive buffer it landed in)
+            "rx_copies_per_frame": ingest.rx_stats()["copies_per_frame"],
+            "b2_launches": merge.gather_merge.launches - launches0,
+            "peak_memory_bytes": (
+                torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+            ),
+        }
+    finally:
+        adapter.close()
+    return result
+
+
 if __name__ == "__main__":
-    main()
+    out = main()
+    if out.get("node") is not None:  # a tcp node: its counts, one JSON line
+        print(json.dumps({k: v for k, v in out.items() if k != "losses"}))

@@ -43,7 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dpwa_tpu_torch import convert
 from dpwa_tpu_torch.utils import flax_rng, prng
+from dpwa_tpu_torch.utils.pytree import Leaves
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -372,13 +374,15 @@ def ResNet50(**kw) -> ImageNetResNet:
     return ImageNetResNet(stage_sizes=(3, 4, 6, 3), **kw)
 
 
-def init(model: nn.Module, key: prng.Key, device=None) -> dict[str, torch.Tensor]:
+def init(model: nn.Module, key: prng.Key, device=None) -> Leaves:
     """Fresh parameters for ``model`` as a new ``{name: tensor}`` dict on
     ``device`` (the CPU by default), the ones Flax's ``model.init(key, …)``
     makes: lecun-normal Conv and Dense kernels, each drawn from its own key
     in Flax's HWIO / ``[in, out]`` shape and laid out as the port's OIHW /
-    ``[out, in]``; unit norm scales, zero biases.  The module itself is left
-    as it is."""
+    ``[out, in]``; unit norm scales, zero biases.  The dict carries those
+    kernels' axes back to the reference's layouts
+    (:func:`dpwa_tpu_torch.convert.reference_axes`), for the wire.  The
+    module itself is left as it is."""
     params = {}
     for name, p in model.named_parameters():
         *path, leaf = name.split(".")
@@ -392,4 +396,4 @@ def init(model: nn.Module, key: prng.Key, device=None) -> dict[str, torch.Tensor
             params[name] = torch.ones(p.shape, dtype=torch.float32, device=device)
         else:
             params[name] = torch.zeros(p.shape, dtype=torch.float32, device=device)
-    return params
+    return Leaves(params, convert.reference_axes(params))

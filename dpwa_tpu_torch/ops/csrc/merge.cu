@@ -35,12 +35,17 @@
 //     a NaN (merge_self = 1).  Both lanes of a self-pair write the same
 //     value to the same address.
 // B2  dpwa_gather_merge_f32 replaces dpwa_tpu/ops/merge.py::pallas_pairwise_merge.
-//     Out of place: out[i] <- lerp(alpha[i], x[i], y[partner[i]]).
+//     Out of place: out[i] <- lerp(alpha[i], x[i], y[partner[i]]).  Its w may
+//     also hold bf16 values: the TCP transport's landed bf16 frame, merged
+//     over one row [1, d] as read off the wire (upcast in registers, as the
+//     reference's device engine bitcasts and upcasts in-graph), so no f32
+//     copy of the frame is ever written.
 //
 // What bounds them on the card: device-memory bytes.  B1 moves 2*rows*d*4
 // bytes (each touched row read once and written once, the floor for any
 // merge), 3*rows*d*4 in the wire form (w's rows read too); B2 moves
-// 3*n*d*4 (own row, partner row, output row).  Both do 3 flops per
+// 3*n*d*4 (own row, partner row, output row), 10*n*d with a bf16 w.  Both
+// do 3 flops per
 // element, about 0.4 flop per byte, far under the H100's float32 ridge of
 // some 20 flops per byte, so the arithmetic is free and only the bytes
 // count.
@@ -161,10 +166,24 @@ pair_merge_kernel(float* x, int64_t ld, const float* __restrict__ w, int64_t ld_
   }
 }
 
-// y: the rows the partner's value is read from (x itself, or w), ld_y apart.
-template <int kForm, bool kVec>
+// The partner's rows as float32 or bf16 values: one element, and four
+// consecutive ones (a float4, or 8 bytes of bf16 widened exactly).
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// y: the rows the partner's value is read from (x itself, or w), ld_y apart,
+// of element type Y (float, or bf16 for a w that holds a bf16 frame).
+template <int kForm, bool kVec, typename Y>
 __global__ void __launch_bounds__(kThreads)
-gather_merge_kernel(const float* x, int64_t ld_x, const float* y, int64_t ld_y,
+gather_merge_kernel(const float* x, int64_t ld_x, const Y* y, int64_t ld_y,
                     float* __restrict__ out, int64_t ld_out, int64_t d,
                     int64_t head, const int* __restrict__ partner,
                     const float* __restrict__ alpha) {
@@ -172,18 +191,17 @@ gather_merge_kernel(const float* x, int64_t ld_x, const float* y, int64_t ld_y,
   const int p = __ldg(partner + i);
   const float a = __ldg(alpha + i);
   const float* xs = x + static_cast<int64_t>(i) * ld_x;
-  const float* yp = y + static_cast<int64_t>(p) * ld_y;
+  const Y* yp = y + static_cast<int64_t>(p) * ld_y;
   float* o = out + static_cast<int64_t>(i) * ld_out;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (kVec) {
     const int64_t n4 = (d - head) >> 2;
     const float4* vs = reinterpret_cast<const float4*>(xs + head);
-    const float4* vp = reinterpret_cast<const float4*>(yp + head);
     float4* vo = reinterpret_cast<float4*>(o + head);
     for (int64_t q = t0; q < n4; q += stride) {
       const float4 s = __ldg(vs + q);
-      const float4 v = __ldg(vp + q);
+      const float4 v = load4(yp + head + 4 * q);
       float4 m;
       m.x = lerp<kForm>(a, s.x, v.x);
       m.y = lerp<kForm>(a, s.y, v.y);
@@ -193,11 +211,11 @@ gather_merge_kernel(const float* x, int64_t ld_x, const float* y, int64_t ld_y,
     }
     int64_t j;
     if (edge_index(t0, head, head + (n4 << 2), d, &j)) {
-      o[j] = lerp<kForm>(a, xs[j], yp[j]);
+      o[j] = lerp<kForm>(a, xs[j], load1(yp + j));
     }
   } else {
     for (int64_t j = t0; j < d; j += stride) {
-      o[j] = lerp<kForm>(a, xs[j], yp[j]);
+      o[j] = lerp<kForm>(a, xs[j], load1(yp + j));
     }
   }
 }
@@ -225,16 +243,32 @@ void launch_pair(bool vec, bool wire, dim3 grid, cudaStream_t s, float* x, int64
   kernel<<<grid, kThreads, 0, s>>>(x, ld, w, ld_w, d, head, left, right, alpha, merge_self);
 }
 
-template <int kForm>
+template <int kForm, typename Y>
 void launch_gather(bool vec, dim3 grid, cudaStream_t s, const float* x, int64_t ld_x,
-                   const float* y, int64_t ld_y, float* out, int64_t ld_out, int64_t d,
+                   const Y* y, int64_t ld_y, float* out, int64_t ld_out, int64_t d,
                    int64_t head, const int* partner, const float* alpha) {
-  auto kernel = vec ? gather_merge_kernel<kForm, true> : gather_merge_kernel<kForm, false>;
+  auto kernel = vec ? gather_merge_kernel<kForm, true, Y> : gather_merge_kernel<kForm, false, Y>;
   kernel<<<grid, kThreads, 0, s>>>(x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
+}
+
+template <typename Y>
+void launch_gather_form(int form, bool vec, dim3 grid, cudaStream_t s, const float* x,
+                        int64_t ld_x, const Y* y, int64_t ld_y, float* out, int64_t ld_out,
+                        int64_t d, int64_t head, const int* partner, const float* alpha) {
+  if (form == kF32) launch_gather<kF32>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
+  else if (form == kBf16) launch_gather<kBf16>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
+  else launch_gather<kInt8>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
 }
 
 bool same_phase(const void* a, const void* b) {
   return (reinterpret_cast<uintptr_t>(a) & 15) == (reinterpret_cast<uintptr_t>(b) & 15);
+}
+
+// A bf16 row whose element j sits on an 8-byte boundary exactly where the
+// float32 row's element j sits on a 16-byte one.
+bool same_phase_bf16(const float* x, const void* w) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x), b = reinterpret_cast<uintptr_t>(w);
+  return (b & 1) == 0 && ((a & 15) >> 2) == ((b & 7) >> 1);
 }
 
 }  // namespace
@@ -263,25 +297,30 @@ int dpwa_pair_merge_f32(float* x, int64_t ld, int64_t d, const float* w, int64_t
 }
 
 // B2.  x: [n, ld_x] float32; w: null (the partner's value from x) or
-// [n, ld_w] float32 (the wire form); out: [n, ld_out] float32 (overlapping
-// neither); partner: int32[n]; alpha: float32[n]; form as for B1.
-// Returns the launch's cudaError_t.
-int dpwa_gather_merge_f32(const float* x, int64_t ld_x, const float* w, int64_t ld_w,
-                          float* out, int64_t ld_out, int64_t d, int n,
+// [n, ld_w] rows (the wire form) of float32 (w_bf16 = 0) or bf16 values
+// (w_bf16 = 1); out: [n, ld_out] float32 (overlapping neither); partner:
+// int32[n]; alpha: float32[n]; form as for B1.  Returns the launch's
+// cudaError_t.
+int dpwa_gather_merge_f32(const float* x, int64_t ld_x, const void* w, int64_t ld_w,
+                          int w_bf16, float* out, int64_t ld_out, int64_t d, int n,
                           const int* partner, const float* alpha, int form,
                           void* stream) {
   if (n <= 0 || d <= 0) return 0;
-  if (form < kF32 || form > kInt8) return static_cast<int>(cudaErrorInvalidValue);
-  const float* y = w != nullptr ? w : x;
+  if (form < kF32 || form > kInt8 || (w_bf16 && w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* y = w != nullptr ? w : x;
   const int64_t ld_y = w != nullptr ? ld_w : ld_x;
-  const bool vec = ld_x % 4 == 0 && ld_out % 4 == 0 && ld_y % 4 == 0 &&
-                   same_phase(x, out) && same_phase(x, y);
+  const bool vec = ld_x % 4 == 0 && ld_out % 4 == 0 && ld_y % 4 == 0 && same_phase(x, out) &&
+                   (w_bf16 ? same_phase_bf16(x, y) : same_phase(x, y));
   const int64_t head = vec ? head_of(x, d) : 0;
   const dim3 grid = grid_for(vec ? (d - head) / 4 + 1 : d, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (form == kF32) launch_gather<kF32>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
-  else if (form == kBf16) launch_gather<kBf16>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
-  else launch_gather<kInt8>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
+  if (w_bf16)
+    launch_gather_form(form, vec, grid, s, x, ld_x, static_cast<const __nv_bfloat16*>(y), ld_y,
+                       out, ld_out, d, head, partner, alpha);
+  else
+    launch_gather_form(form, vec, grid, s, x, ld_x, static_cast<const float*>(y), ld_y,
+                       out, ld_out, d, head, partner, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

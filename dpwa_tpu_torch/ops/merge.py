@@ -103,7 +103,9 @@ def _lerp(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor, wire: str) -> torch
     (``addcmul`` is one fused multiply-add on the CPU):
     ``fma(a, y, (1 − a)·x)`` on the f32 wire; ``fma(1 − a, x, a·y)`` on
     the int8 wire; on the bf16 wire the same with ``y`` rounded to nearest
-    even bf16 first — what would have arrived over the fabric."""
+    even bf16 first — what would have arrived over the fabric.  A bf16 ``y``
+    (a TCP frame as it landed) is widened exactly first."""
+    y = y.to(torch.float32)
     if wire == "f32":
         return torch.addcmul((1.0 - a) * x, a, y)
     if wire == "bf16":
@@ -173,7 +175,7 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.dpwa_pair_merge_f32.restype = _INT
     lib.dpwa_gather_merge_f32.argtypes = [
-        _VOID, _I64, _VOID, _I64, _VOID, _I64, _I64, _INT, _VOID, _VOID, _INT, _VOID,
+        _VOID, _I64, _VOID, _I64, _INT, _VOID, _I64, _I64, _INT, _VOID, _VOID, _INT, _VOID,
     ]
     lib.dpwa_gather_merge_f32.restype = _INT
     lib.dpwa_cuda_error_string.argtypes = [_INT]
@@ -187,9 +189,9 @@ def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
-def _check_rows(x: torch.Tensor, name: str) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: x must be float32, got {x.dtype}")
+def _check_rows(x: torch.Tensor, name: str, dtypes=(torch.float32,)) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: x must be {' or '.join(map(str, dtypes))}, got {x.dtype}")
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be [n, d], got shape {tuple(x.shape)}")
     if x.shape[1] > 1 and x.stride(1) != 1:
@@ -219,12 +221,13 @@ def empty_rows_like(x: torch.Tensor) -> torch.Tensor:
     return buf[:, head:head + d]
 
 
-def _check_wire_rows(w: torch.Tensor | None, x: torch.Tensor, name: str) -> None:
-    """``w`` (if given) must be float32 rows shaped and placed like ``x``'s
-    that share no storage with ``x``."""
+def _check_wire_rows(w: torch.Tensor | None, x: torch.Tensor, name: str,
+                     bf16: bool = False) -> None:
+    """``w`` (if given) must be float32 rows (or, with ``bf16``, bf16 ones
+    too) shaped and placed like ``x``'s that share no storage with ``x``."""
     if w is None:
         return
-    _check_rows(w, f"{name} w")
+    _check_rows(w, f"{name} w", (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
     if w.shape != x.shape or w.device != x.device:
         raise ValueError(f"{name}: w must match x's shape and device")
     if w.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
@@ -315,7 +318,9 @@ def gather_merge(
     """B2: out-of-place gather merge
     ``out[i] = (1−α_i)·x[i] + α_i·y[partner[i]]`` over float32 ``x``
     ``[n, d]`` (contiguous rows), in ``wire``'s form, ``y`` = ``w`` (the
-    wire form, as for :func:`pair_merge_`) or else ``x``; ``partner`` int32
+    wire form, as for :func:`pair_merge_`, whose rows may also hold bf16
+    values: a TCP frame as it landed, widened in the kernel) or else ``x``;
+    ``partner`` int32
     ``[n]`` with values in ``[0, n)`` (not checked on the card, as for
     :func:`pair_merge_`), ``alpha`` float32 ``[n]``.  ``out`` (float32
     ``[n, d]``, contiguous rows, not overlapping ``x`` or ``w``) is
@@ -330,7 +335,7 @@ def gather_merge(
     if x.device.type != "cuda":
         raise ValueError(f"gather_merge: unsupported device {x.device}")
     _check_rows(x, "gather_merge")
-    _check_wire_rows(w, x, "gather_merge")
+    _check_wire_rows(w, x, "gather_merge", bf16=True)
     n, d = x.shape
     _check_index(partner, n, x.device, "partner")
     _check_alpha(alpha, n, x.device)
@@ -352,7 +357,7 @@ def gather_merge(
         err = lib.dpwa_gather_merge_f32(
             x.data_ptr(), x.stride(0),
             None if w is None else w.data_ptr(), 0 if w is None else w.stride(0),
-            out.data_ptr(), out.stride(0), d, n, partner.data_ptr(),
+            int(w is not None and w.dtype == torch.bfloat16), out.data_ptr(), out.stride(0), d, n, partner.data_ptr(),
             alpha.data_ptr(), form, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _check_launch(lib, "gather_merge", err)

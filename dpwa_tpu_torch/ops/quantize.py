@@ -106,22 +106,37 @@ def fake_quant_tree(
     }
 
 
+def leaf_columns(leaf: Sequence) -> np.ndarray:
+    """The buffer columns of one shipped leaf, in the reference's element
+    order: ``(lo, hi)`` for a leaf the buffer lays out as the reference
+    does; ``(lo, hi, shape, axes)`` for one stored in ``shape`` whose
+    reference layout is its ``permute(axes)`` (a conv kernel kept OIHW,
+    shipped in the reference's HWIO order)."""
+    cols = np.arange(int(leaf[0]), int(leaf[1]), dtype=np.int64)
+    if len(leaf) == 4:
+        cols = cols.reshape(leaf[2]).transpose(leaf[3]).ravel()
+    return cols
+
+
 class WirePlan:
     """Where the int8 wire's chunks of a row lie in a flat ``[n, ld]``
     buffer, for :func:`fake_quant_rows`.
 
-    ``leaves`` are the column ranges ``[lo, hi)`` of the shipped leaves in
-    the order whose index keys each leaf's draws (the reference's flatten
-    order of the exchanged tree).  Each leaf is padded to whole chunks.
+    ``leaves`` are the shipped leaves (:func:`leaf_columns`: column ranges
+    ``[lo, hi)``, or ranges with the leaf's stored shape and its axis order
+    to the reference's layout) in the order whose index keys each leaf's
+    draws (the reference's flatten order of the exchanged tree).  Each
+    leaf's elements fill its chunks in the reference's element order, and
+    each leaf is padded to whole chunks.
     Per element of the padded chunk stream the plan holds its column (0 for
     padding, masked by ``valid``), its leaf and its counter within the
     leaf's draws; and, for the write back, the stream positions of the
     real elements with their columns, whose block bounds it finds on the
     host, so a step never waits on the card."""
 
-    def __init__(self, leaves: Sequence[Tuple[int, int]], device):
-        self.leaves = [(int(lo), int(hi)) for lo, hi in leaves]
-        widths = [n_chunks(hi - lo) * CHUNK for lo, hi in self.leaves]
+    def __init__(self, leaves: Sequence[tuple], device):
+        self.leaves = [tuple(leaf) for leaf in leaves]
+        widths = [n_chunks(leaf[1] - leaf[0]) * CHUNK for leaf in self.leaves]
         if any(w > _MASK for w in widths):
             raise ValueError("a leaf of 2^32 elements or more does not fit the draws' counter")
         cols = np.zeros(sum(widths), np.int64)
@@ -129,9 +144,10 @@ class WirePlan:
         leaf_of = np.repeat(np.arange(len(widths), dtype=np.int64), widths)
         counter = np.concatenate([np.arange(w, dtype=np.int64) for w in widths] or [cols])
         start = 0
-        for (lo, hi), width in zip(self.leaves, widths):
-            cols[start:start + hi - lo] = np.arange(lo, hi)
-            valid[start:start + hi - lo] = True
+        for leaf, width in zip(self.leaves, widths):
+            size = leaf[1] - leaf[0]
+            cols[start:start + size] = leaf_columns(leaf)
+            valid[start:start + size] = True
             start += width
         self.n_leaves = len(self.leaves)
         self.n_chunks = cols.size // CHUNK

@@ -247,7 +247,7 @@ class StackedTransport:
         result into the holder's spare buffer and swaps it in, so it
         neither allocates nor copies."""
         columns = None if pred is None else params.column_ranges(pred)
-        leaves = params.leaf_ranges(pred) if self.schedule.wire_dtype == "int8" else None
+        leaves = params.wire_leaves(pred) if self.schedule.wire_dtype == "int8" else None
         if self.schedule.mode == "pull" and columns is None:
             _, info = stacked_gossip_exchange(
                 params.flat, meta, int(step), schedule=self.schedule,
@@ -298,10 +298,12 @@ def init_stacked_state(
     ``stacked_model_state`` (``{name: [n, *shape]}`` or a
     :class:`FlatParams`, e.g. BatchNorm's running statistics) is copied
     with the parameters into one new buffer, its columns right after
-    theirs (:func:`~dpwa_tpu_torch.utils.pytree.stack_with_state`)."""
+    theirs (:func:`~dpwa_tpu_torch.utils.pytree.stack_with_state`).  The
+    parameters keep their layouts (:class:`~dpwa_tpu_torch.utils.pytree.
+    Leaves`, or a :class:`FlatParams`' own) for the wire."""
     n = transport.config.n_peers
     trainable = optimizer.trainable
-    as_dict = lambda t: t.views() if isinstance(t, FlatParams) else t
+    as_dict = lambda t: t.leaves() if isinstance(t, FlatParams) else t
     for what, tree in (("params", stacked_params), ("model state", stacked_model_state)):
         if tree is None:
             continue
@@ -395,14 +397,14 @@ def _state_columns(params: FlatParams, model_state: FlatParams,
     the parameters ``pred`` selects, then every column of the state (the
     reference's flatten order of ``(params, model_state)``), adjacent
     ranges merged."""
-    shift = lambda ranges: [(params.ld + lo, params.ld + hi) for lo, hi in ranges]
+    shift = lambda ranges: [(params.ld + r[0], params.ld + r[1], *r[2:]) for r in ranges]
     columns = []
     for lo, hi in params.column_ranges(pred) + shift(model_state.column_ranges()):
         if columns and columns[-1][1] == lo:
             columns[-1] = (columns[-1][0], hi)
         else:
             columns.append((lo, hi))
-    leaves = params.leaf_ranges(pred) + shift(model_state.leaf_ranges())
+    leaves = params.wire_leaves(pred) + shift(model_state.wire_leaves())
     return columns, leaves
 
 

@@ -13,7 +13,7 @@ import torch
 
 from dpwa_tpu_torch.utils import prng
 from dpwa_tpu_torch.utils.devices import resolve_device
-from dpwa_tpu_torch.utils.pytree import FlatParams, NamePredicate, leaf_order
+from dpwa_tpu_torch.utils.pytree import FlatParams, NamePredicate, layout_axes, leaf_order
 
 Params = Mapping[str, torch.Tensor]
 
@@ -51,7 +51,9 @@ def init_params_per_peer(
     stacked buffer.  ``first`` places the leaves it selects in the leading
     columns: pass the optimizer's ``trainable``, and
     :func:`~dpwa_tpu_torch.parallel.stacked.init_stacked_state` takes the
-    buffer over as it is."""
+    buffer over as it is.  The holder takes the leaves' layouts from what
+    ``init_fn`` returns (:class:`~dpwa_tpu_torch.utils.pytree.Leaves`: the
+    port's ResNet and ConvNet ``init``), for the wire."""
     device = resolve_device(device)
     flat = None
     for i, peer_key in enumerate(prng.split(key, n_peers)):
@@ -61,6 +63,7 @@ def init_params_per_peer(
             flat = FlatParams(
                 names, [tuple(peer[k].shape) for k in names], n_peers,
                 device=device, dtype=peer[names[0]].dtype, first=first,
+                axes=layout_axes(peer),
             )
         views = flat.views()
         for name, value in peer.items():

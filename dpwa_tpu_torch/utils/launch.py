@@ -1,9 +1,12 @@
 """Transport selection for the examples (the port of
 :mod:`dpwa_tpu.utils.launch`).
 
-Only the ``stacked`` transport is ported: every peer on ONE device as a
-stacked leading axis.  ``ici`` (one device per peer) and ``tcp`` (one
-process per peer) raise until their ports land.
+``stacked``: every peer on ONE device as a stacked leading axis.  ``tcp``:
+this process is one node of the YAML config (``--name``), gossiping with
+the others over TCP (:class:`~dpwa_tpu_torch.parallel.tcp.TcpTransport`);
+its training loop is the example's own (the MNIST example's, with
+:class:`~dpwa_tpu_torch.adapters.tcp_adapter.DpwaTcpAdapter`).  ``ici``
+(one device per peer) raises until its port lands.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ class TransportBundle(NamedTuple):
 def add_transport_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
         "--transport", choices=("stacked", "ici", "tcp"), default="stacked",
-        help="'stacked': all peers on ONE device as a stacked axis (the "
-        "only transport ported so far; 'ici' and 'tcp' raise)",
+        help="'stacked': all peers on ONE device as a stacked axis; 'tcp': "
+        "this process is the node --name, one process per node (the MNIST "
+        "example); 'ici' raises (not ported yet)",
     )
+    ap.add_argument("--name", help="this process's node name (--transport tcp)")
     ap.add_argument(
         "--device", default=None,
         help="torch device (default: the CUDA card; 'cpu' runs the plain "
@@ -77,21 +82,39 @@ def build_transport(
     mode: Optional[str] = None,
     fetch_probability: Optional[float] = None,
     drop_probability: Optional[float] = None,
+    name: Optional[str] = None,
 ) -> TransportBundle:
     """Construct the transport on ``device`` (the CUDA card by default,
-    raising without one); returns a :class:`TransportBundle`."""
-    if transport != "stacked":
+    raising without one); returns a :class:`TransportBundle`.  ``tcp``
+    needs this process's node ``name``; its bundle's ``init_state`` and
+    ``make_step`` raise, since a TCP node trains its one replica in the
+    example's own loop."""
+    if transport not in ("stacked", "tcp"):
         raise NotImplementedError(
             f"transport {transport!r} is not ported to dpwa_tpu_torch yet; "
-            "use 'stacked'"
+            "use 'stacked' or 'tcp'"
         )
+    cfg = apply_overrides(cfg, wire_dtype, mode, fetch_probability, drop_probability)
+    if transport == "tcp":
+        if not name:
+            raise ValueError("--transport tcp needs --name (this node's name in the config)")
+        from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+        t = TcpTransport(cfg, name, device=device)
+
+        def stacked_only(*_args, **_kwargs):
+            raise NotImplementedError(
+                "a tcp node trains one replica in its own loop; only the MNIST "
+                "example runs --transport tcp"
+            )
+
+        return TransportBundle(t, stacked_only, stacked_only, cfg, t.device)
     from dpwa_tpu_torch.parallel.stacked import (
         StackedTransport,
         init_stacked_state,
         make_stacked_train_step,
     )
 
-    cfg = apply_overrides(cfg, wire_dtype, mode, fetch_probability, drop_probability)
     t = StackedTransport(cfg, device=device)
     return TransportBundle(
         transport=t,

@@ -18,7 +18,12 @@ exchange is one kernel launch over ``[n, P]``:
   predicate on the name, as the reference does by key path.
 - :func:`tree_wire_bytes` is the bytes one exchange ships.
 - :meth:`FlatParams.leaf_ranges` gives the exchanged leaves one by one in
-  the reference's flatten order, for the int8 wire.
+  the reference's flatten order; :meth:`FlatParams.wire_leaves` the same
+  with each leaf's axis order to the reference's layout where the port
+  keeps another (a ResNet's conv kernels OIHW against the reference's
+  HWIO), for the int8 wire's chunks; :meth:`FlatParams.reference_order`
+  the columns of a row in the order ``jax.flatten_util.ravel_pytree``
+  reads the reference's tree, the TCP frame's order.
 - :func:`stack_with_state` lays out parameters and model state (BatchNorm's
   running statistics) as two holders side by side in one buffer, the
   state's columns right after the parameters', and :func:`joint_flat`
@@ -34,11 +39,42 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch.utils import _pytree as torch_pytree
 
-from dpwa_tpu_torch.ops.quantize import CHUNK, n_chunks
+from dpwa_tpu_torch.ops.quantize import CHUNK, leaf_columns, n_chunks
 
 ROW_ALIGN = 32  # floats: 128 bytes
+
+
+class Leaves(dict):
+    """``{name: tensor}`` that knows its layout: :attr:`axes` maps a leaf's
+    name to the axis order that gives it the reference's layout, for the
+    leaves the port lays out otherwise (:func:`dpwa_tpu_torch.convert.
+    reference_axes`).  The port's ResNet and ConvNet ``init`` return one;
+    :class:`FlatParams` takes the axes from the tensors it is stacked from
+    and gives them back with its :meth:`~FlatParams.leaves`, so the int8
+    wire's chunks and the TCP frame find the reference's element order with
+    no caller passing it on."""
+
+    def __init__(self, tensors=(), axes: Mapping[str, Tuple[int, ...]] | None = None):
+        super().__init__(tensors)
+        self.axes = dict(axes or {})
+
+
+# A node of torch's pytrees, so torch.func transforms and maps a Leaves as
+# a dict and gives back one with the same axes.
+torch_pytree.register_pytree_node(
+    Leaves,
+    lambda t: (list(t.values()), (list(t.keys()), t.axes)),
+    lambda values, context: Leaves(zip(context[0], values), context[1]),
+)
+
+
+def layout_axes(tensors: Mapping) -> Dict[str, Tuple[int, ...]]:
+    """The :attr:`Leaves.axes` of ``tensors`` (none for a plain dict)."""
+    return dict(getattr(tensors, "axes", None) or {})
 
 NamePredicate = Callable[[str], bool]
 
@@ -64,7 +100,8 @@ class FlatParams:
     The buffer is updated in place.  It is a new zeroed ``[n, P]`` tensor
     padded to :data:`ROW_ALIGN` floats, or the given ``buffer`` (an
     ``[n, ≥ P]`` view with unit column stride, e.g. columns of a larger
-    one).
+    one).  ``axes`` maps a leaf's name to the axis order that gives it the
+    reference's layout, for the leaves the port lays out otherwise.
     """
 
     def __init__(
@@ -77,6 +114,7 @@ class FlatParams:
         dtype: torch.dtype = torch.float32,
         first: NamePredicate | None = None,
         buffer: torch.Tensor | None = None,
+        axes: Mapping[str, Tuple[int, ...]] | None = None,
     ):
         if list(names) != leaf_order(names):
             raise ValueError("names must be in leaf order (see leaf_order)")
@@ -84,6 +122,10 @@ class FlatParams:
         self.shapes = tuple(tuple(int(s) for s in shape) for shape in shapes)
         self.n_peers = int(n_peers)
         self.first = first
+        self.axes = dict(axes or {})
+        if not set(self.axes) <= set(self.names):
+            unknown = sorted(set(self.axes) - set(self.names))
+            raise ValueError(f"axes names leaves that are not here: {unknown}")
         sizes = [int(torch.Size(shape).numel()) for shape in self.shapes]
         # Column order: the ``first`` leaves, then the rest, each in leaf order.
         self.placed = sorted(
@@ -116,7 +158,8 @@ class FlatParams:
         cls, tensors: Mapping[str, torch.Tensor], *, device=None,
         first: NamePredicate | None = None,
     ) -> "FlatParams":
-        """A new holder filled from ``{name: [n, *shape]}`` tensors (copied)."""
+        """A new holder filled from ``{name: [n, *shape]}`` tensors (copied),
+        with their :attr:`Leaves.axes`."""
         names = leaf_order(tensors)
         lead = tensors[names[0]]
         flat = cls(
@@ -126,6 +169,7 @@ class FlatParams:
             device=device if device is not None else lead.device,
             dtype=lead.dtype,
             first=first,
+            axes=layout_axes(tensors),
         )
         for name, view in flat.views().items():
             view.copy_(tensors[name])
@@ -158,6 +202,10 @@ class FlatParams:
             name: self.buffer[:, lo:hi].view(self.n_peers, *shape)
             for name, shape, (lo, hi) in zip(self.names, self.shapes, self.offsets)
         }
+
+    def leaves(self) -> Leaves:
+        """:meth:`views` with this holder's :attr:`axes`, to stack anew."""
+        return Leaves(self.views(), self.axes)
 
     def pack(
         self, tensors: Mapping[str, torch.Tensor], pred: NamePredicate | None = None
@@ -199,6 +247,27 @@ class FlatParams:
             if pred is None or pred(name)
         ]
 
+    def wire_leaves(self, pred: NamePredicate | None = None) -> list[tuple]:
+        """:meth:`leaf_ranges` as the wire ships the leaves
+        (:func:`~dpwa_tpu_torch.ops.quantize.leaf_columns`): ``(lo, hi)``,
+        or ``(lo, hi, shape, axes)`` for a leaf stored in ``shape`` that the
+        reference lays out as its ``permute(axes)``."""
+        return [
+            (lo, hi) if name not in self.axes else (lo, hi, shape, tuple(self.axes[name]))
+            for name, shape, (lo, hi) in zip(self.names, self.shapes, self.offsets)
+            if pred is None or pred(name)
+        ]
+
+    def reference_order(self, pred: NamePredicate | None = None) -> np.ndarray:
+        """The row's columns of the leaves ``pred`` selects (all when
+        None) in the reference's order: leaf by leaf in its flatten order,
+        each leaf's elements in its layout — the order in which
+        ``ravel_pytree`` flattens the reference's tree, so ``row[order]``
+        is the reference's flat vector and ``row[order] = v`` writes one
+        back."""
+        cols = [leaf_columns(leaf) for leaf in self.wire_leaves(pred)]
+        return np.concatenate(cols) if cols else np.zeros(0, np.int64)
+
     def column_ranges(self, pred: NamePredicate | None = None) -> list[Tuple[int, int]]:
         """Column ranges ``[lo, hi)`` of the leaves whose name matches
         ``pred`` (all leaves when None), in column order, adjacent leaves
@@ -221,8 +290,9 @@ def stack_with_state(
 ) -> Tuple[FlatParams, FlatParams]:
     """Parameters and model state (each ``{name: [n, *shape]}``, copied) as
     two :class:`FlatParams` over one new buffer: the parameters' ``P``
-    columns (``first`` placing theirs as usual), then right after them the
-    state's ``S``, the row padded to :data:`ROW_ALIGN` floats once.
+    columns (``first`` placing theirs as usual, their layouts from
+    :attr:`Leaves.axes`), then right after them the state's ``S``, the row
+    padded to :data:`ROW_ALIGN` floats once.
     :func:`joint_flat` gives the ``[n, P + S]`` matrix over both."""
     groups = []
     for tensors in (params, state):
@@ -234,7 +304,8 @@ def stack_with_state(
     sizes = [sum(int(torch.Size(s).numel()) for s in shapes) for _, shapes in groups]
     buffer = torch.zeros(n, padded_width(sum(sizes)), dtype=dtype, device=device)
     holders = (
-        FlatParams(*groups[0], n, dtype=dtype, first=first, buffer=buffer[:, : sizes[0]]),
+        FlatParams(*groups[0], n, dtype=dtype, first=first, buffer=buffer[:, : sizes[0]],
+                   axes=layout_axes(params)),
         FlatParams(*groups[1], n, dtype=dtype, buffer=buffer[:, sizes[0]:]),
     )
     for holder, tensors in zip(holders, (params, state)):

@@ -51,7 +51,7 @@ from dpwa_tpu_torch.ops import merge
 from dpwa_tpu_torch.optim import sgd
 from dpwa_tpu_torch.parallel import stacked
 from dpwa_tpu_torch.train import softmax_cross_entropy_with_integer_labels
-from dpwa_tpu_torch.utils.pytree import joint_flat
+from dpwa_tpu_torch.utils.pytree import Leaves, joint_flat
 
 N = 4
 
@@ -161,6 +161,49 @@ def test_exchange_with_state_bit_equal_to_reference_tuple(wire):
         assert set(want) == set(holder.names)
         for name, view in holder.views().items():
             np.testing.assert_array_equal(view.numpy(), want[name].numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+def test_exchange_with_state_in_own_layout_bit_equal_to_reference_tuple(wire):
+    """The same exchange in the port's own layout (conv kernels OIHW, the
+    Dense kernel ``[out, in]``), the buffer told each kernel's axes to the
+    reference's layout: bit for bit against the reference's, the int8
+    wire's chunks holding the reference's elements.  Without the axes the
+    int8 wire's chunks hold other elements and the merge misses."""
+    n = 8
+    ref_filter = lambda path: "BasicBlock_0" in path or "Dense_0" in path
+    _, variables = _ref_resnet8(n, seed=4)
+    rng = np.random.default_rng(4)
+    noisy = lambda tree: jax.tree.map(
+        lambda a: (a + rng.standard_normal(a.shape)).astype(np.float32), tree)
+    params, stats = noisy(variables["params"]), noisy(variables["batch_stats"])
+    clock = rng.random(n).astype(np.float32) * 5
+    loss = rng.random(n).astype(np.float32) * 3
+    kw = dict(schedule="exponential", wire_dtype=wire, interpolation="loss", factor=0.9)
+    ref_t = ref_stacked.StackedTransport(ref_config(n, **kw))
+    sel, rest = ref_partition(params, ref_filter)
+    (merged_sel, merged_stats), _ = ref_t.exchange(
+        (sel, stats), RefMeta(jnp.asarray(clock), jnp.asarray(loss)), 5)
+    want = convert.flax_to_torch(ref_combine(merged_sel, rest), stacked=True)
+    want_stats = convert.flax_to_torch(merged_stats, stacked=True)
+
+    own = _tensors(convert.flax_to_torch(params, stacked=True))
+    axes = convert.reference_axes({k: v.shape[1:] for k, v in own.items()})
+    assert len(axes) == 10  # 9 convs and the Dense kernel
+    for given in (axes, None):
+        t = stacked.StackedTransport(make_local_config(n, **kw), device="cpu")
+        state = stacked.init_stacked_state(
+            Leaves(own, given), sgd(0.1), t, _tensors(convert.flax_to_torch(stats, stacked=True)))
+        columns, leaves = stacked._state_columns(state.params, state.model_state, ref_filter)
+        t.exchange(joint_flat(state.params, state.model_state),
+                   PeerMeta(torch.from_numpy(clock), torch.from_numpy(loss)), 5, columns,
+                   leaves if wire == "int8" else None)
+        equal = all(
+            np.array_equal(view.numpy(), expected[name])
+            for holder, expected in ((state.params, want), (state.model_state, want_stats))
+            for name, view in holder.views().items()
+        )
+        assert equal == (given is not None or wire != "int8"), (wire, given is None)
 
 
 @pytest.mark.parametrize("overlap", [False, True])

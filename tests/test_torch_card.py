@@ -933,3 +933,82 @@ def test_checkpoint_round_trip_of_a_card_state(cuda_device, tmp_path):
     assert merge.pair_merge_.launches == 2
     torch.testing.assert_close(s2.params.flat, s1.params.flat, rtol=0, atol=0)
     torch.testing.assert_close(s2.model_state.flat, s1.model_state.flat, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "misaligned", "phase"])
+def test_b2_single_row_tcp_merge_bit_equal_to_plain(cuda_device, layout, wire):
+    """B2 over one row ``[1, d]`` as the TCP transport's merge engine runs
+    it: the landed frame as w, float32 (the int8 wire's form,
+    ``fma(1-α, x, α·y)``) or bf16 read as it landed (the bf16 form, widened
+    in the kernel), against the plain version on a CPU copy, bit for bit:
+    rows aligned, ragged, both starting off their boundaries, and at
+    different phases (the scalar form).  The row holds inf, -inf and NaN."""
+    from dpwa_tpu_torch.device.engine import BF16_FORM, F32_FORM
+
+    d = {"aligned": 1 << 20, "ragged": (1 << 20) + 3, "misaligned": (1 << 20) + 1,
+         "phase": 1 << 20}[layout]
+    x_lead = 3 if layout in ("misaligned", "phase") else 0
+    w_lead = 3 if layout == "misaligned" else 0
+    gen = torch.Generator().manual_seed(d)
+    x_cpu = torch.randn(1, d, generator=gen)
+    w_cpu = torch.randn(1, d, generator=gen)
+    x_cpu[0, :3] = w_cpu[0, -3:] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    dtype = torch.bfloat16 if wire == "bf16" else torch.float32
+    w_cpu = w_cpu.to(dtype)
+    x = torch.zeros(1, x_lead + d, device=cuda_device)[:, x_lead:]
+    x.copy_(x_cpu)
+    w = torch.zeros(1, w_lead + d, dtype=dtype, device=cuda_device)[:, w_lead:]
+    w.copy_(w_cpu)
+    form = BF16_FORM if wire == "bf16" else F32_FORM
+    alpha, zero = torch.tensor([0.3]), torch.zeros(1, dtype=torch.int32)
+    merge.reset_launch_counts()
+    got = merge.gather_merge(x, zero.to(cuda_device), alpha.to(cuda_device), wire=form, w=w).cpu()
+    want = merge.torch_pairwise_merge(x_cpu, zero, alpha, wire=form, w=w_cpu)
+    both_nan = got.isnan() & want.isnan()
+    assert bool(((got.view(torch.int32) == want.view(torch.int32)) | both_nan).all())
+    assert merge.gather_merge.launches == 1
+    with pytest.raises(TypeError):
+        merge.pair_merge_(x, zero.to(cuda_device), zero.to(cuda_device),
+                          alpha.to(cuda_device), wire="bf16", w=w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_exchange_on_device_pair_on_card_equals_cpu_pair(cuda_device, wire):
+    """Two in-process TCP nodes with device-resident replicas, run
+    lock-step 3 rounds at α ≠ 0.5, end bit-equal to the same pair on the
+    CPU; one B2 launch a merged round, the frames landing from pinned
+    memory."""
+    import dataclasses
+
+    from dpwa_tpu_torch.device import handoff
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    cfg = make_local_config(2, interpolation="clock", factor=0.7, wire_dtype=wire)
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    gen = torch.Generator().manual_seed(5)
+    start = [torch.randn(300_001, generator=gen) for _ in range(2)]
+    finals = {}
+    for device in ("cpu", cuda_device):
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            vecs = [v.to(device) for v in start]
+            merge.reset_launch_counts()
+            handoff.reset_handoff_stats()
+            for r in range(3):
+                clocks = [r + 1.0, r + 3.0]
+                for t, v, c in zip(nodes, vecs, clocks):
+                    t.publish(v, c, 0.5)
+                vecs = [t.exchange_on_device(v, c, 0.5, r)[0] for t, v, c in zip(nodes, vecs, clocks)]
+            if device != "cpu":
+                assert merge.gather_merge.launches == 6
+                assert handoff.handoff_stats()["h2d_pinned"] == 6
+            finals[str(device)] = [v.cpu() for v in vecs]
+        finally:
+            for t in nodes:
+                t.close()
+    for got, want in zip(finals[str(cuda_device)], finals["cpu"]):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

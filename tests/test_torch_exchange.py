@@ -28,7 +28,7 @@ from dpwa_tpu.utils.pytree import partition as ref_partition
 from dpwa_tpu_torch.config import make_local_config
 from dpwa_tpu_torch.interpolation import PeerMeta
 from dpwa_tpu_torch.parallel import stacked
-from dpwa_tpu_torch.utils.pytree import FlatParams
+from dpwa_tpu_torch.utils.pytree import FlatParams, Leaves
 
 SHAPES = {"a_kernel": (3, 50), "b_bias": (7,), "c_kernel": (2, 2, 8, 40), "d_scale": (300,)}
 SCHEDULES = {
@@ -172,3 +172,75 @@ def test_int8_wire_merges_differ_from_f32():
         outs[wire] = got["d_scale"].numpy()
     assert not np.array_equal(outs["f32"], outs["int8"])
     np.testing.assert_allclose(outs["f32"], outs["int8"], atol=0.05)
+
+
+def test_smallnet_int8_exchange_in_own_layout_bit_equal_to_reference():
+    """SmallNet in the port's layout (its conv kernel OIHW, Dense kernels
+    ``[out, in]``): with the buffer told each kernel's axes to the
+    reference's layout (``convert.reference_axes``), the int8 wire's chunks
+    hold the reference's elements and two rounds are bit-equal to the
+    reference's exchange of the Flax tree; without them they are not."""
+    from dpwa_tpu.models.mnist import SmallNet as RefSmallNet
+    from dpwa_tpu.train import init_params_per_peer as ref_init_per_peer
+    from dpwa_tpu_torch import convert
+
+    n = 4
+    variables = ref_init_per_peer(
+        lambda k: RefSmallNet().init(k, jnp.zeros((1, 8, 8, 1))), jax.random.key(3), n)
+    ref_params = variables["params"]
+    own = {k: torch.from_numpy(v) for k, v in convert.flax_to_torch(ref_params, stacked=True).items()}
+    axes = convert.reference_axes({k: v.shape[1:] for k, v in own.items()})
+    kw = dict(schedule="ring", wire_dtype="int8", interpolation="loss", factor=0.9, seed=3)
+    ref_t = ref_stacked.StackedTransport(ref_config(n, **kw))
+    ports = {
+        given is not None: (stacked.StackedTransport(make_local_config(n, **kw), device="cpu"),
+                            FlatParams.stack(Leaves({k: v.clone() for k, v in own.items()}, given)))
+        for given in (axes, None)
+    }
+    rng = np.random.default_rng(3)
+    for step in range(2):
+        clock = rng.uniform(0, 10, n).astype(np.float32)
+        loss = rng.uniform(0, 3, n).astype(np.float32)
+        ref_params, _ = ref_t.exchange(ref_params, RefMeta(jnp.asarray(clock), jnp.asarray(loss)), step)
+        want = convert.flax_to_torch(jax.tree.map(np.asarray, ref_params), stacked=True)
+        for with_axes, (t, flat) in ports.items():
+            t.exchange_params(flat, PeerMeta(torch.from_numpy(clock), torch.from_numpy(loss)), step)
+            equal = all(_bits_equal(v.numpy(), want[k]) for k, v in flat.views().items())
+            assert equal == with_axes, (step, with_axes)
+            flat.flat.copy_(FlatParams.stack({k: torch.from_numpy(v) for k, v in want.items()}).flat)
+
+
+def test_model_init_carries_the_reference_layout_to_the_wire(tmp_path):
+    """The port's ResNet and ConvNet ``init`` return their kernels' axes to
+    the reference's layouts (``convert.reference_axes``); the per-peer init,
+    the stacked state (with BatchNorm's statistics beside the parameters or
+    without) and a checkpoint keep them, so no caller passes them on."""
+    from dpwa_tpu_torch import checkpoint, convert
+    from dpwa_tpu_torch.models import mnist, resnet
+    from dpwa_tpu_torch.optim import adam
+    from dpwa_tpu_torch.train import init_params_per_peer
+    from dpwa_tpu_torch.utils import prng
+
+    t = stacked.StackedTransport(make_local_config(2, wire_dtype="int8"), device="cpu")
+    cases = {
+        "smallnet": (mnist.build_model((8, 8, 1)), None, 3),
+        "resnet8": (resnet.CifarResNet(depth=8, norm_type="batch"), "stats", 10),
+    }
+    for which, (model, with_stats, n_kernels) in cases.items():
+        flat = init_params_per_peer(lambda k: resnet.init(model, k), prng.key(0), 2, "cpu")
+        want = convert.reference_axes({k: v.shape[1:] for k, v in flat.views().items()})
+        assert len(want) == n_kernels and flat.axes == want, which
+        # torch.func maps the init's tree as a dict and keeps its layout.
+        grads = torch.func.grad(lambda p: sum(v.sum() for v in p.values()))(
+            resnet.init(model, prng.key(1)))
+        assert isinstance(grads, Leaves) and grads.axes == want, which
+        stats = None
+        if with_stats:
+            stats = {k: v.expand(2, *v.shape).clone() for k, v in resnet.batch_stats(model).items()}
+        state = stacked.init_stacked_state(flat, adam(1e-3), t, stats)
+        assert state.params.axes == want and state.params.leaves().axes == want, which
+        leaves = state.params.wire_leaves()
+        assert sum(len(leaf) == 4 for leaf in leaves) == n_kernels, which
+        ckpt = str(tmp_path / which)
+        checkpoint.save_checkpoint(ckpt, state)
+        assert checkpoint.restore_checkpoint(ckpt).params.axes == want, which
