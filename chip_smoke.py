@@ -31,9 +31,15 @@ that they went through the kernels:
   the reference deploys it): two OS processes, one per node of a copy of
   ``examples/mnist/nodes.yaml`` on two free ports, SmallNet, 300 steps,
   each replica on the card and every fetched frame merged there by one B2
-  launch over ``[1, 66410]``; and the TCP exchange itself as ``bench.py``
-  times it (2 nodes in one process, lock-step) with device-resident
-  replicas of ResNet-50's 25,557,032 parameters on the f32 and bf16 wires;
+  launch over ``[1, 66410]``; the same pair with node1's step made NaN,
+  which its guard rolls back to its ring on the card; the same pair with
+  node1 killed (SIGKILL) and restarted with ``DPWA_BOOTSTRAP=1``, which
+  node0 must quarantine, probe and readmit and node1 must land on node0's
+  published step, clock and replica; the TCP exchange itself as
+  ``bench.py`` times it (2 nodes in one process, lock-step) with
+  device-resident replicas of ResNet-50's 25,557,032 parameters on the f32
+  and bf16 wires; and the recovery plane's pieces at that size (the state's
+  pack, transfer, unpack and landing, the ring, the guard);
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -88,6 +94,7 @@ WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
     "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "tcp_exchange",
+    "rollback_tcp", "recover_tcp", "state_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -101,6 +108,12 @@ RESUME_STEPS, RESUME_SAVE = 14, 10
 # on the one card; the exchange bench at ResNet-50's vector (bench.py's TCP
 # leg: 3 warm-up rounds, then 3 passes of 10, median of the pass medians).
 TCP_TIMEOUT_S = 420
+# The recovery phases: node1 of the MNIST TCP pair killed once it has
+# merged this many rounds, then restarted to bootstrap from node0 (both run
+# RECOVER_STEPS steps, enough for node0 to outlast the restart); each must
+# merge at least RECOVER_MIN_MERGED rounds after it; node1's step made NaN
+# at ROLLBACK_AT.
+RECOVER_STEPS, RECOVER_KILL_MERGED, RECOVER_MIN_MERGED, ROLLBACK_AT = 6000, 50, 100, 150
 TCP_WARMUPS, TCP_PASSES, TCP_ITERS = 3, 3, 10
 # The BatchNorm path: ResNet-20's parameters and, right after them in each
 # row, its 1,568 running statistics; 5 steps.
@@ -952,12 +965,9 @@ def free_ports(n: int) -> list:
             sk.close()
 
 
-def train_tcp(kind: str) -> dict:
-    """Two OS processes of ``dpwa_tpu_torch.examples.mnist --transport tcp``,
-    node0 and node1 of a copy of ``examples/mnist/nodes.yaml`` on two free
-    ports, each with its replica on the card, free-running 300 steps as the
-    reference's ``run_tcp.sh`` runs them; each process's summary line."""
-    workdir = os.path.join(HERE, "build", "train_tcp")
+def tcp_config(workdir: str) -> str:
+    """A copy of ``examples/mnist/nodes.yaml`` under ``workdir`` with two
+    free ports; its path."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(HERE, "examples/mnist/nodes.yaml")) as f:
         text = f.read()
@@ -968,39 +978,314 @@ def train_tcp(kind: str) -> dict:
     config = os.path.join(workdir, "nodes.yaml")
     with open(config, "w") as f:
         f.write(text)
+    return config
+
+
+def mnist_node(config: str, name: str, steps: int, extra=(), env=None, stdout=subprocess.PIPE,
+               stderr=subprocess.PIPE):
+    """One OS process of ``dpwa_tpu_torch.examples.mnist --transport tcp``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "dpwa_tpu_torch.examples.mnist", "--transport", "tcp",
+         "--name", name, "--config", config, "--steps", str(steps), "--batch-size", "32",
+         *extra],
+        cwd=HERE, stdout=stdout, stderr=stderr, text=True, env=env,
+    )
+
+
+def node_result(phase: str, name: str, rc: int, stdout: str, stderr: str, kind: str,
+                steps: int) -> dict:
+    """A TCP node's summary line, checked: it ran on ``kind`` to ``steps``,
+    reached test accuracy 0.9, and launched B2 once a merged round."""
+    lines = stdout.strip().splitlines()
+    if rc != 0 or not lines:
+        print(stdout[-3000:], stderr[-3000:], file=sys.stderr)
+        raise AssertionError(f"{phase}: {name} exited {rc}")
+    res = json.loads(lines[-1])
+    if res["device"] != kind or res["steps"] != steps:
+        raise AssertionError(f"{phase}: {name} ran on {res['device']} for {res['steps']} steps")
+    if not res["accuracy"] >= 0.9:
+        raise AssertionError(f"{phase}: {name} test accuracy {res['accuracy']} < 0.9")
+    if res["merged_rounds"] < 1 or res["b2_launches"] != res["merged_rounds"]:
+        raise AssertionError(
+            f"{phase}: {name} merged {res['merged_rounds']} rounds with "
+            f"{res['b2_launches']} B2 launches")
+    return res
+
+
+def run_pair(phase: str, kind: str, steps: int, extras=((), ())) -> list:
+    """Two TCP nodes of the MNIST example run to their end; their checked
+    summaries."""
+    workdir = os.path.join(HERE, "build", phase)
+    config = tcp_config(workdir)
     procs = []
     try:
-        for i in range(MNIST_PEERS):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "dpwa_tpu_torch.examples.mnist", "--transport", "tcp",
-                 "--name", f"node{i}", "--config", config, "--steps", str(MNIST_STEPS),
-                 "--batch-size", "32"],
-                cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            ))
+        for i, extra in enumerate(extras):
+            procs.append(mnist_node(config, f"node{i}", steps, extra))
         outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    nodes = []
-    for i, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
-        lines = stdout.strip().splitlines()
-        if p.returncode != 0 or not lines:
-            print(stdout[-3000:], stderr[-3000:], file=sys.stderr)
-            raise AssertionError(f"train_tcp: node{i} exited {p.returncode}")
-        res = json.loads(lines[-1])
-        if res["device"] != kind or res["steps"] != MNIST_STEPS:
-            raise AssertionError(f"train_tcp: node{i} ran on {res['device']} for {res['steps']} steps")
-        if not res["accuracy"] >= 0.9:
-            raise AssertionError(f"train_tcp: node{i} test accuracy {res['accuracy']} < 0.9")
-        if res["merged_rounds"] < 1 or res["b2_launches"] != res["merged_rounds"]:
-            raise AssertionError(
-                f"train_tcp: node{i} merged {res['merged_rounds']} rounds with "
-                f"{res['b2_launches']} B2 launches")
-        nodes.append(res)
+    nodes = [node_result(phase, f"node{i}", p.returncode, *out, kind, steps)
+             for i, (p, out) in enumerate(zip(procs, outs))]
     shutil.rmtree(workdir, ignore_errors=True)
-    return {"nodes": nodes}
+    return nodes
+
+
+def train_tcp(kind: str) -> dict:
+    """Two OS processes of ``dpwa_tpu_torch.examples.mnist --transport tcp``,
+    node0 and node1 of a copy of ``examples/mnist/nodes.yaml`` on two free
+    ports, each with its replica on the card, free-running 300 steps as the
+    reference's ``run_tcp.sh`` runs them, at the default planes (recovery's
+    guard, ring and STATE serving, and health on); each process's summary
+    line."""
+    return {"nodes": run_pair("train_tcp", kind, MNIST_STEPS)}
+
+
+def rollback_tcp(kind: str) -> dict:
+    """``train_tcp`` with node1's replica and loss turned NaN after step
+    ``ROLLBACK_AT``'s update: node1 must roll back to its ring on the card
+    (once, restored), and node0 must record no ``poisoned`` fetch, since
+    the frame carries the snapshot's loss; both finish at accuracy 0.9."""
+    nodes = run_pair("rollback_tcp", kind, MNIST_STEPS,
+                     extras=((), ("--diverge-at", str(ROLLBACK_AT))))
+    sick, partner = nodes[1], nodes[0]
+    want = {"step": ROLLBACK_AT, "reason": "nonfinite_params", "restored": True,
+            "snapshot_step": ROLLBACK_AT - 1}
+    if sick["rollbacks"] != 1 or sick["last_rollback"] != want:
+        raise AssertionError(f"rollback_tcp: node1 rolled back {sick['rollbacks']} times, "
+                             f"last {sick['last_rollback']}, expected {want}")
+    if "poisoned" in partner["outcomes"] or "poisoned" in sick["outcomes"]:
+        raise AssertionError(f"rollback_tcp: a poisoned fetch: {[n['outcomes'] for n in nodes]}")
+    return {"nodes": nodes, "rollback": sick["last_rollback"]}
+
+
+def recover_tcp(kind: str, extra=()) -> dict:
+    """Kill and restart a TCP node.  node0 and node1 run ``RECOVER_STEPS``
+    steps at the default planes; once node1 reports ``RECOVER_KILL_MERGED``
+    merged rounds it is killed with SIGKILL from here.  node0 must
+    quarantine it and remap (with two nodes a remap is a self-pair: solo
+    rounds), probing it as its backoff runs out.  node1 restarts at once
+    with ``DPWA_BOOTSTRAP=1``: it must land on node0's published step and
+    clock and on a replica bit-equal to what node0 served (node0's
+    ``--trace-state`` log of each round's step, clock and CRC-32), be
+    readmitted, and both must merge again and end at accuracy 0.9."""
+    workdir = os.path.join(HERE, "build", "recover_tcp")
+    config = tcp_config(workdir)
+    trace = os.path.join(workdir, "node0_state.jsonl")
+    logs = {n: open(os.path.join(workdir, f"{n}.log"), "w+")
+            for n in ("node0.out", "node0.err", "node1a.err", "node1b.out", "node1b.err")}
+    procs = []
+    try:
+        node0 = mnist_node(config, "node0", RECOVER_STEPS,
+                           (*extra, "--trace-state", trace, "--log-every", "1000"),
+                           stdout=logs["node0.out"], stderr=logs["node0.err"])
+        procs.append(node0)
+        node1 = mnist_node(config, "node1", RECOVER_STEPS, (*extra, "--log-every", "10"),
+                           stderr=logs["node1a.err"])
+        procs.append(node1)
+        merged_at_kill = None
+        deadline = time.monotonic() + TCP_TIMEOUT_S
+        for line in node1.stdout:
+            if line.startswith("{") and json.loads(line).get("merged", 0) >= RECOVER_KILL_MERGED:
+                node1.kill()  # SIGKILL: no close, no goodbye
+                t_kill = time.monotonic()
+                merged_at_kill = json.loads(line)
+                break
+            if time.monotonic() > deadline:
+                break
+        node1.wait(timeout=60)
+        if merged_at_kill is None:
+            raise AssertionError(f"recover_tcp: node1 never reported {RECOVER_KILL_MERGED} "
+                                 f"merged rounds (exit {node1.returncode})")
+        env = dict(os.environ, DPWA_BOOTSTRAP="1")
+        restarted = mnist_node(config, "node1", RECOVER_STEPS, (*extra, "--log-every", "1000"),
+                               env=env, stdout=logs["node1b.out"], stderr=logs["node1b.err"])
+        procs.append(restarted)
+        rcs = [p.wait(timeout=TCP_TIMEOUT_S) for p in (node0, restarted)]
+        seconds_after_kill = time.monotonic() - t_kill
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = {}
+    for n, f in logs.items():
+        f.seek(0)
+        texts[n] = f.read()
+        f.close()
+    res0 = node_result("recover_tcp", "node0", rcs[0], texts["node0.out"], texts["node0.err"],
+                       kind, RECOVER_STEPS)
+    res1 = node_result("recover_tcp", "node1 (restarted)", rcs[1], texts["node1b.out"],
+                       texts["node1b.err"], kind, RECOVER_STEPS)
+    boot = next((json.loads(line)["bootstrap"] for line in texts["node1b.out"].splitlines()
+                 if line.startswith('{"node"') and '"bootstrap"' in line), None)
+    if boot is None or res1["bootstrap"] is None:
+        print(texts["node1b.out"][-3000:], texts["node1b.err"][-3000:], file=sys.stderr)
+        raise AssertionError("recover_tcp: the restarted node1 did not bootstrap")
+    with open(trace) as f:
+        served = {e["step"]: e for e in map(json.loads, f)}
+    at = served.get(boot["step"])
+    if at is None or (at["clock"], at["crc32"]) != (boot["clock"], boot["crc32"]):
+        raise AssertionError(f"recover_tcp: node1 landed on step {boot['step']}, clock "
+                             f"{boot['clock']}, crc32 {boot['crc32']}; node0 published {at}")
+    if res1["start_step"] != boot["step"] or boot["donor"] != 0:
+        raise AssertionError(f"recover_tcp: node1 restarted at {res1['start_step']} after "
+                             f"landing on {boot['step']} from donor {boot['donor']}")
+    events = res0["health_events"]
+    quarantined = [e["step"] for e in events if e["state"] == "quarantined"]
+    if not quarantined or res0["remapped_rounds"] < 1:
+        raise AssertionError(f"recover_tcp: node0 never quarantined node1: {events}")
+    # The first readmission after the kill (at the very end node0 may see
+    # node1 gone again: the one that finishes first leaves).
+    readmitted = [e["step"] for e in events if e["state"] == "healthy" and e["step"] > quarantined[0]]
+    if not readmitted:
+        raise AssertionError(f"recover_tcp: node0 did not readmit node1: {events}")
+    successes = res0["outcomes"].get("success", 0)
+    if successes < merged_at_kill["merged"] + RECOVER_MIN_MERGED or (
+            res1["merged_rounds"] < RECOVER_MIN_MERGED):
+        raise AssertionError(
+            f"recover_tcp: too few merges after the restart: node0 {successes} successes "
+            f"({merged_at_kill['merged']} before the kill), node1 {res1['merged_rounds']}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    chunk = 1 << 20  # recovery.state_chunk_bytes at its default
+    return {
+        "steps": RECOVER_STEPS, "killed_after_merged": merged_at_kill["merged"],
+        "killed_at_step": merged_at_kill["step"],
+        "quarantine_round": quarantined[0], "readmission_round": readmitted[0],
+        "rounds_remapped": res0["remapped_rounds"], "probes_sent": res0["probes"],
+        "health_events": events,
+        "bootstrap": {"step": boot["step"], "clock": boot["clock"], "crc32": boot["crc32"],
+                      "bytes": boot["nbytes"], "chunks": -(-boot["nbytes"] // chunk),
+                      "attempts": boot["attempts"], "ms": boot["latency_s"] * 1e3},
+        "seconds_kill_to_end": seconds_after_kill,
+        "steps_per_sec": {"node0": res0["steps_per_sec"], "node1_restarted": res1["steps_per_sec"]},
+        "merged_rounds": {"node0": res0["merged_rounds"], "node1_before_kill": merged_at_kill["merged"],
+                          "node1_restarted": res1["merged_rounds"]},
+        "b2_launches": {"node0": res0["b2_launches"], "node1_restarted": res1["b2_launches"]},
+        "accuracy": {"node0": res0["accuracy"], "node1_restarted": res1["accuracy"]},
+        "outcomes": {"node0": res0["outcomes"], "node1_restarted": res1["outcomes"]},
+    }
+
+
+def state_exchange(torch, device) -> dict:
+    """The recovery plane's costs at ResNet-50's vector (25,557,032 floats
+    on the card, as ``tcp_exchange``): ``pack_state`` of the replica (the
+    readback, then the pack), a lazy publish (what a round pays when the
+    state is packed at the first request), one whole STATE transfer over
+    loopback in 1 MiB chunks (pre-packed, and packed lazily at its first
+    chunk), the unpack and the landing on the card (one copy and one
+    scatter, as the adapter lands a bootstrap), a push and a rollback of
+    the ring on the card, and the local guard; the landing and the
+    rollback held bit for bit."""
+    from dpwa_tpu_torch.config import RecoveryConfig
+    from dpwa_tpu_torch.adapters.tcp_adapter import _packer
+    from dpwa_tpu_torch.parallel import tcp
+    from dpwa_tpu_torch.recovery import RollbackRing, pack_state, unpack_state, validate_payload
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    vec = torch.randn(R50_D, generator=gen, device=device)
+    meta = {"kind": "tcp_adapter", "clock": 100.0, "step": 100, "loss": 0.5}
+
+    def host_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters, out
+
+    readback_ms, host = host_ms(lambda: vec.cpu(), 3)
+    pack_ms, blob = host_ms(lambda: pack_state([host], meta=meta), 3)
+    eager_ms, _ = host_ms(lambda: pack_state([vec.cpu()], meta=meta), 3)
+    srv = tcp.PeerServer("127.0.0.1", 0)
+    try:
+        lazy_publish_ms, _ = host_ms(lambda: srv.publish_state(_packer(vec, meta)), 20)
+        srv.publish_state(blob)
+        chunk = RecoveryConfig().state_chunk_bytes
+        transfer_ms, (got, outcome, _lat, nrx) = host_ms(
+            lambda: tcp.fetch_state("127.0.0.1", srv.port, 10000, chunk_bytes=chunk), 3)
+        if outcome != "success" or got != blob:
+            raise AssertionError(f"state_exchange: the STATE transfer gave {outcome}")
+
+        def lazy_transfer():
+            srv.publish_state(_packer(vec, meta))
+            return tcp.fetch_state("127.0.0.1", srv.port, 10000, chunk_bytes=chunk)
+
+        lazy_transfer_ms, lazy = host_ms(lazy_transfer, 3)
+        if lazy[0] != blob:
+            raise AssertionError("state_exchange: the lazily packed state differs from pack_state's")
+    finally:
+        srv.close()
+    unpack_ms, (leaves, _meta) = host_ms(lambda: unpack_state(got), 3)
+    order = torch.arange(R50_D, device=device)
+    flat = torch.empty(R50_D, device=device)
+
+    def land():
+        flat.index_copy_(0, order, torch.from_numpy(leaves[0]).to(device))
+
+    landing_ms, _ = host_ms(land, 3)
+    if not torch.equal(flat.view(torch.int32), vec.view(torch.int32)):
+        raise AssertionError("state_exchange: the landed replica differs from the packed one")
+    ring = RollbackRing(RecoveryConfig().snapshot_ring)
+    ring.push(vec, 0, 0.0, 0.0)  # the slots are made at the first push
+    push_ms = cuda_event_ms(torch, lambda: ring.push(vec, 1, 1.0, 0.5), 10)
+
+    rollbacks = []
+    for i in range(5):  # each rollback timed alone, after a push outside its window
+        ring.push(vec, 2 + i, 2.0 + i, 0.5)
+        flat.zero_()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        flat.copy_(ring.rollback().vec)
+        end.record()
+        torch.cuda.synchronize()
+        rollbacks.append(start.elapsed_time(end))
+    rollback_ms = sorted(rollbacks)[len(rollbacks) // 2]
+    if not torch.equal(flat.view(torch.int32), vec.view(torch.int32)):
+        raise AssertionError("state_exchange: the rolled-back replica differs from the pushed one")
+    rec = RecoveryConfig()
+    guard_ms, verdict = host_ms(lambda: validate_payload(vec, 0.5, rec), 10)
+    if verdict is not None:
+        raise AssertionError(f"state_exchange: the guard refused a sane replica: {verdict}")
+    # What a recovery round adds on the host at train_tcp's d (SmallNet,
+    # 66,410 floats): the local guard (a sync and two scalars back), the
+    # ring push, the lazy state publish, and the eager pack it replaces;
+    # the scoreboard's record of the fetch outcome.
+    from dpwa_tpu_torch.health import Scoreboard
+
+    small = torch.randn(MNIST_D, generator=gen, device=device)
+    small_ring = RollbackRing(RecoveryConfig().snapshot_ring)
+    small_ring.push(small, 0, 0.0, 0.0)
+    board = Scoreboard(2, 0)
+    srv = tcp.PeerServer("127.0.0.1", 0)
+    try:
+        mnist_round = {
+            "d": MNIST_D,
+            "guard_ms": host_ms(lambda: validate_payload(small, 0.5, rec), 50)[0],
+            "ring_push_ms": host_ms(lambda: small_ring.push(small, 1, 1.0, 0.5), 50)[0],
+            "lazy_publish_ms": host_ms(lambda: srv.publish_state(_packer(small, meta)), 50)[0],
+            "eager_pack_ms": host_ms(lambda: pack_state([small.cpu()], meta=meta), 20)[0],
+            "scoreboard_record_ms": host_ms(lambda: board.record(1, "success", 1e-3, 265640, 1),
+                                            200)[0],
+        }
+    finally:
+        srv.close()
+    nbytes = R50_D * 4
+    return {
+        "mnist_round": mnist_round,
+        "d": R50_D, "blob_bytes": len(blob), "chunk_bytes": chunk,
+        "chunks": -(-len(blob) // chunk), "bytes_received": nrx,
+        "readback_ms": readback_ms, "pack_ms": pack_ms, "eager_pack_ms": eager_ms,
+        "lazy_publish_ms": lazy_publish_ms, "transfer_ms": transfer_ms,
+        "lazy_transfer_ms": lazy_transfer_ms, "unpack_ms": unpack_ms, "landing_ms": landing_ms,
+        "ring_push_ms": push_ms, "ring_rollback_ms": rollback_ms,
+        "ring_push_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+        "guard_ms": guard_ms, "guard_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    }
 
 
 def tcp_exchange(torch, merge, device, wire: str) -> dict:
@@ -1453,6 +1738,29 @@ def main(argv=None) -> int:
                   "nvidia_smi": name_limit, **res})
             torch.cuda.empty_cache()
 
+    if "rollback_tcp" in phases:
+        t0 = time.perf_counter()
+        res = rollback_tcp(kind)
+        main_launches["rollback_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(n["b2_launches"] for n in res["nodes"])}
+        emit({"phase": "rollback_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, "steps": MNIST_STEPS, "diverge_at": ROLLBACK_AT, **res})
+
+    if "recover_tcp" in phases:
+        t0 = time.perf_counter()
+        res = recover_tcp(kind)
+        main_launches["recover_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(res["b2_launches"].values())}
+        emit({"phase": "recover_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+
+    if "state_exchange" in phases:
+        t0 = time.perf_counter()
+        res = state_exchange(torch, device)
+        torch.cuda.empty_cache()
+        emit({"phase": "state_exchange", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+
     for phase, extra, kernel in (
         # The ResNet-20 path with partial participation and faults on the
         # int8 wire: the host's draws, the wire's fake quantisation, and the
@@ -1795,6 +2103,10 @@ def main(argv=None) -> int:
                 tcp_rows = results[kind_name].get("tcp", {})
                 kernels[-1].update({
                     "launches_tcp": main_launches.get("train_tcp", {}).get(name),
+                    # The recovery phases' MNIST pairs: a rolled-back step,
+                    # and a node killed and bootstrapped back.
+                    "launches_rollback_tcp": main_launches.get("rollback_tcp", {}).get(name),
+                    "launches_recover_tcp": main_launches.get("recover_tcp", {}).get(name),
                     "at_tcp_mnist": tcp_rows.get("mnist"),
                     "launches_tcp_exchange": [
                         main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],

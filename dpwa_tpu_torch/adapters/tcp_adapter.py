@@ -8,18 +8,24 @@
   :attr:`~dpwa_tpu_torch.utils.pytree.Leaves.axes` say so), runs
   one gossip round on the card, and scatters the merge back: one gather
   and one scatter.  So a port node and a ``dpwa_tpu`` node merge the same
-  elements.
+  elements.  With ``recovery.enabled`` (the default) it also runs the
+  reference's recovery around the round: the local guard rolls a sick
+  replica back to the newest snapshot of a
+  :class:`~dpwa_tpu_torch.recovery.guard.RollbackRing` on the card (the
+  frame then carries the snapshot's loss); the state a peer bootstraps
+  from is published after each round; ``bootstrap=True`` (or
+  ``DPWA_BOOTSTRAP=1``, which a restart supervisor sets) lands on a
+  healthy donor's replica, clock and step; and re-sync advice adopts a
+  donor's replica and clock under ``recovery.auto_resync``.
 - :class:`DpwaTorchAdapter` (alias :data:`DpwaPyTorchAdapter`) is the
   reference's PyTorch user surface: ``adapter.update(loss)`` after
   ``optimizer.step()``, the model's parameters flattened in
   ``model.parameters()`` order and torch layout, as the reference flattens
-  them, the flat vector on the model's device.
+  them, the flat vector on the model's device.  As the reference's, it runs
+  no recovery around the round; the transport's guard and health run.
 
-Not ported yet: the recovery plane around the round (serving the state
-for a peer's bootstrap, ``bootstrap=True`` or ``DPWA_BOOTSTRAP=1``, the
-rollback ring and its local guard, re-sync), the membership, trust and
-tune events, and the metrics records; the remote guard before each merge
-is the transport's and runs.
+Not ported yet: the membership plane's heal reconciliation, the trust and
+tune events, and the metrics records.
 """
 
 from __future__ import annotations
@@ -27,10 +33,13 @@ from __future__ import annotations
 import os
 from typing import Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from dpwa_tpu_torch.config import DpwaConfig, load_config
 from dpwa_tpu_torch.parallel.tcp import TcpTransport
+from dpwa_tpu_torch.recovery.guard import RollbackRing, validate_payload
+from dpwa_tpu_torch.recovery.state_transfer import pack_state
 from dpwa_tpu_torch.utils.pytree import FlatParams, layout_axes, leaf_order
 
 
@@ -38,14 +47,21 @@ def _resolve(config: Union[DpwaConfig, str]) -> DpwaConfig:
     return load_config(config) if isinstance(config, str) else config
 
 
-def _no_bootstrap(bootstrap: Optional[bool]) -> None:
-    if bootstrap is None:
-        bootstrap = os.environ.get("DPWA_BOOTSTRAP", "0") == "1"
-    if bootstrap:
-        raise NotImplementedError(
-            "bootstrap from a peer (recovery's STATE wire) is not ported to "
-            "dpwa_tpu_torch yet"
-        )
+def _packer(vec: torch.Tensor, meta: dict):
+    """A callable packing ``[vec]`` with ``meta`` when a peer first asks:
+    ``vec`` (nobody writes it again) is read back then, after the work
+    that made it (an event on its stream)."""
+    event = None
+    if vec.is_cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(vec.device))
+
+    def pack() -> bytes:
+        if event is not None:
+            event.synchronize()
+        return pack_state([vec.cpu()], meta=meta)
+
+    return pack
 
 
 class DpwaTcpAdapter:
@@ -60,7 +76,9 @@ class DpwaTcpAdapter:
     takes an already built :class:`TcpTransport` for this node.
     :attr:`params` are views of the buffer (:attr:`flat`, one row, for an
     optimizer over the flat buffer): train them in place, or pass new
-    values to :meth:`update`."""
+    values to :meth:`update`.  ``bootstrap`` (default: ``DPWA_BOOTSTRAP=1``
+    in the environment) fetches a healthy donor's state first and lands on
+    its replica, clock and :attr:`step` (:attr:`last_bootstrap`)."""
 
     def __init__(
         self,
@@ -72,7 +90,6 @@ class DpwaTcpAdapter:
         transport: Optional[TcpTransport] = None,
         bootstrap: Optional[bool] = None,
     ):
-        _no_bootstrap(bootstrap)
         self.config = _resolve(config)
         self.transport = transport if transport is not None else TcpTransport(
             self.config, name, device=device
@@ -88,10 +105,24 @@ class DpwaTcpAdapter:
         self._order = torch.as_tensor(self.flat.reference_order(), device=device)
         self._clock = 0.0
         self._step = 0
+        self._last_loss = 0.0
         self.last_alpha = 0.0
         self.last_partner = -1
+        rec = self.config.recovery
+        self._recovery = rec if rec.enabled else None
+        self.ring: Optional[RollbackRing] = RollbackRing(rec.snapshot_ring) if rec.enabled else None
+        self.last_bootstrap: Optional[dict] = None
+        self.last_rollback: Optional[dict] = None
+        self.last_resync_advice: Optional[dict] = None
+        if bootstrap is None:
+            bootstrap = os.environ.get("DPWA_BOOTSTRAP", "0") == "1"
+        if bootstrap and rec.enabled:
+            self._bootstrap_from_peer()
         # Serve the initial weights at once, as the reference does.
-        self.transport.publish(self.vector(), self._clock, 0.0)
+        vec = self.vector()
+        self.transport.publish(vec, self._clock, self._last_loss)
+        if self._recovery is not None:
+            self._publish_state(vec)
 
     @property
     def params(self) -> dict:
@@ -102,27 +133,130 @@ class DpwaTcpAdapter:
     def step(self) -> int:
         return self._step
 
+    @property
+    def clock(self) -> float:
+        return self._clock
+
     def vector(self) -> torch.Tensor:
         """The replica as the reference's flat vector (a new tensor)."""
         return self.flat.flat[0].index_select(0, self._order)
 
+    def health_snapshot(self) -> dict:
+        """Per-peer health (:meth:`TcpTransport.health_snapshot`)."""
+        return self.transport.health_snapshot()
+
+    # -- recovery -------------------------------------------------------
+    def _meta(self) -> dict:
+        return {"kind": "tcp_adapter", "clock": self._clock, "step": self._step,
+                "loss": self._last_loss}
+
+    def _packed_state(self) -> bytes:
+        """This node's whole state as a peer bootstraps from it: the
+        replica in the reference's element order, with its clock, next
+        step and loss."""
+        return _packer(self.vector(), self._meta())()
+
+    def _publish_state(self, vec: torch.Tensor) -> None:
+        """Serve :meth:`_packed_state` of the replica ``vec`` (the
+        reference order, a tensor nobody writes again), packed at the first
+        request: a round that no peer bootstraps from reads nothing back."""
+        self.transport.publish_state(_packer(vec, self._meta()))
+
+    def _land(self, vec: np.ndarray) -> bool:
+        """Adopt a donor's flat vector (the reference order) as the
+        replica: one copy to the device and one scatter."""
+        vec = np.asarray(vec, dtype=np.float32)
+        if vec.shape != (self.flat.size,):
+            return False
+        self.flat.flat[0].index_copy_(0, self._order, torch.from_numpy(vec).to(self.flat.flat.device))
+        return True
+
+    def _bootstrap_from_peer(self) -> bool:
+        """Fetch a healthy donor's state and land on its schedule step."""
+        from dpwa_tpu_torch.recovery.bootstrap import bootstrap_from_peer
+
+        res = bootstrap_from_peer(self.transport, like=None, step=self._step)
+        if res is None or not res.state or not self._land(res.state[0]):
+            return False
+        self._clock = float(res.meta.get("clock", 0.0))
+        self._step = int(res.meta.get("step", 0))
+        self._last_loss = float(res.meta.get("loss", 0.0))
+        self.last_bootstrap = {
+            "donor": res.donor, "step": self._step, "clock": self._clock,
+            "nbytes": res.nbytes, "attempts": res.attempts,
+            "latency_s": res.latency_s, "meta": res.meta,
+        }
+        return True
+
+    def _resync(self) -> bool:
+        """Adopt a healthy donor's replica and clock, keeping the step:
+        this node never left the ring, so its schedule position is right
+        and only its replica is stale."""
+        from dpwa_tpu_torch.recovery.bootstrap import bootstrap_from_peer
+
+        res = bootstrap_from_peer(self.transport, like=None, step=self._step)
+        if res is None or not res.state or not self._land(res.state[0]):
+            return False
+        self._clock = float(res.meta.get("clock", self._clock))
+        return True
+
+    def _guard_local(self, loss: float) -> None:
+        """Roll the replica back to the newest good snapshot when this
+        step's (replica, loss) trips the guard; the checks run on the
+        card, with one two-scalar readback."""
+        reason = validate_payload(self.flat.flat[0], loss, self._recovery)
+        if reason is None:
+            return
+        snap = self.ring.rollback()
+        if snap is not None:
+            # The replica only: clock and step stay monotonic, so the
+            # pairing sequence every peer draws is untouched.
+            self.flat.flat[0].copy_(snap.vec)
+            self._last_loss = snap.loss
+        self.last_rollback = {
+            "step": self._step, "reason": reason, "restored": snap is not None,
+            "snapshot_step": snap.step if snap is not None else None,
+        }
+
     def update(self, loss: float, params: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
         """One gossip round: the clock advances, the replica (``params`` if
-        given, copied in) is published and merged with this step's partner;
-        returns :attr:`params`."""
+        given, copied in) is guarded, published and merged with this step's
+        partner; returns :attr:`params`."""
         if params is not None:
             for k, view in self.flat.views().items():
                 if view[0].data_ptr() != params[k].data_ptr():
                     view[0].copy_(params[k])
+        loss = float(loss)
+        rolled_back = False
+        if self._recovery is not None:
+            before = self.last_rollback
+            self._guard_local(loss)
+            rolled_back = self.last_rollback is not before
+            if rolled_back:
+                # The snapshot's loss rides the frame, not the sick one
+                # (the partner's guard would take us for poisoned).
+                loss = self._last_loss
         self._clock += 1.0
         step = self._step
         vec = self.vector()
         merged, self.last_alpha, self.last_partner = self.transport.exchange_on_device(
-            vec, self._clock, float(loss), step
+            vec, self._clock, loss, step
         )
+        # The packed state's step is the next one to run: a rejoiner
+        # bootstrapping from it makes the draw this node makes next.
         self._step = step + 1
         if merged is not vec:
             self.flat.flat[0].index_copy_(0, self._order, merged)
+        if self._recovery is not None:
+            self._last_loss = loss
+            if not rolled_back and step % self._recovery.snapshot_every == 0:
+                self.ring.push(self.flat.flat[0], step, self._clock, loss)
+            self._publish_state(merged)
+            advice = self.transport.pop_resync_advice()
+            if advice is not None:
+                self.last_resync_advice = advice
+                if self._recovery.auto_resync:
+                    self._resync()
         return self.params
 
     def close(self) -> None:
@@ -135,9 +269,7 @@ class DpwaTorchAdapter:
     ``model.parameters()`` order, gossiped from the model's device (the
     transport's ring pinned when that is the card)."""
 
-    def __init__(self, model: torch.nn.Module, name: str, config: Union[DpwaConfig, str],
-                 bootstrap: Optional[bool] = None):
-        _no_bootstrap(bootstrap)
+    def __init__(self, model: torch.nn.Module, name: str, config: Union[DpwaConfig, str]):
         self.model = model
         self.config = _resolve(config)
         first = next(model.parameters(), None)

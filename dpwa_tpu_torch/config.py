@@ -4,10 +4,14 @@
 The same YAML file that drives ``dpwa_tpu`` drives the port: ``nodes:``
 lists the peers (its length is the stacked peer axis; host/port are where
 each node of the TCP transport serves), ``protocol:`` the schedule,
-``interpolation:`` the merge coefficient and ``recovery:`` the bound of the
-α = 1 rescue.  Every other top-level block belongs to a plane the port does
-not have yet; a file that sets one raises :class:`NotImplementedError`
-naming it, rather than dropping it.
+``interpolation:`` the merge coefficient, ``recovery:`` the guard, the
+rollback ring, the STATE wire and the bound of the α = 1 rescue, and
+``health:`` the TCP transport's failure detector and scoreboard.  The
+reference turns its ``membership:``, ``trust:`` and ``flowctl:`` planes on
+by default and the port has none of them yet: such a block loads when it
+says only ``enabled: false``, and any other content raises
+:class:`NotImplementedError` naming it, as does every other top-level block
+of a plane the port does not have, rather than dropping it.
 """
 
 from __future__ import annotations
@@ -20,8 +24,11 @@ import yaml
 # The TCP liveness floor (MEGABYTES/s), as in dpwa_tpu.config.
 DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 
-# The top-level blocks the stacked trainer reads.
-PORTED_BLOCKS = ("nodes", "protocol", "interpolation", "recovery")
+# The top-level blocks the port reads.
+PORTED_BLOCKS = ("nodes", "protocol", "interpolation", "recovery", "health")
+# Default-on planes of the reference that the port does not have yet: a
+# block of theirs may only switch the plane off.
+UNPORTED_DEFAULT_ON = ("membership", "trust", "flowctl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +129,9 @@ class InterpolationConfig:
 class RecoveryConfig:
     """``recovery:`` block.  The stacked trainer reads only ``enabled`` and
     :meth:`rescue_bound` (the interpolation's α = 1 rescue threshold); the
-    other knobs serve the TCP guard and state transfer of the reference and
-    are validated here so the same file loads in both packages."""
+    TCP transport and adapter read the rest: the guard's bounds, the
+    rollback ring, the STATE wire's chunks, deadline and retries, and the
+    re-sync's ``max_clock_lag`` and ``auto_resync``."""
 
     enabled: bool = True
     max_param_norm: float = 1e12
@@ -180,11 +188,66 @@ class RecoveryConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """``health:`` block: the TCP transport's peer-health plane (the
+    reference's fields and defaults).  Quarantine timing is counted in
+    gossip rounds, never wall time, so the plane's state is a function of
+    the outcome sequence.  ``healthz_port`` is validated and must stay
+    null: the ``/healthz`` endpoint is not ported yet."""
+
+    enabled: bool = True
+    # Quarantine when a peer's suspicion crosses this (about 1 per hard
+    # failure: the default is two hard failures in a row).
+    suspicion_threshold: float = 2.0
+    ewma_alpha: float = 0.2
+    success_decay: float = 0.25
+    quarantine_base_rounds: int = 4
+    quarantine_max_rounds: int = 64
+    jitter_rounds: int = 2
+    probe_timeout_ms: int = 100
+    healthz_port: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.suspicion_threshold <= 0:
+            raise ValueError(
+                f"suspicion_threshold must be > 0, got {self.suspicion_threshold}"
+            )
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError(f"ewma_alpha must be in (0, 1], got {self.ewma_alpha}")
+        if not 0.0 <= self.success_decay < 1.0:
+            raise ValueError(
+                f"success_decay must be in [0, 1), got {self.success_decay}"
+            )
+        if self.quarantine_base_rounds < 1:
+            raise ValueError(
+                f"quarantine_base_rounds must be >= 1, got {self.quarantine_base_rounds}"
+            )
+        if self.quarantine_max_rounds < self.quarantine_base_rounds:
+            raise ValueError("quarantine_max_rounds must be >= quarantine_base_rounds")
+        if self.jitter_rounds < 0:
+            raise ValueError(f"jitter_rounds must be >= 0, got {self.jitter_rounds}")
+        if self.probe_timeout_ms < 1:
+            raise ValueError(f"probe_timeout_ms must be >= 1, got {self.probe_timeout_ms}")
+        if self.healthz_port is not None and not 0 <= self.healthz_port < 65536:
+            raise ValueError(
+                f"healthz_port must be in [0, 65535] or null, got {self.healthz_port}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
     interpolation: InterpolationConfig = InterpolationConfig()
     recovery: RecoveryConfig = RecoveryConfig()
+    health: HealthConfig = HealthConfig()
+    # The reference's default-on planes that this config switched off.
+    disabled_planes: tuple[str, ...] = ()
+
+    def unported_planes(self) -> tuple[str, ...]:
+        """The reference's default-on planes that a node of the reference
+        would run under this config and a port node runs without."""
+        return tuple(p for p in UNPORTED_DEFAULT_ON if p not in self.disabled_planes)
 
     @property
     def n_peers(self) -> int:
@@ -231,14 +294,19 @@ def _build_nodes(raw: Sequence[Any]) -> tuple[NodeSpec, ...]:
 def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
     """Build a :class:`DpwaConfig` from a parsed-YAML mapping.
 
-    Raises :class:`NotImplementedError` naming any other top-level block:
-    the port has no plane that would read it."""
+    Raises :class:`NotImplementedError` naming any other top-level block,
+    and a ``membership:``, ``trust:`` or ``flowctl:`` block that says more
+    than ``enabled: false``: the port has no plane that would read it."""
     if "nodes" not in raw:
         raise ValueError("config is missing the required 'nodes:' list")
+    disabled = []
     for key in raw:
-        if key not in PORTED_BLOCKS:
+        if key in UNPORTED_DEFAULT_ON and dict(raw[key] or {}) == {"enabled": False}:
+            disabled.append(key)
+        elif key not in PORTED_BLOCKS:
             raise NotImplementedError(
                 f"config block {key!r} is not ported to dpwa_tpu_torch yet"
+                + (" (only 'enabled: false' is accepted)" if key in UNPORTED_DEFAULT_ON else "")
             )
     proto = dict(raw.get("protocol") or {})
     if "async_rounds" in proto:
@@ -251,6 +319,8 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         protocol=ProtocolConfig(**proto),
         interpolation=InterpolationConfig(**dict(raw.get("interpolation") or {})),
         recovery=RecoveryConfig(**dict(raw.get("recovery") or {})),
+        health=HealthConfig(**dict(raw.get("health") or {})),
+        disabled_planes=tuple(disabled),
     )
 
 
@@ -273,11 +343,20 @@ def make_local_config(
     seed: int = 0,
     base_port: int = 45000,
     recovery: "RecoveryConfig | Mapping[str, Any] | None" = None,
+    health: "HealthConfig | Mapping[str, Any] | None" = None,
+    disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
-    """Programmatic config for tests and benchmarks: n local peers."""
+    """Programmatic config for tests and benchmarks: n local peers.
+    ``disabled_planes`` names the unported default-on planes switched off
+    (as ``membership: {enabled: false}`` and so on in a file)."""
     if isinstance(recovery, Mapping):
         recovery = RecoveryConfig(**recovery)
+    if isinstance(health, Mapping):
+        health = HealthConfig(**health)
+    unknown = set(disabled_planes) - set(UNPORTED_DEFAULT_ON)
+    if unknown:
+        raise ValueError(f"disabled_planes names no unported plane: {sorted(unknown)}")
     return DpwaConfig(
         nodes=tuple(
             NodeSpec(name=f"node{i}", host="127.0.0.1", port=base_port + i)
@@ -291,4 +370,6 @@ def make_local_config(
         ),
         interpolation=InterpolationConfig(type=interpolation, factor=factor),
         recovery=recovery if recovery is not None else RecoveryConfig(),
+        health=health if health is not None else HealthConfig(),
+        disabled_planes=tuple(disabled_planes),
     )

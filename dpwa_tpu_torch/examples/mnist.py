@@ -29,6 +29,15 @@ data are full MNIST (``ConvNet``) when an ``mnist.npz`` lies under
 every ``--save-every`` steps; ``--resume`` continues from DIR the exact run
 (the same batches and the same exchanges).  Runs on the CUDA card unless
 ``--device cpu`` is given.
+
+A TCP node runs the reference's recovery and health planes: with
+``DPWA_BOOTSTRAP=1`` in its environment (as a restart supervisor sets it)
+it lands on a healthy peer's replica, clock and step and trains on from
+that step to ``--steps``.  ``--diverge-at STEP`` turns the node's replica
+and loss to NaN after that step's update (a diverged step, which the
+node's guard rolls back); ``--trace-state FILE`` appends, after each
+round, the step, clock and CRC-32 of the replica a peer bootstrapping from
+this node would land on.
 """
 
 from __future__ import annotations
@@ -65,6 +74,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument(
+        "--diverge-at", type=int, default=None, metavar="STEP",
+        help="--transport tcp: make this node's replica and loss NaN after "
+        "that step's update, as a diverged step would (the guard rolls it back)",
+    )
+    ap.add_argument(
+        "--trace-state", metavar="FILE",
+        help="--transport tcp: append one JSON line a round (step, clock, the "
+        "CRC-32 of the replica in the reference's order) to FILE",
+    )
+    ap.add_argument(
         "--profile", action="store_true",
         help="trace the timed steps with torch.profiler and report where the "
         "device time goes (the rate then includes the profiler's cost)",
@@ -83,6 +102,8 @@ def main(argv=None) -> dict:
         if args.checkpoint or args.profile:
             ap.error("--checkpoint and --profile are not wired into the per-process tcp loop")
         return run_tcp(args)
+    if args.diverge_at is not None or args.trace_state:
+        ap.error("--diverge-at and --trace-state need --transport tcp")
 
     from dpwa_tpu_torch import checkpoint
     from dpwa_tpu_torch.config import load_config
@@ -211,7 +232,11 @@ def run_tcp(args) -> dict:
     train this node's replica and gossip it every step; returns the
     node's losses, test accuracy, rate, merged rounds, fetch outcomes, wire
     bytes, host copies per received frame, B2 launches and peak device
-    memory."""
+    memory, and its recovery and health: the bootstrap it landed on, its
+    rollbacks, remapped rounds, header probes sent and each change of a
+    peer's health state with the step it was seen at."""
+    import zlib
+
     from dpwa_tpu_torch.adapters.tcp_adapter import DpwaTcpAdapter
     from dpwa_tpu_torch.config import load_config
     from dpwa_tpu_torch.data import load_mnist_or_digits, peer_split
@@ -241,6 +266,18 @@ def run_tcp(args) -> dict:
     adapter = DpwaTcpAdapter(params, args.name, cfg, transport=bundle.transport)
     params = adapter.params
     flat = adapter.flat
+    start = adapter.step  # 0, or the donor's step after a bootstrap
+
+    def replica_crc() -> int:
+        return zlib.crc32(adapter.vector().cpu().numpy())
+
+    if adapter.last_bootstrap is not None:
+        print(json.dumps({"node": args.name, "bootstrap": {
+            **adapter.last_bootstrap, "crc32": replica_crc()}}), flush=True)
+    trace = open(args.trace_state, "a") if args.trace_state else None
+    sb = adapter.transport.scoreboard
+    peer_state = {p: "healthy" for p in range(cfg.n_peers) if p != me}
+    health_events, remapped = [], 0
     opt = adam(args.lr)
     opt_state = opt.init(flat.flat)
 
@@ -254,8 +291,8 @@ def run_tcp(args) -> dict:
     losses = []
     t0 = None
     try:
-        for step in range(args.steps):
-            if step == 1:  # the first step (the kernels' build and load) untimed
+        for step in range(start, args.steps):
+            if step == start + 1:  # the first step (the kernels' build and load) untimed
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 t0 = time.perf_counter()
@@ -264,11 +301,25 @@ def run_tcp(args) -> dict:
             updates = opt.update_(flat.pack({k: g[None] for k, g in grads.items()}), opt_state)
             flat.add_(updates)
             loss = float(loss)
+            if step == args.diverge_at:
+                flat.flat.fill_(float("nan"))
+                loss = float("nan")
             params = adapter.update(loss)
             losses.append(loss)
+            remapped += bool(adapter.transport.last_round.get("remapped"))
+            if sb is not None:
+                for p, was in peer_state.items():
+                    now = sb.state(p)
+                    if now != was:
+                        health_events.append({"step": step, "peer": p, "state": now})
+                        peer_state[p] = now
+            if trace is not None:
+                trace.write(json.dumps({"step": adapter.step, "clock": adapter.clock,
+                                        "crc32": replica_crc()}) + "\n")
             if step % args.log_every == 0:
                 print(json.dumps({"step": step, "node": args.name, "loss": loss,
-                                  "alpha": adapter.last_alpha, "partner": adapter.last_partner}),
+                                  "alpha": adapter.last_alpha, "partner": adapter.last_partner,
+                                  "merged": adapter.transport.stats["merged"]}),
                       flush=True)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -278,12 +329,15 @@ def run_tcp(args) -> dict:
         acc = float((logits.argmax(-1).cpu().numpy() == y_te).mean())
         print(f"[{args.name}] {dataset} test accuracy: {acc:.4f}", flush=True)
         stats = adapter.transport.stats
+        timed = args.steps - start - 1
+        health = adapter.health_snapshot()["peers"]
         result = {
             "node": args.name,
             "dataset": dataset,
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "steps": args.steps,
-            "steps_per_sec": (args.steps - 1) / dt if args.steps > 1 else float("nan"),
+            "start_step": start,
+            "steps_per_sec": timed / dt if timed > 0 else float("nan"),
             "losses": losses,
             "accuracy": acc,
             "rounds": stats["rounds"],
@@ -298,8 +352,16 @@ def run_tcp(args) -> dict:
             "peak_memory_bytes": (
                 torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
             ),
+            "bootstrap": adapter.last_bootstrap,
+            "rollbacks": adapter.ring.rollbacks if adapter.ring is not None else 0,
+            "last_rollback": adapter.last_rollback,
+            "remapped_rounds": remapped,
+            "probes": sum(info["probe_attempts"] for info in health.values()),
+            "health_events": health_events,
         }
     finally:
+        if trace is not None:
+            trace.close()
         adapter.close()
     return result
 

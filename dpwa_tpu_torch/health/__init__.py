@@ -1,2 +1,26 @@
-"""Peer health: the fetch outcome classes (the health plane itself is not
-ported yet)."""
+"""Peer health on the TCP transport: the failure detector and the
+scoreboard's quarantine, probe and remap (the port of
+:mod:`dpwa_tpu.health`; the chaos harness and ``/healthz`` are not ported
+yet)."""
+
+from dpwa_tpu_torch.health.detector import (  # noqa: F401
+    DEFAULT_FAILURE_WEIGHTS,
+    FailureDetector,
+    Outcome,
+    PeerRecord,
+)
+from dpwa_tpu_torch.health.scoreboard import (  # noqa: F401
+    PeerState,
+    Scoreboard,
+    run_probe,
+)
+
+__all__ = [
+    "DEFAULT_FAILURE_WEIGHTS",
+    "FailureDetector",
+    "Outcome",
+    "PeerRecord",
+    "PeerState",
+    "Scoreboard",
+    "run_probe",
+]

@@ -1,8 +1,10 @@
 """The constants of the gossip blob protocol, byte for byte the reference's.
 
 The port's own copy of the part of :mod:`dpwa_tpu.parallel.protocol_constants`
-that the TCP transport's base protocol speaks: the request magic, the blob
-frame's header, its payload codes, the BUSY shed frame and the size clamp.
+that the TCP transport speaks: the request magics, the blob frame's
+header, its payload codes, the BUSY shed frame, the STATE wire (its
+request, its chunk header and the packed state blob's framing) and the
+size clamps.
 A node of either package reads the other's frames, so nothing here may
 differ from the reference (``tests/test_torch_tcp.py`` holds every value
 against it).  Stdlib only.
@@ -50,5 +52,14 @@ PAYLOAD_TOPK_DELTA = 5
 PAYLOAD_SHARD = 6
 CODEC_PAYLOAD_CODES = (PAYLOAD_INT8_CHUNKED, PAYLOAD_TOPK_DELTA, PAYLOAD_SHARD)
 
-# 16 GiB sanity bound on an advertised payload (a DoS bound of the contract).
+# Length prefix of the packed state blob's JSON header
+# (recovery/state_transfer.py), and the blob's own magic: the blob rides
+# opaquely inside DPWS chunks, but a donor and a rejoiner of either package
+# must agree on its framing.
+STATE_PACK_LEN = struct.Struct("<I")
+STATE_PACK_MAGIC = b"DPST"
+
+# Size clamps (DoS bounds, part of the served contract): 16 GiB on an
+# advertised payload, 64 MiB on one STATE chunk a server sends.
 MAX_BLOB_BYTES = 1 << 34
+MAX_STATE_CHUNK_BYTES = 1 << 26

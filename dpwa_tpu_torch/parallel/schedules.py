@@ -14,7 +14,11 @@ bit-equal to the reference's ``jax.random`` draw).  With
 ``fetch_probability < 1`` or ``drop_probability > 0`` each pair also draws,
 per step, whether it exchanges (:func:`participation_draw`,
 :func:`fault_draw`): on the host, from the same threefry streams as the
-reference, and :meth:`Schedule.drawn` gives the round's mask.
+reference, and :meth:`Schedule.drawn` gives the round's mask.  The TCP
+transport's control draws, the fallback partner of a quarantined one
+(:func:`fallback_draw`, :meth:`Schedule.remap_partner`), the quarantine
+backoff's jitter (:func:`backoff_jitter_draw`) and the bootstrap donor
+(:func:`donor_draw`), are the reference's threefry draws too.
 """
 
 from __future__ import annotations
@@ -49,6 +53,29 @@ def fault_draw(seed: int, step: int, pair_id: int, drop_probability: float) -> b
     independent of the participation stream)."""
     u = prng.uniform_scalar(_pair_key(seed, step, pair_id, _tags.TAG_FAULT))
     return bool(u < np.float32(drop_probability))
+
+
+def fallback_draw(seed: int, step: int, me: int, n_candidates: int) -> int:
+    """Index of the fallback partner a peer reroutes to when its scheduled
+    partner is quarantined (tag 3), keyed on ``(seed, step, me)``: every
+    replica with the same healthy view draws the same fallback."""
+    return prng.randint(_pair_key(seed, step, me, _tags.TAG_FALLBACK), 0, n_candidates)
+
+
+def backoff_jitter_draw(seed: int, peer: int, streak: int, jitter_rounds: int) -> int:
+    """Quarantine-backoff jitter in ``[0, jitter_rounds]`` (tag 4), keyed
+    on ``(seed, peer, consecutive-quarantine count)``."""
+    if jitter_rounds <= 0:
+        return 0
+    return prng.randint(
+        _pair_key(seed, peer, streak, _tags.TAG_BACKOFF_JITTER), 0, jitter_rounds + 1
+    )
+
+
+def donor_draw(seed: int, step: int, me: int, n_candidates: int) -> int:
+    """Index of the bootstrap donor a restarted peer fetches its state from
+    (tag 5), keyed on ``(seed, step, me)`` like :func:`fallback_draw`."""
+    return prng.randint(_pair_key(seed, step, me, _tags.TAG_DONOR), 0, n_candidates)
 
 
 def pool_branch_draw(seed: int, step: int, pool_size: int, periodic: bool) -> int:
@@ -288,6 +315,20 @@ class Schedule:
 
     def partner(self, step: int, i: int) -> int:
         return int(self.pairing(step)[i])
+
+    def remap_partner(self, step: int, i: int, partner: int, healthy_mask,
+                      candidates=None) -> int:
+        """The peer ``i`` fetches at ``step`` when its scheduled ``partner``
+        is quarantined: a :func:`fallback_draw` over the peers healthy per
+        ``healthy_mask`` (indexable by peer id), in index order, less ``i``
+        and ``partner``; ``candidates`` (sorted peer ids) narrows the
+        universe from ``range(n)``.  No candidate left gives ``i``: a
+        self-pair, the round skipped (solo training)."""
+        universe = range(self.n_peers) if candidates is None else candidates
+        pool = [p for p in universe if p != i and p != partner and healthy_mask[p]]
+        if not pool:
+            return i
+        return pool[fallback_draw(self.seed, step, i, len(pool))]
 
     @property
     def draws(self) -> bool:

@@ -25,14 +25,27 @@ the guard runs there, and the merge is one launch of B2 over ``[1, d]``
 :meth:`TcpTransport.exchange` is the same round for a host vector, merged
 on the CPU by B2's plain version.
 
+Two planes run around the round, as the reference runs them by default.
+Health: every classified fetch outcome feeds a
+:class:`~dpwa_tpu_torch.health.scoreboard.Scoreboard`, which quarantines a
+failing partner; :meth:`TcpTransport._resolve_partner` spends a header-only
+probe on it once its backoff has run out and otherwise remaps the round to
+a threefry-drawn healthy fallback (with none left, a self-pair: a solo
+round).  Recovery: the pre-merge guard, the STATE wire (a donor serves its
+packed state in CRC-checked chunks, one per connection; the fetch resumes
+after short reads) for a restarted node's bootstrap, and the re-sync
+advice when a probed peer's clock leads by more than
+``recovery.max_clock_lag``.
+
 Ported: the threaded Rx server, the classified fetch (refused, timeout,
 slow, busy, short_read, corrupt, poisoned, success), every schedule of the
 port with ``fetch_probability`` and ``drop_probability``, the constant,
-clock and loss interpolations, and the pre-merge guard.  Not yet: the
-codecs (``wire_dtype: int8``, ``wire_codec: topk``, ``shard:``), the
-prefetch pipeline, the reactor and native Rx servers, the STATE and RELAY
-wires and the control planes; the transport raises
-:class:`NotImplementedError` for the settings that ask for them.
+clock and loss interpolations, recovery and health.  Not yet: the codecs
+(``wire_dtype: int8``, ``wire_codec: topk``, ``shard:``), the prefetch
+pipeline, the reactor and native Rx servers, the RELAY wire, ``/healthz``
+and the membership, trust and flowctl planes; the transport raises
+:class:`NotImplementedError` for the settings that ask for them, and warns
+once when the config leaves one of the reference's default-on planes on.
 """
 
 from __future__ import annotations
@@ -40,7 +53,9 @@ from __future__ import annotations
 import socket
 import threading
 import time
-from typing import Optional, Tuple
+import warnings
+import zlib
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,6 +65,7 @@ from dpwa_tpu_torch.device import engine
 from dpwa_tpu_torch.device.handoff import to_device
 from dpwa_tpu_torch.device.replica import DeviceReplica
 from dpwa_tpu_torch.health.detector import Outcome
+from dpwa_tpu_torch.health.scoreboard import Scoreboard
 from dpwa_tpu_torch.interpolation import PeerMeta, make_interpolation
 from dpwa_tpu_torch.parallel import ingest
 from dpwa_tpu_torch.parallel import protocol_constants as pc
@@ -98,19 +114,41 @@ def _frame(payload: torch.Tensor, clock: float, loss: float) -> bytes:
     return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss))
 
 
+class _LazyState:
+    """A state blob packed at its first request (then kept): a publish
+    that no peer asks for costs nothing beyond holding what it reads."""
+
+    __slots__ = ("_pack", "_blob", "_lock")
+
+    def __init__(self, pack: Callable[[], bytes]):
+        self._pack: Optional[Callable[[], bytes]] = pack
+        self._blob: Optional[bytes] = None
+        self._lock = threading.Lock()
+
+    def get(self) -> bytes:
+        with self._lock:
+            if self._blob is None:
+                self._blob = bytes(self._pack())
+                self._pack = None
+            return self._blob
+
+
 class PeerServer:
-    """The Rx thread: serves this node's latest published frame.
+    """The Rx thread: serves this node's latest published frame and state.
 
     One thread accepts; each connection gets a thread of its own with a
-    bounded budget.  A blob request gets the frame; a STATE request the
-    well-formed empty transfer the reference's server gives when no state
-    is published (the port serves no state yet); a RELAY request, or
+    bounded budget.  A blob request (a header probe too: it reads the
+    header and hangs up) gets the frame, or a close when nothing is
+    published; a STATE request one chunk of the published state (a
+    well-formed empty transfer when there is none); a RELAY request, or
     anything else, is closed unanswered, as the reference's native server
     does."""
 
     def __init__(self, host: str, port: int):
         self._lock = threading.Lock()
         self._segments: Optional[tuple] = None
+        self._state: Union[bytes, _LazyState, None] = None
+        self._state_gen = 0
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         try:
@@ -132,6 +170,18 @@ class PeerServer:
         segments = _frame_segments(payload, clock, loss)
         with self._lock:
             self._segments = segments
+
+    def publish_state(self, blob: Union[bytes, Callable[[], bytes]]) -> None:
+        """Serve a packed train state for a peer's bootstrap from now on:
+        bytes (copied unless they are ``bytes`` already), or a callable
+        that packs them, called once, at the first STATE request of this
+        publish (what it reads must not change until then).  Each publish
+        bumps the generation, so a transfer in flight against the old
+        state restarts instead of splicing two."""
+        state = _LazyState(blob) if callable(blob) else bytes(blob)
+        with self._lock:
+            self._state = state
+            self._state_gen = (self._state_gen + 1) & 0xFFFFFFFF
 
     @property
     def _payload(self) -> Optional[bytes]:
@@ -171,9 +221,8 @@ class PeerServer:
     def _handle(self, conn: socket.socket) -> None:
         req = ingest.recv_exact_into(conn, len(pc.BLOB_REQ))
         if req == pc.STATE_REQ:
-            ingest.recv_exact_into(conn, pc.STATE_REQ_BODY.size)
-            empty = pc.STATE_HDR.pack(pc.STATE_MAGIC, 1, 0, 0, 0, 0, 0)
-            conn.sendall(empty)  # crc32 of no bytes is 0
+            body = ingest.recv_exact_into(conn, pc.STATE_REQ_BODY.size)
+            self._handle_state(conn, *pc.STATE_REQ_BODY.unpack(body))
             return
         if req != pc.BLOB_REQ:
             return
@@ -181,6 +230,21 @@ class PeerServer:
             segments = self._segments
         if segments is not None:
             ingest.sendall_segments(conn, segments)
+
+    def _handle_state(self, conn: socket.socket, offset: int, max_chunk: int) -> None:
+        """Serve one STATE chunk at ``offset``: at most ``max_chunk`` bytes
+        (and 64 MiB), with the generation, the total length and the
+        chunk's CRC32 in its header.  No published state is the empty
+        transfer (total 0), which a fetcher reads as "nothing here"."""
+        with self._lock:
+            state, gen = self._state, self._state_gen
+        blob = state.get() if isinstance(state, _LazyState) else (state or b"")
+        total = len(blob)
+        off = min(max(offset, 0), total)
+        n = min(max(max_chunk, 0), total - off, pc.MAX_STATE_CHUNK_BYTES)
+        chunk = memoryview(blob)[off : off + n]
+        header = pc.STATE_HDR.pack(pc.STATE_MAGIC, 1, gen, total, off, n, zlib.crc32(chunk))
+        ingest.sendall_segments(conn, (header, chunk))
 
     def close(self) -> None:
         self._stop.set()
@@ -339,6 +403,182 @@ def fetch_blob(host: str, port: int, timeout_ms: int,
     return fetch_blob_full(host, port, timeout_ms, min_bandwidth_bps)[0]
 
 
+def fetch_state_chunk(
+    host: str,
+    port: int,
+    offset: int,
+    max_chunk: int,
+    timeout_ms: int,
+    min_bandwidth_bps: float = _MIN_WIRE_BANDWIDTH,
+    out: Optional[memoryview] = None,
+) -> Tuple[Optional[Tuple[memoryview, int, int]], str, float, int]:
+    """Fetch one STATE chunk: ``(result, outcome, latency_s, bytes
+    received)``, ``result`` = ``(chunk, total, generation)`` or None.
+
+    The deadline is :func:`fetch_blob_full`'s: ``timeout_ms`` for connect,
+    request and header, and ``1 / min_bandwidth_bps`` seconds more per
+    byte of the chunk.  A bad header, a chunk longer than what remains (or
+    than ``out``, the window of the caller's blob the chunk lands in), a
+    CRC mismatch, or an offset the server clamped (its state shrank) is
+    ``corrupt``."""
+    t0 = time.monotonic()
+    deadline = t0 + timeout_ms / 1000.0
+    nbytes_rx = 0
+    try:
+        sock = socket.create_connection((host, port), timeout=timeout_ms / 1000.0)
+    except socket.timeout:
+        return None, Outcome.TIMEOUT, time.monotonic() - t0, 0
+    except OSError:
+        return None, Outcome.REFUSED, time.monotonic() - t0, 0
+    try:
+        with sock:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise socket.timeout("cumulative state-fetch deadline exceeded before request")
+            sock.settimeout(remaining)
+            sock.sendall(pc.STATE_REQ + pc.STATE_REQ_BODY.pack(offset, max_chunk))
+            raw = ingest.recv_exact_into(sock, pc.STATE_HDR.size, deadline)
+            magic, version, gen, total, off, chunk_len, crc = pc.STATE_HDR.unpack(raw)
+            if (
+                magic != pc.STATE_MAGIC or version != 1 or total > pc.MAX_BLOB_BYTES
+                or chunk_len > max(total - off, 0)
+                or (out is not None and chunk_len > len(out))
+            ):
+                return None, Outcome.CORRUPT, time.monotonic() - t0, 0
+            data = ingest.recv_exact_into(
+                sock, chunk_len, deadline, 1.0 / min_bandwidth_bps, out=out
+            )
+            nbytes_rx = len(data)
+            if zlib.crc32(data) != crc or off != min(max(offset, 0), total):
+                return None, Outcome.CORRUPT, time.monotonic() - t0, nbytes_rx
+            return (data, total, gen), Outcome.SUCCESS, time.monotonic() - t0, nbytes_rx
+    except socket.timeout:
+        return None, Outcome.TIMEOUT, time.monotonic() - t0, nbytes_rx
+    except OSError:
+        return None, Outcome.SHORT_READ, time.monotonic() - t0, nbytes_rx
+
+
+def fetch_state(
+    host: str,
+    port: int,
+    timeout_ms: int,
+    chunk_bytes: int = 1 << 20,
+    max_retries: int = 8,
+    min_bandwidth_bps: float = _MIN_WIRE_BANDWIDTH,
+) -> Tuple[Optional[bytes], str, float, int]:
+    """A donor's whole packed state, chunk by chunk from offset 0, each
+    chunk on a connection of its own and landing at its final offset:
+    ``(blob or None, outcome, latency_s, bytes received)``.
+
+    A timeout or short read resumes at the last banked offset; a corrupt
+    chunk, or a generation or length that changed (the donor published
+    anew), restarts from 0; each failure is charged to ``max_retries``
+    across the transfer, and a refused connect ends it at once.  A donor
+    with no state gives ``(b"", success)``; on failure ``outcome`` is the
+    last chunk's."""
+    t0 = time.monotonic()
+    blob: Optional[bytearray] = None
+    filled = 0
+    total: Optional[int] = None
+    gen: Optional[int] = None
+    retries = 0
+    nbytes_rx = 0
+
+    def failed(outcome):
+        return None, outcome, time.monotonic() - t0, nbytes_rx
+
+    while True:
+        window = memoryview(blob)[filled:] if blob is not None else None
+        got, outcome, _lat, nrx = fetch_state_chunk(
+            host, port, filled, chunk_bytes, timeout_ms, min_bandwidth_bps, out=window
+        )
+        nbytes_rx += nrx
+        if got is None:
+            if outcome == Outcome.REFUSED or retries >= max_retries:
+                return failed(outcome)
+            retries += 1
+            if outcome == Outcome.CORRUPT:
+                blob, filled, total, gen = None, 0, None, None
+            continue
+        data, tot, g = got
+        if gen is not None and (g != gen or tot != total):
+            if retries >= max_retries:
+                return failed(Outcome.CORRUPT)
+            retries += 1
+            blob, filled, total, gen = None, 0, None, None
+            continue
+        gen, total = g, tot
+        if blob is None:
+            blob = bytearray(total)
+            blob[: len(data)] = data
+            filled = len(data)
+        else:
+            filled += len(data)  # received in place, at blob[filled:]
+        if filled >= total:
+            return bytes(memoryview(blob)[:total]), Outcome.SUCCESS, time.monotonic() - t0, nbytes_rx
+        if not len(data):
+            if retries >= max_retries:
+                return failed(Outcome.CORRUPT)
+            retries += 1
+
+
+def probe_header_classified(
+    host: str, port: int, timeout_ms: int = 100
+) -> Tuple[str, Optional[float]]:
+    """Header-only liveness probe: ``(outcome, publish clock or None)``.
+
+    A blob request whose reply is read to the end of its header and
+    abandoned (the server's send into the closed socket ends that
+    connection), so a quarantined peer costs no payload.  ``success``
+    needs a well-formed header (a codec's payload code included); a BUSY
+    reply is ``busy``; failures are classified as the fetch's."""
+    deadline = time.monotonic() + timeout_ms / 1000.0
+    try:
+        sock = socket.create_connection((host, port), timeout=timeout_ms / 1000.0)
+    except socket.timeout:
+        return Outcome.TIMEOUT, None
+    except OSError:
+        return Outcome.REFUSED, None
+    try:
+        with sock:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return Outcome.TIMEOUT, None
+            sock.settimeout(remaining)
+            sock.sendall(pc.BLOB_REQ)
+            hdr = bytearray(max(pc.BLOB_HDR.size, pc.BUSY_HDR.size))
+            peek = ingest.recv_exact_into(sock, 4, deadline, out=hdr)
+            if peek == pc.BUSY_MAGIC:
+                ingest.recv_exact_into(sock, pc.BUSY_HDR.size - 4, deadline,
+                                       out=memoryview(hdr)[4:])
+                _magic, version, _retry_ms = pc.BUSY_HDR.unpack_from(hdr, 0)
+                return (Outcome.BUSY if version == 1 else Outcome.CORRUPT), None
+            ingest.recv_exact_into(sock, pc.BLOB_HDR.size - 4, deadline, out=memoryview(hdr)[4:])
+            magic, version, code, clock, _loss, nbytes = pc.BLOB_HDR.unpack_from(hdr, 0)
+            if (
+                magic != pc.BLOB_MAGIC or version != 1
+                or (code not in _FLAT and code not in pc.CODEC_PAYLOAD_CODES)
+                or nbytes > pc.MAX_BLOB_BYTES
+            ):
+                return Outcome.CORRUPT, None
+            return Outcome.SUCCESS, float(clock)
+    except socket.timeout:
+        return Outcome.TIMEOUT, None
+    except OSError:
+        return Outcome.SHORT_READ, None
+
+
+def probe_header_ex(host: str, port: int, timeout_ms: int = 100) -> Tuple[bool, Optional[float]]:
+    """:func:`probe_header_classified` as ``(ok, clock)``."""
+    outcome, clock = probe_header_classified(host, port, timeout_ms)
+    return outcome == Outcome.SUCCESS, clock
+
+
+def probe_header(host: str, port: int, timeout_ms: int = 100) -> bool:
+    """Whether a live Rx server serves a well-formed frame there."""
+    return probe_header_ex(host, port, timeout_ms)[0]
+
+
 _RING_LOCK = threading.Lock()
 _RING: list = []
 
@@ -361,6 +601,8 @@ def _unsupported(config: DpwaConfig) -> Optional[str]:
         return "protocol.overlap_prefetch: true (the prefetch pipeline)"
     if proto.rx_server != "threaded":
         return f"protocol.rx_server: {proto.rx_server} (the reactor Rx server)"
+    if config.health.enabled and config.health.healthz_port is not None:
+        return f"health.healthz_port: {config.health.healthz_port} (the /healthz endpoint)"
     return None
 
 
@@ -375,7 +617,10 @@ class TcpTransport:
     the YAML ``nodes:`` list, whose host and port it serves on.
 
     ``device`` is where its replicas merge and land: the CUDA card by
-    default (the receive ring is then pinned), ``"cpu"`` on purpose."""
+    default (the receive ring is then pinned), ``"cpu"`` on purpose.
+    With ``health.enabled`` (the default) :attr:`scoreboard` holds the
+    peers' health, and :attr:`last_round` says each round's scheduled and
+    actual partner, whether it was remapped, and the fetch's outcome."""
 
     def __init__(self, config: DpwaConfig, name: str, device=None):
         missing = _unsupported(config)
@@ -400,6 +645,25 @@ class TcpTransport:
         spec = config.nodes[self.me]
         self.server = make_peer_server(spec.host, spec.port)
         self._ports = {i: (n.host, n.port) for i, n in enumerate(config.nodes)}
+        # Every fetch outcome feeds the scoreboard; a quarantined partner
+        # is probed or remapped in _resolve_partner.
+        self.scoreboard: Optional[Scoreboard] = (
+            Scoreboard(len(config.nodes), self.me, config.health, seed=self.schedule.seed)
+            if config.health.enabled else None
+        )
+        # The clock last published (the probe's freshness check reads it)
+        # and the re-sync advice pending for the adapter.
+        self._last_clock = 0.0
+        self.resync_advice: Optional[dict] = None
+        missing_planes = config.unported_planes()
+        if missing_planes:
+            warnings.warn(
+                f"node {name!r} runs without the reference's default-on "
+                f"{', '.join(missing_planes)} plane(s), which dpwa_tpu_torch does not "
+                f"have yet; a dpwa_tpu node under this config runs them (switch them "
+                f"off with 'enabled: false' to silence this)",
+                stacklevel=2,
+            )
         self._stats_lock = threading.Lock()
         self.stats = {
             "frames_published": 0, "wire_bytes_published": 0,
@@ -447,6 +711,7 @@ class TcpTransport:
 
     def _publish_replica(self, rep: DeviceReplica, clock: float, loss: float) -> None:
         self._serve(rep.payload(self.wire), clock, loss)
+        self._last_clock = float(clock)
         if self.config.recovery.enabled and self.config.recovery.min_param_norm_ratio > 0.0:
             self._local_norm = rep.norm()
 
@@ -456,8 +721,8 @@ class TcpTransport:
         """Fetch, land and guard ``peer_index``'s frame: ``(vector, clock,
         loss)`` with the vector on ``device`` (the CPU by default; float32,
         or bf16 as the wire carried it), or None if the fetch failed or the
-        guard refused it.  :attr:`last_fetch` holds the outcome."""
-        del step  # the health plane that would record against it is not ported
+        guard refused it.  :attr:`last_fetch` holds the outcome, which the
+        scoreboard records against round ``step``."""
         if timeout_ms is None:
             timeout_ms = self.config.protocol.timeout_ms
         device = torch.device("cpu") if device is None else torch.device(device)
@@ -497,7 +762,76 @@ class TcpTransport:
             self.stats["wire_bytes_fetched"] += nbytes
             counts = self.stats["outcomes"]
             counts[outcome] = counts.get(outcome, 0) + 1
+        if self.scoreboard is not None:
+            self.scoreboard.record(
+                peer_index, outcome, latency_s=latency_s, nbytes=nbytes, round=step
+            )
         return got
+
+    # -- health and recovery --------------------------------------------
+    def _resolve_partner(self, step: int) -> Tuple[int, int, bool]:
+        """``(scheduled, actual, remapped)`` for this round.
+
+        A quarantined partner whose backoff has run out gets a header
+        probe first (the probe rides the rounds that would have fetched
+        from it); if it is quarantined after that, the round goes to
+        :meth:`Schedule.remap_partner`'s healthy fallback.  A successful
+        probe whose clock leads ours by more than
+        ``recovery.max_clock_lag`` leaves re-sync advice: we are the stale
+        replica.  Without health, the scheduled partner."""
+        sched = self.schedule.partner(step, self.me)
+        partner, remapped = sched, False
+        sb = self.scoreboard
+        if sb is not None and sched != self.me:
+            if sb.probe_due(sched, step):
+                host, port = self._ports[sched]
+                outcome, remote_clock = probe_header_classified(
+                    host, port, self.config.health.probe_timeout_ms
+                )
+                sb.record_probe(sched, outcome, round=step)
+                local_clock = self._last_clock
+                if (
+                    outcome == Outcome.SUCCESS
+                    and remote_clock is not None
+                    and self.config.recovery.enabled
+                    and remote_clock - local_clock > self.config.recovery.max_clock_lag
+                ):
+                    self.resync_advice = {
+                        "peer": sched, "remote_clock": float(remote_clock),
+                        "local_clock": float(local_clock), "step": int(step),
+                    }
+            if sb.is_quarantined(sched, step):
+                partner = self.schedule.remap_partner(step, self.me, sched, sb.healthy_mask(step))
+                remapped = True
+        return sched, partner, remapped
+
+    def publish_state(self, blob: Union[bytes, Callable[[], bytes]]) -> None:
+        """Serve this node's packed state for a peer's bootstrap (bytes, or
+        a callable packing them at the first request:
+        :meth:`PeerServer.publish_state`)."""
+        self.server.publish_state(blob)
+
+    def fetch_state(self, peer_index: int, timeout_ms: Optional[int] = None):
+        """A donor's whole packed state over the STATE wire
+        (:func:`fetch_state`), sized by the ``recovery:`` block."""
+        host, port = self._ports[peer_index]
+        rec = self.config.recovery
+        return fetch_state(
+            host, port, rec.bootstrap_timeout_ms if timeout_ms is None else timeout_ms,
+            chunk_bytes=rec.state_chunk_bytes, max_retries=rec.max_resume_retries,
+            min_bandwidth_bps=self.config.protocol.min_wire_mb_per_s * 1e6,
+        )
+
+    def pop_resync_advice(self) -> Optional[dict]:
+        """Consume the pending re-sync advice, if any."""
+        advice, self.resync_advice = self.resync_advice, None
+        return advice
+
+    def health_snapshot(self) -> dict:
+        """JSON-ready per-peer health (the scoreboard's snapshot)."""
+        if self.scoreboard is None:
+            return {"me": self.me, "round": 0, "peers": {}}
+        return self.scoreboard.snapshot()
 
     # -- the round ------------------------------------------------------
     def _weigh(self, got: tuple, clock: float, loss: float) -> float:
@@ -510,14 +844,16 @@ class TcpTransport:
         return float(self.interp(as_meta(clock, loss), as_meta(remote_clock, remote_loss))[0])
 
     def _round(self, rep: DeviceReplica, clock: float, loss: float, step: int):
-        """Publish, pick the partner, check participation, fetch, guard,
+        """Publish, resolve the partner, check participation, fetch, guard,
         weigh: ``(remote or None, α, partner)``; None skips the merge."""
         self._publish_replica(rep, clock, loss)
-        partner = self.schedule.partner(step, self.me)
+        sched, partner, remapped = self._resolve_partner(step)
         self.last_round = {
-            "step": step, "sched_partner": partner, "partner": partner,
-            "remapped": False, "outcome": None,
+            "step": step, "sched_partner": sched, "partner": partner,
+            "remapped": remapped, "outcome": None,
         }
+        # Participation stays keyed on the scheduled pairing; a remap moves
+        # only the fetch (to self when no healthy peer is left: skipped).
         if partner == self.me or not self.schedule.participates(step, self.me):
             return None, 0.0, partner
         got = self.fetch(partner, step=step, device=rep.dev.device)

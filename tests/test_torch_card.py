@@ -1012,3 +1012,69 @@ def test_exchange_on_device_pair_on_card_equals_cpu_pair(cuda_device, wire):
                 t.close()
     for got, want in zip(finals[str(cuda_device)], finals["cpu"]):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_rollback_ring_on_card(cuda_device):
+    """The ring's snapshots live on the card, in buffers made once at the
+    first push; a rollback hands back the newest, then digs deeper."""
+    from dpwa_tpu_torch.recovery import RollbackRing
+
+    ring = RollbackRing(3)
+    gen = torch.Generator().manual_seed(8)
+    cpu = [torch.randn(1_000_003, generator=gen) for _ in range(5)]
+    slots = set()
+    for i, v in enumerate(cpu):
+        dev = v.to(cuda_device, copy=True)
+        ring.push(dev, i, float(i), 0.1 * i)
+        dev.fill_(float("nan"))  # the replica moves on: the ring holds copies
+        slots.add(ring._slots.data_ptr())
+    assert len(slots) == 1 and ring._slots.is_cuda
+    for want in (4, 3, 2):
+        snap = ring.rollback()
+        assert snap.vec.is_cuda and snap.step == want
+        assert torch.equal(snap.vec.cpu(), cpu[want])
+    assert ring.rollback() is None
+
+
+def test_bootstrap_and_rollback_on_card(cuda_device):
+    """Two port nodes with their replicas on the card: the rejoiner's
+    bootstrap lands the donor's lazily packed state on the card (bit for
+    bit, with its step and clock), and a NaN step rolls back to the card's
+    ring, the frame carrying the snapshot's loss."""
+    import dataclasses
+
+    from dpwa_tpu_torch.adapters import DpwaTcpAdapter
+    from dpwa_tpu_torch.parallel import protocol_constants as pc
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    cfg = make_local_config(2, factor=0.3, disabled_planes=("membership", "trust", "flowctl"))
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    gen = torch.Generator().manual_seed(9)
+    tree = {"w": torch.randn(300, 201, generator=gen), "b": torch.randn(201, generator=gen)}
+    donor = DpwaTcpAdapter(tree, "node0", cfg, device=cuda_device)
+    rejoiner = None
+    try:
+        for r in range(3):
+            donor.update(0.5 + r)
+        t = TcpTransport(cfg, "node1", device=cuda_device)
+        t.set_peer_port(0, donor.transport.port)
+        rejoiner = DpwaTcpAdapter({k: torch.zeros_like(v) for k, v in tree.items()}, "node1",
+                                  cfg, transport=t, bootstrap=True)
+        assert rejoiner.flat.flat.is_cuda and rejoiner.last_bootstrap["donor"] == 0
+        assert (rejoiner.step, rejoiner.clock) == (donor.step, donor.clock) == (3, 3.0)
+        assert torch.equal(rejoiner.vector().cpu().view(torch.int32),
+                           donor.vector().cpu().view(torch.int32))
+        donor.transport.set_peer_port(1, rejoiner.transport.port)
+        rejoiner.update(1.0)
+        good = rejoiner.vector().cpu()
+        rejoiner.flat.flat.fill_(float("nan"))
+        rejoiner.update(float("nan"))
+        assert rejoiner.last_rollback["restored"] and rejoiner.last_rollback["snapshot_step"] == 3
+        assert rejoiner.ring._slots.is_cuda and torch.isfinite(rejoiner.vector()).all()
+        assert torch.isfinite(good).all()
+        frame_loss = pc.BLOB_HDR.unpack_from(rejoiner.transport.server._payload, 0)[4]
+        assert frame_loss == 1.0  # the snapshot's loss, not the NaN
+    finally:
+        donor.close()
+        if rejoiner is not None:
+            rejoiner.close()

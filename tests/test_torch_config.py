@@ -1,7 +1,9 @@
 """The port's config loading and interpolation against the reference.
 
 The same YAML files load to equal fields in ``dpwa_tpu.config`` and
-``dpwa_tpu_torch.config``; α from ``dpwa_tpu_torch.interpolation`` equals
+``dpwa_tpu_torch.config`` (the ``health:`` block too, and its validation);
+a ``membership:``, ``trust:`` or ``flowctl:`` block loads when it only
+switches the plane off and raises :class:`NotImplementedError` otherwise; α from ``dpwa_tpu_torch.interpolation`` equals
 ``dpwa_tpu.interpolation``'s bit for bit on a grid of (clock, loss) that
 includes NaN, inf and losses beyond the rescue bound.
 """
@@ -14,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from dpwa_tpu import config as ref_config
 from dpwa_tpu import interpolation as ref_interp
@@ -44,7 +47,7 @@ def test_example_yaml_loads_to_equal_core_fields(path):
 
 @pytest.mark.parametrize(
     "block",
-    ["shard", "health", "chaos", "membership", "trust", "flowctl", "obs",
+    ["shard", "chaos", "membership", "trust", "flowctl", "obs",
      "topology", "run", "tune"],
 )
 def test_unported_block_raises_naming_it(block):
@@ -52,6 +55,48 @@ def test_unported_block_raises_naming_it(block):
     ref_config.config_from_dict(raw)  # the reference accepts every block
     with pytest.raises(NotImplementedError, match=repr(block)):
         config.config_from_dict(raw)
+
+
+@pytest.mark.parametrize("block", ["membership", "trust", "flowctl"])
+def test_default_on_block_that_only_disables_loads(block):
+    raw = yaml.safe_load(f"nodes: [a, b]\n{block}: {{enabled: false}}\n")
+    assert not getattr(ref_config.config_from_dict(raw), block).enabled
+    cfg = config.config_from_dict(raw)
+    assert cfg.disabled_planes == (block,)
+    assert block not in cfg.unported_planes() and len(cfg.unported_planes()) == 2
+    assert config.config_from_dict({"nodes": ["a"]}).unported_planes() == (
+        "membership", "trust", "flowctl")
+
+
+@pytest.mark.parametrize("content", [None, {}, {"enabled": True}, {"enabled": False, "x": 1},
+                                     {"indirect_probes": 0}])
+@pytest.mark.parametrize("block", ["membership", "trust", "flowctl"])
+def test_default_on_block_with_other_content_raises(block, content):
+    with pytest.raises(NotImplementedError, match=repr(block)):
+        config.config_from_dict({"nodes": ["a", "b"], block: content})
+
+
+@pytest.mark.parametrize("raw", [{}, {"enabled": False}, {"suspicion_threshold": 3.5,
+                                 "quarantine_base_rounds": 2, "jitter_rounds": 0,
+                                 "probe_timeout_ms": 250}])
+def test_health_block_loads_equal_to_reference(raw):
+    doc = {"nodes": ["a", "b"], "health": raw}
+    ref = ref_config.config_from_dict(doc).health
+    port = config.config_from_dict(doc).health
+    assert _fields(port) == _fields(ref)
+    assert _fields(config.make_local_config(2, health=raw).health) == _fields(ref)
+
+
+@pytest.mark.parametrize("kw", [dict(suspicion_threshold=0), dict(ewma_alpha=0.0),
+                                dict(success_decay=1.0), dict(quarantine_base_rounds=0),
+                                dict(quarantine_max_rounds=2, quarantine_base_rounds=4),
+                                dict(jitter_rounds=-1), dict(probe_timeout_ms=0),
+                                dict(healthz_port=70000)])
+def test_health_validation_matches_reference(kw):
+    with pytest.raises(ValueError):
+        ref_config.HealthConfig(**kw)
+    with pytest.raises(ValueError):
+        config.HealthConfig(**kw)
 
 
 def test_async_rounds_and_unknown_blocks_raise():

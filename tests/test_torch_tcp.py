@@ -14,7 +14,8 @@ sockets on the CPU.
   TCP leg) for 5 rounds at α ≠ 0.5 (clock interpolation, unequal clocks):
   every merge bit-equal to an all-reference pair's, on both wires, with the
   reference node's health, membership, trust and flowctl planes off; and
-  with the reference node at its default planes, every round succeeding.
+  with every plane at its default on both sides, every round succeeding and
+  every merge bit-equal to a reference pair at its default planes.
   The merge is ``fma(1-α, x, α·y)``: g++'s contraction of
   ``native.merge_out`` and XLA's lerp both fuse the local product, which
   the first test pins against both at α = 0.3.
@@ -330,6 +331,33 @@ def test_mixed_pair_with_reference_default_planes_every_round_succeeds(wire):
     finally:
         for t in nodes:
             t.close()
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_mixed_pair_at_default_planes_merges_bit_equal_to_reference_pair(wire):
+    """Every plane at its default on both sides (the reference's health,
+    membership, trust and flowctl; the port's health and recovery): the
+    mixed pair's merges, α and outcomes equal a reference pair's at
+    default planes, round by round, at α ≠ 0.5."""
+    start = [np.random.default_rng(20 + i).standard_normal(5000).astype(np.float32)
+             for i in range(2)]
+    runs = {}
+    for kinds in (("ref", "ref"), ("ref", "port"), ("port", "ref")):
+        nodes = _pair(kinds, wire, planes={})
+        try:
+            vecs = [v.copy() if k == "ref" else torch.from_numpy(v.copy())
+                    for k, v in zip(kinds, start)]
+            runs[kinds] = _lockstep(nodes, vecs, rounds=6)
+        finally:
+            for t in nodes:
+                t.close()
+    want = runs[("ref", "ref")]
+    for kinds, got in runs.items():
+        for r, ((vecs, info), (want_vecs, want_info)) in enumerate(zip(got, want)):
+            assert info == want_info, (kinds, r)
+            for v, w in zip(vecs, want_vecs):
+                assert np.array_equal(_bits(v), _bits(w)), (kinds, r)
+    assert all(o == "success" and a not in (0.0, 0.5) for _, info in want for a, o in info)
 
 
 @pytest.mark.parametrize("wire", WIRES)

@@ -10,7 +10,7 @@ on the CPU over localhost sockets.
   ``DpwaPyTorchAdapter``) in pairs run lock-step for 4 rounds at α = 0.3:
   port pairs and mixed pairs end bit-equal to a reference pair (the
   reference's planes off, so the reference merges unscaled), the pattern of
-  ``tests/test_adapters.py``.  ``bootstrap=True`` raises.
+  ``tests/test_adapters.py``.
 - Two nodes of ``dpwa_tpu_torch.examples.mnist --transport tcp`` against
   two of the reference's ``examples/mnist/main.py`` ``run_tcp``, each
   package from its own init, in threads of this process, every fetch held
@@ -18,6 +18,8 @@ on the CPU over localhost sockets.
   (free-running processes fetch whatever the partner last published):
   each step's loss within rtol 1e-5 (the stacked example's tolerance,
   ``tests/test_torch_mnist.py``), the test accuracy within one image.
+- The example's recovery: ``--diverge-at`` makes one node's step NaN, its
+  guard rolls the replica back and its partner merges every round.
 - ``dpwa_tpu_torch.examples.mnist_torch`` against the reference's
   ``examples/mnist_torch/main.py`` (both torch), two nodes each the same
   way at α 0.3: each step's loss within rtol 1e-5, the accuracy within one
@@ -207,15 +209,6 @@ def test_torch_adapters_match_reference_pair():
             assert np.array_equal(v.view(np.int32), w.view(np.int32)), kinds
 
 
-def test_bootstrap_is_not_ported(monkeypatch):
-    cfg = _ephemeral(make_local_config(2))
-    with pytest.raises(NotImplementedError, match="bootstrap"):
-        DpwaTcpAdapter({"w": torch.ones(3)}, "node0", cfg, device="cpu", bootstrap=True)
-    monkeypatch.setenv("DPWA_BOOTSTRAP", "1")
-    with pytest.raises(NotImplementedError, match="bootstrap"):
-        DpwaTorchAdapter(torch.nn.Linear(2, 2), "node0", cfg)
-
-
 def _free_ports(n):
     socks = [socket.socket() for _ in range(n)]
     try:
@@ -302,6 +295,40 @@ def test_mnist_tcp_example_matches_reference_run_tcp(tmp_path, monkeypatch, caps
         want = [ref[name]["losses"][s] for s in range(steps)]
         np.testing.assert_allclose(res["losses"], want, rtol=1e-5, err_msg=name)
         assert abs(res["accuracy"] - ref[name]["acc"]) <= 1.0 / n_test + 1e-4
+
+
+def test_mnist_tcp_example_rolls_back_a_diverged_step(tmp_path, monkeypatch):
+    """``--diverge-at 4`` on node0: its guard rolls the NaN replica back to
+    step 3's snapshot and the frame carries that step's loss, so node1
+    merges every round (no ``poisoned``); ``--trace-state`` logs node1's
+    (step, clock, CRC-32) after each round."""
+    steps = 8
+    ports = _free_ports(2)
+    yaml = tmp_path / "nodes.yaml"
+    yaml.write_text(
+        "nodes:\n"
+        + "".join(f"  - {{name: node{i}, host: 127.0.0.1, port: {p}}}\n" for i, p in enumerate(ports))
+        + "protocol: {schedule: ring, timeout_ms: 2000, seed: 0}\n"
+    )
+    trace = tmp_path / "node1.jsonl"
+    _lockstep_fetch(monkeypatch, tcp.TcpTransport)
+    got = {}
+    _run_pair(lambda name: got.__setitem__(name, mnist_example.main([
+        "--transport", "tcp", "--name", name, "--config", str(yaml), "--device", "cpu",
+        "--steps", str(steps), "--log-every", "100",
+        *(["--diverge-at", "4"] if name == "node0" else ["--trace-state", str(trace)])])))
+    node0, node1 = got["node0"], got["node1"]
+    assert node0["rollbacks"] == 1 and node1["rollbacks"] == 0
+    assert node0["last_rollback"] == {"step": 4, "reason": "nonfinite_params",
+                                      "restored": True, "snapshot_step": 3}
+    assert np.isnan(node0["losses"][4]) and np.isfinite(np.delete(node0["losses"], 4)).all()
+    for res in got.values():
+        assert res["outcomes"] == {"success": steps} and res["merged_rounds"] == steps
+        assert res["remapped_rounds"] == 0 and res["health_events"] == []
+        assert res["start_step"] == 0 and res["bootstrap"] is None
+    lines = [json.loads(line) for line in trace.read_text().splitlines()]
+    assert [(e["step"], e["clock"]) for e in lines] == [(s, float(s)) for s in range(1, steps + 1)]
+    assert len({e["crc32"] for e in lines}) == steps
 
 
 def _serialised_model_init(monkeypatch, init_lock):
