@@ -31,7 +31,12 @@ that they went through the kernels:
   the reference deploys it): two OS processes, one per node of a copy of
   ``examples/mnist/nodes.yaml`` on two free ports, SmallNet, 300 steps,
   each replica on the card and every fetched frame merged there by one B2
-  launch over ``[1, 66410]``; the same pair with node1's step made NaN,
+  launch over ``[1, 66410]``, at the default planes (membership and trust
+  on: every frame carries its digest and is screened); three processes of
+  a 4-node copy and a byzantine fourth node serving sign-flips, which the
+  honest nodes must reject, quarantine and never merge; the trust screen
+  at 66,410 and 25,557,032 floats against its float64 plain version; the
+  same pair with node1's step made NaN,
   which its guard rolls back to its ring on the card; the same pair with
   node1 killed (SIGKILL) and restarted with ``DPWA_BOOTSTRAP=1``, which
   node0 must quarantine, probe and readmit and node1 must land on node0's
@@ -93,12 +98,23 @@ R50_PEERS = 32
 WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
-    "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "tcp_exchange",
-    "rollback_tcp", "recover_tcp", "state_exchange",
+    "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "trust_screen",
+    "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
 )
+# Phases run only when --phases names them (not by default).
+EXTRA_PHASES = ("train_tcp_planes",)
+# train_tcp_planes: train_tcp with the membership and trust planes on and
+# off, the four variants in turns (ABCD DCBA, PLANES_REPS times over).
+PLANE_VARIANTS = {
+    "defaults": "",
+    "trust_off": "trust: {enabled: false}\n",
+    "membership_off": "membership: {enabled: false}\n",
+    "both_off": "membership: {enabled: false}\ntrust: {enabled: false}\n",
+}
+PLANES_REPS = 2
 # The MNIST path (BASELINE config 1, stacked): 2 peers of SmallNet on the
 # digits, 66,410 parameters a peer; the resume check's run and save step.
 MNIST_D, MNIST_PEERS, MNIST_STEPS = 66410, 2, 300
@@ -115,6 +131,17 @@ TCP_TIMEOUT_S = 420
 # at ROLLBACK_AT.
 RECOVER_STEPS, RECOVER_KILL_MERGED, RECOVER_MIN_MERGED, ROLLBACK_AT = 6000, 50, 100, 150
 TCP_WARMUPS, TCP_PASSES, TCP_ITERS = 3, 3, 10
+# The byzantine phase: examples/mnist/nodes.yaml widened to 4 nodes; node0-2
+# are processes of the MNIST example, node3 a TcpTransport of this script
+# that serves the replica it last fetched and, once both its ring partners
+# (node0 and node2) have served a clock of BYZ_FLIP_AFTER or more (their
+# trust screens armed), that replica's sign-flip.  It paces its rounds at
+# BYZ_ROUND_S.  The honest nodes train on a quarter of the digits each and
+# run BYZ_STEPS steps.
+BYZ_NODES, BYZ_FLIP_AFTER, BYZ_ROUND_S, BYZ_STEPS = 4, 60, 0.005, 600
+# The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
+SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
+SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
 # The BatchNorm path: ResNet-20's parameters and, right after them in each
 # row, its 1,568 running statistics; 5 steps.
 BN_D, BN_STEPS = MAIN_D + 1568, 5
@@ -965,19 +992,25 @@ def free_ports(n: int) -> list:
             sk.close()
 
 
-def tcp_config(workdir: str) -> str:
-    """A copy of ``examples/mnist/nodes.yaml`` under ``workdir`` with two
-    free ports; its path."""
+def tcp_config(workdir: str, n: int = 2, extra: str = "") -> str:
+    """A copy of ``examples/mnist/nodes.yaml`` under ``workdir`` with free
+    ports, its two nodes followed by ``n - 2`` more, and ``extra`` (YAML
+    blocks) appended; its path."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(HERE, "examples/mnist/nodes.yaml")) as f:
         text = f.read()
-    for old, new in zip(("port: 45000", "port: 45001"), free_ports(2)):
-        if old not in text:
-            raise AssertionError(f"examples/mnist/nodes.yaml has no {old!r}")
-        text = text.replace(old, f"port: {new}")
+    last = "  - {name: node1, host: 127.0.0.1, port: 45001}\n"
+    if last not in text:
+        raise AssertionError(f"examples/mnist/nodes.yaml has no {last!r}")
+    text = text.replace(last, last + "".join(
+        f"  - {{name: node{i}, host: 127.0.0.1, port: {45000 + i}}}\n" for i in range(2, n)))
+    for i in range(n):  # placeholders first: a free port may be 4500x itself
+        text = text.replace(f"port: {45000 + i}}}", f"port: PORT{i}}}")
+    for i, new in enumerate(free_ports(n)):
+        text = text.replace(f"port: PORT{i}}}", f"port: {new}}}")
     config = os.path.join(workdir, "nodes.yaml")
     with open(config, "w") as f:
-        f.write(text)
+        f.write(text + extra)
     return config
 
 
@@ -1012,11 +1045,11 @@ def node_result(phase: str, name: str, rc: int, stdout: str, stderr: str, kind: 
     return res
 
 
-def run_pair(phase: str, kind: str, steps: int, extras=((), ())) -> list:
-    """Two TCP nodes of the MNIST example run to their end; their checked
-    summaries."""
+def run_pair(phase: str, kind: str, steps: int, extras=((), ()), blocks: str = "") -> list:
+    """Two TCP nodes of the MNIST example (``blocks`` appended to their
+    config) run to their end; their checked summaries."""
     workdir = os.path.join(HERE, "build", phase)
-    config = tcp_config(workdir)
+    config = tcp_config(workdir, extra=blocks)
     procs = []
     try:
         for i, extra in enumerate(extras):
@@ -1041,6 +1074,24 @@ def train_tcp(kind: str) -> dict:
     guard, ring and STATE serving, and health on); each process's summary
     line."""
     return {"nodes": run_pair("train_tcp", kind, MNIST_STEPS)}
+
+
+def train_tcp_planes(kind: str) -> dict:
+    """``train_tcp`` at the defaults and with the membership and trust
+    planes switched off in its config, the variants in turns in this one
+    call (the order of ``PLANE_VARIANTS``, then reversed, ``PLANES_REPS``
+    times): each run's mean steps/s over its two processes, and each
+    variant's median and its seconds a step."""
+    runs = {name: [] for name in PLANE_VARIANTS}
+    order = (list(PLANE_VARIANTS) + list(PLANE_VARIANTS)[::-1]) * PLANES_REPS
+    for name in order:
+        nodes = run_pair("train_tcp_planes", kind, MNIST_STEPS, blocks=PLANE_VARIANTS[name])
+        runs[name].append(sum(n["steps_per_sec"] for n in nodes) / len(nodes))
+    import statistics
+
+    medians = {name: statistics.median(v) for name, v in runs.items()}
+    return {"order": order, "steps_per_sec": runs, "median_steps_per_sec": medians,
+            "median_ms_per_step": {name: 1e3 / m for name, m in medians.items()}}
 
 
 def rollback_tcp(kind: str) -> dict:
@@ -1166,7 +1217,232 @@ def recover_tcp(kind: str, extra=()) -> dict:
         "b2_launches": {"node0": res0["b2_launches"], "node1_restarted": res1["b2_launches"]},
         "accuracy": {"node0": res0["accuracy"], "node1_restarted": res1["accuracy"]},
         "outcomes": {"node0": res0["outcomes"], "node1_restarted": res1["outcomes"]},
+        "relay_probes": {"node0": res0["relay_probes"], "node1_restarted": res1["relay_probes"]},
+        "events": {"node0": res0["events"], "node1_restarted": res1["events"]},
     }
+
+
+def byzantine_node(torch, config: str, device, stop, out: dict) -> None:
+    """node3 of ``byzantine_tcp``, run on a thread of this process until
+    ``stop`` is set: a port ``TcpTransport`` (trust off: an attacker does
+    not screen) that starts from SmallNet's init for ``key(3)``, then each
+    round publishes the replica it last fetched with its own clock
+    advancing, and from the flip on that replica's sign-flip, and fetches
+    from its ring partner.  ``out`` gets the clock of its first flipped
+    frame and its digest bytes."""
+    from dpwa_tpu_torch.adapters.tcp_adapter import DpwaTcpAdapter
+    from dpwa_tpu_torch.config import load_config
+    from dpwa_tpu_torch.data import load_mnist_or_digits
+    from dpwa_tpu_torch.models import mnist
+    from dpwa_tpu_torch.utils import prng
+
+    cfg = load_config(config)
+    cfg = dataclasses.replace(cfg, trust=dataclasses.replace(cfg.trust, enabled=False))
+    model = mnist.build_model(load_mnist_or_digits()[0].shape[1:]).to(device)
+    adapter = DpwaTcpAdapter(mnist.init(model, prng.key(3), device), "node3", cfg, device=device)
+    t = adapter.transport
+    vec, loss, seen = adapter.vector(), 0.5, {}
+    clock, step, flip_clock = 0.0, 0, None
+    try:
+        while not stop.is_set():
+            clock += 1.0
+            if flip_clock is None and len(seen) == 2 and min(seen.values()) >= BYZ_FLIP_AFTER:
+                flip_clock = clock
+            t.publish(vec if flip_clock is None else -vec, clock, loss)
+            partner = t.schedule.partner(step, t.me)
+            got = t.fetch(partner, step=step, device=device) if partner != t.me else None
+            if got is not None:
+                vec, seen[partner], loss = got[0].to(torch.float32), got[1], got[2]
+            step += 1
+            stop.wait(BYZ_ROUND_S)
+    finally:
+        out.update(flip_clock=flip_clock, clock=clock, rounds=step,
+                   digest_bytes=t.last_digest_nbytes)
+        adapter.close()
+
+
+def byzantine_tcp(torch, kind: str, device) -> dict:
+    """Three OS processes of the MNIST example (node0-2 of
+    ``examples/mnist/nodes.yaml`` widened to 4 nodes, at the default planes)
+    and a byzantine node3 (:func:`byzantine_node`).  Passes only if every
+    honest node reaches accuracy 0.9 and merges no frame of node3 from its
+    flip on (each node's newest merged clock of node3 is below the flip's),
+    and node3's ring partners (node0 and node2) record ``untrusted``
+    fetches and quarantine it."""
+    import threading
+
+    workdir = os.path.join(HERE, "build", "byzantine_tcp")
+    config = tcp_config(workdir, BYZ_NODES)
+    stop, byz = threading.Event(), {}
+    thread = threading.Thread(target=byzantine_node, args=(torch, config, device, stop, byz))
+    thread.start()
+    procs = []
+    try:
+        procs = [mnist_node(config, f"node{i}", BYZ_STEPS) for i in range(BYZ_NODES - 1)]
+        outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nodes = [node_result("byzantine_tcp", f"node{i}", p.returncode, *out, kind, BYZ_STEPS)
+             for i, (p, out) in enumerate(zip(procs, outs))]
+    shutil.rmtree(workdir, ignore_errors=True)
+    flip = byz.get("flip_clock")
+    if flip is None:
+        raise AssertionError(f"byzantine_tcp: node3 never flipped ({byz})")
+    quarantined = {}
+    for i, res in enumerate(nodes):
+        merged = res["merged_from"].get("3")
+        if merged is not None and merged[1] >= flip:
+            raise AssertionError(f"byzantine_tcp: node{i} merged node3's clock {merged[1]} "
+                                 f"at or after its flip at clock {flip}")
+        steps = [e["step"] for e in res["health_events"]
+                 if e["peer"] == 3 and e["state"] == "quarantined"]
+        quarantined[f"node{i}"] = steps[0] if steps else None
+    for i in (0, 2):
+        if not nodes[i]["outcomes"].get("untrusted") or quarantined[f"node{i}"] is None:
+            raise AssertionError(f"byzantine_tcp: node{i} did not reject and quarantine node3: "
+                                 f"{nodes[i]['outcomes']}, {nodes[i]['health_events']}")
+    return {
+        "flip_clock": flip, "byzantine_rounds": byz["rounds"],
+        "digest_bytes_per_frame": {"node3": byz["digest_bytes"],
+                                   **{f"node{i}": n["digest_bytes"] for i, n in enumerate(nodes)}},
+        "verdicts": {f"node{i}": n["verdicts"] for i, n in enumerate(nodes)},
+        "outcomes": {f"node{i}": n["outcomes"] for i, n in enumerate(nodes)},
+        "merged_from_node3": {f"node{i}": n["merged_from"].get("3") for i, n in enumerate(nodes)},
+        "quarantine_step": quarantined,
+        "events": {f"node{i}": n["events"] for i, n in enumerate(nodes)},
+        "accuracy": {f"node{i}": n["accuracy"] for i, n in enumerate(nodes)},
+        "steps_per_sec": {f"node{i}": n["steps_per_sec"] for i, n in enumerate(nodes)},
+        "b2_launches": {f"node{i}": n["b2_launches"] for i, n in enumerate(nodes)},
+    }
+
+
+def plain_stats(torch, local, remote, starts) -> dict:
+    """The screen's statistics on CPU copies with the sums in float64 (a
+    float32 sum on the CPU drifts by 1e-3 at 25M terms; the card's tree
+    reductions do not), and ``leaf_ratio`` by the port's own float32 code
+    there: maxima and one division, exact on either device."""
+    from dpwa_tpu_torch.trust.screen import _leaf_max_ratio, stats_from_sums
+
+    a, b = local.cpu(), remote.cpu().to(torch.float32)
+    a64, b64 = a.double(), b.double()
+    sums = [torch.linalg.vector_norm(a64), torch.linalg.vector_norm(b64), torch.dot(a64, b64),
+            torch.linalg.vector_norm((b - a).double())]
+    return stats_from_sums([float(x) for x in sums] + [float(_leaf_max_ratio(a, b, starts))])
+
+
+def trust_screen(torch, device, flush) -> dict:
+    """The trust screen on the card at the TCP paths' replicas (SmallNet's
+    66,410 floats, ResNet-50's 25,557,032), each segmented by its model's
+    leaf sizes in the reference's order: an honest remote (a perturbed
+    copy) and a sign-flip, each held against the plain version on CPU
+    copies (:func:`plain_stats`): ``norm_ratio`` and ``update_ratio``
+    within ``SCREEN_RTOL``, ``cosine`` within it absolutely, ``leaf_ratio``
+    equal.  Timed with CUDA events, L2 flushed: the sums alone (device
+    time, no readback) and the whole ``payload_stats`` (with its one
+    readback), beside the bound (both vectors read once); and on the host
+    clock the guard's checks and the screen read back apart (two syncs)
+    and together (one, as the transport does)."""
+    from dpwa_tpu_torch.models import mnist
+    from dpwa_tpu_torch.recovery.guard import payload_check_tensors, payload_checks
+    from dpwa_tpu_torch.trust.screen import leaf_starts_from_sizes, payload_stats, payload_sums
+    from dpwa_tpu_torch.utils.pytree import leaf_sizes
+
+    out = {}
+    for name, d, which in SCREEN_CASES:
+        if which == "mnist":
+            from dpwa_tpu_torch.data import load_mnist_or_digits
+
+            model = mnist.build_model(load_mnist_or_digits()[0].shape[1:])
+            shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        else:
+            shapes = resnet_shapes(True, "meta")
+        sizes = leaf_sizes({k: torch.empty(v, device="meta") for k, v in shapes.items()})
+        starts = leaf_starts_from_sizes(sizes, d)
+        if starts is None:
+            raise AssertionError(f"trust_screen: {name}'s leaves make {sum(sizes)}, not {d}")
+        gen = torch.Generator(device=device).manual_seed(5)
+        local = torch.randn(d, generator=gen, device=device)
+        honest = local + 0.01 * torch.randn(d, generator=gen, device=device)
+        case = {"d": d, "leaves": len(sizes)}
+        for label, remote in (("honest", honest), ("sign_flip", -local)):
+            got = payload_stats(local, remote, starts)
+            want = plain_stats(torch, local, remote, starts)
+            errs = {k: abs(got[k] - want[k]) / (abs(want[k]) if k != "cosine" else 1.0)
+                    for k in ("norm_ratio", "update_ratio", "cosine")}
+            if max(errs.values()) > SCREEN_RTOL or got["leaf_ratio"] != want["leaf_ratio"]:
+                raise AssertionError(f"trust_screen {name} {label}: {got} vs the plain {want}")
+            case[label] = {"stats": got, "errors": errs}
+        nbytes = 2 * d * 4
+        case["ms"] = time_ms(torch, lambda: payload_sums(local, honest, starts), 20, flush)
+        case["stats_ms"] = time_ms(torch, lambda: payload_stats(local, honest, starts), 20, flush)
+        case["bound_ms"], case["bound_by"] = bound_ms(nbytes, 8.0 * d)
+
+        # The fetch path's guard and screen: two readbacks, or the guard's
+        # scalars and the screen's read back together (the transport's
+        # way); host clock around each call, the card drained before.
+        def two_syncs():
+            payload_checks(honest)
+            payload_stats(local, honest, starts)
+
+        def one_sync():
+            torch.cat([payload_check_tensors(honest),
+                       payload_sums(local, honest, starts).double()]).tolist()
+
+        for label, fn in (("guard_then_screen_ms", two_syncs), ("guard_with_screen_ms", one_sync)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            case[label] = (time.perf_counter() - t0) * 1e3 / 50
+        # The host's time to enqueue the sums (near the device time only if
+        # something in them waits for the card).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload_sums(local, honest, starts)
+        case["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out[name] = case
+        del local, honest
+    out["host"] = plane_host_ms(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def plane_host_ms(torch) -> dict:
+    """The planes' host work a round, on the host clock (no card): the
+    trust policy on the five scalars (``TrustManager.screen`` with the
+    statistics given: the median/MAD windows) and a membership round of a
+    2-node view (the digest's encode at publish, its merge at fetch, the
+    round's end), each the mean of 300 rounds."""
+    import numpy as np
+
+    from dpwa_tpu_torch.health.scoreboard import Scoreboard
+    from dpwa_tpu_torch.membership.manager import MembershipManager
+    from dpwa_tpu_torch.trust.manager import TrustManager
+    from dpwa_tpu_torch.trust.screen import stats_from_sums
+
+    rng = np.random.default_rng(0)
+    trust = TrustManager(2, 0)
+    vec = torch.zeros(4)
+    sums = [[100.0, 100.0 + rng.random(), 9999.0, 1.0 + rng.random(), 1.0] for _ in range(300)]
+    t0 = time.perf_counter()
+    for r, row in enumerate(sums):
+        trust.screen(1, vec, float(r), vec, round=r, stats=stats_from_sums(row))
+    policy_ms = (time.perf_counter() - t0) * 1e3 / len(sums)
+    views = [MembershipManager(2, i, Scoreboard(2, i)) for i in range(2)]
+    t0 = time.perf_counter()
+    for r in range(300):
+        blob = views[1].encode(r)
+        views[0].merge(blob, round=r)
+        views[0].end_round(r)
+    return {"trust_policy_ms": policy_ms,
+            "membership_round_ms": (time.perf_counter() - t0) * 1e3 / 300}
 
 
 def state_exchange(torch, device) -> dict:
@@ -1477,7 +1753,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases", default=",".join(ALL_PHASES),
-        help="comma-separated subset of " + ",".join(ALL_PHASES),
+        help="comma-separated subset of " + ",".join(ALL_PHASES + EXTRA_PHASES)
+        + " (the last of them only when named)",
     )
     ap.add_argument(
         "--out", default=None,
@@ -1486,7 +1763,7 @@ def main(argv=None) -> int:
     )
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(ALL_PHASES)
+    unknown = set(phases) - set(ALL_PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1725,7 +2002,33 @@ def main(argv=None) -> int:
             "pair_merge_": 0, "gather_merge": sum(n["b2_launches"] for n in res["nodes"])}
         emit({"phase": "train_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
               "steps": MNIST_STEPS, "nodes": res["nodes"],
-              "mean_accuracy": sum(n["accuracy"] for n in res["nodes"]) / len(res["nodes"])})
+              "mean_accuracy": sum(n["accuracy"] for n in res["nodes"]) / len(res["nodes"]),
+              "steps_per_sec": [n["steps_per_sec"] for n in res["nodes"]],
+              "trust_verdicts": [n["verdicts"] for n in res["nodes"]],
+              "membership_events": [n["events"] for n in res["nodes"]]})
+
+    if "train_tcp_planes" in phases:
+        t0 = time.perf_counter()
+        res = train_tcp_planes(kind)
+        emit({"phase": "train_tcp_planes", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, "steps": MNIST_STEPS, **res})
+
+    if "trust_screen" in phases:
+        t0 = time.perf_counter()
+        flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=device)
+        res = trust_screen(torch, device, flush)
+        del flush
+        torch.cuda.empty_cache()
+        emit({"phase": "trust_screen", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+
+    if "byzantine_tcp" in phases:
+        t0 = time.perf_counter()
+        res = byzantine_tcp(torch, kind, device)
+        main_launches["byzantine_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(res["b2_launches"].values())}
+        emit({"phase": "byzantine_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, "steps": BYZ_STEPS, **res})
 
     if "tcp_exchange" in phases:
         for wire in ("f32", "bf16"):
@@ -2107,6 +2410,8 @@ def main(argv=None) -> int:
                     # and a node killed and bootstrapped back.
                     "launches_rollback_tcp": main_launches.get("rollback_tcp", {}).get(name),
                     "launches_recover_tcp": main_launches.get("recover_tcp", {}).get(name),
+                    # The three honest MNIST processes of the byzantine phase.
+                    "launches_byzantine_tcp": main_launches.get("byzantine_tcp", {}).get(name),
                     "at_tcp_mnist": tcp_rows.get("mnist"),
                     "launches_tcp_exchange": [
                         main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],

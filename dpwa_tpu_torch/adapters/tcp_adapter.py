@@ -16,7 +16,12 @@
   from is published after each round; ``bootstrap=True`` (or
   ``DPWA_BOOTSTRAP=1``, which a restart supervisor sets) lands on a
   healthy donor's replica, clock and step; and re-sync advice adopts a
-  donor's replica and clock under ``recovery.auto_resync``.
+  donor's replica and clock under ``recovery.auto_resync``.  It gives the
+  trust screen the model's leaf sizes in the frame's order, drains the
+  membership and trust events into :attr:`~DpwaTcpAdapter.events`, and
+  acts on the membership plane's heal advice
+  (:meth:`~DpwaTcpAdapter._reconcile_heal`): a drawn donor of the
+  returning component's state, guarded, merged on the card.
 - :class:`DpwaTorchAdapter` (alias :data:`DpwaPyTorchAdapter`) is the
   reference's PyTorch user surface: ``adapter.update(loss)`` after
   ``optimizer.step()``, the model's parameters flattened in
@@ -24,23 +29,28 @@
   them, the flat vector on the model's device.  As the reference's, it runs
   no recovery around the round; the transport's guard and health run.
 
-Not ported yet: the membership plane's heal reconciliation, the trust and
-tune events, and the metrics records.
+Not ported yet: the tune events and the metrics records.
 """
 
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from dpwa_tpu_torch.config import DpwaConfig, load_config
+from dpwa_tpu_torch.parallel.schedules import heal_draw
 from dpwa_tpu_torch.parallel.tcp import TcpTransport
 from dpwa_tpu_torch.recovery.guard import RollbackRing, validate_payload
-from dpwa_tpu_torch.recovery.state_transfer import pack_state
-from dpwa_tpu_torch.utils.pytree import FlatParams, layout_axes, leaf_order
+from dpwa_tpu_torch.recovery.state_transfer import pack_state, unpack_state
+from dpwa_tpu_torch.utils.pytree import FlatParams, layout_axes, leaf_order, leaf_sizes
+
+
+# The adapter keeps this many of its newest events.
+EVENT_LOG_CAP = 10000
 
 
 def _resolve(config: Union[DpwaConfig, str]) -> DpwaConfig:
@@ -78,7 +88,11 @@ class DpwaTcpAdapter:
     optimizer over the flat buffer): train them in place, or pass new
     values to :meth:`update`.  ``bootstrap`` (default: ``DPWA_BOOTSTRAP=1``
     in the environment) fetches a healthy donor's state first and lands on
-    its replica, clock and :attr:`step` (:attr:`last_bootstrap`)."""
+    its replica, clock and :attr:`step` (:attr:`last_bootstrap`).
+    :attr:`events` keeps the newest ``EVENT_LOG_CAP`` events of the
+    membership and trust planes and of the heal's reconciliation
+    (``partition_reconciled`` or why it was not), each with the step that
+    runs next."""
 
     def __init__(
         self,
@@ -103,6 +117,9 @@ class DpwaTcpAdapter:
         for k, view in self.flat.views().items():
             view[0].copy_(params[k])
         self._order = torch.as_tensor(self.flat.reference_order(), device=device)
+        # The screen's per-leaf statistic follows the model's leaves.
+        self.transport.set_trust_leaves(leaf_sizes(params))
+        self.events: deque = deque(maxlen=EVENT_LOG_CAP)
         self._clock = 0.0
         self._step = 0
         self._last_loss = 0.0
@@ -257,10 +274,82 @@ class DpwaTcpAdapter:
                 self.last_resync_advice = advice
                 if self._recovery.auto_resync:
                     self._resync()
+        for ev in self.transport.pop_membership_events() + self.transport.pop_trust_events():
+            self._event(**ev)
+        heal = self.transport.pop_heal_advice()
+        if heal is not None and self.config.membership.heal_reconcile and self._recovery is not None:
+            self._reconcile_heal(heal)
         return self.params
+
+    def _event(self, event: str, **fields) -> None:
+        """An event record, at the step that runs next (the reference
+        adapter's event records carry the same step)."""
+        self.events.append({"step": self._step, "event": event, **fields})
+
+    def _reconcile_heal(self, advice: dict) -> None:
+        """Anti-entropy merge with a returning component after a heal: one
+        returning node's state over the STATE wire, guarded, the replica
+        banked in the rollback ring, then merged with the advice's weight
+        and guarded again.  The donor is :func:`heal_draw`'s.  The merge is
+        the reference's numpy ``((1 - w) * x + w * y)`` in float32: two
+        rounded products and a rounded sum (not B2's fused form), on the
+        card."""
+        me = self.transport.me
+        returning = sorted(p for p in advice.get("returning", []) if p != me)
+        if not returning:
+            return
+        donor = returning[heal_draw(
+            self.transport.schedule.seed, int(advice.get("step", self._step)), me, len(returning)
+        )]
+        blob, outcome, _lat, nbytes = self.transport.fetch_state(donor)
+        if not blob:
+            self._event("partition_reconcile_failed", donor=donor, outcome=outcome)
+            return
+        try:
+            state, meta = unpack_state(blob, like=None)
+        except ValueError as e:
+            self._event("partition_reconcile_rejected", donor=donor, reason=str(e))
+            return
+        if not state:
+            self._event("partition_reconcile_rejected", donor=donor, reason="empty_state")
+            return
+        remote = np.asarray(state[0], dtype=np.float32)
+        if remote.shape != (self.flat.size,):
+            self._event("partition_reconcile_rejected", donor=donor, reason="shape_mismatch")
+            return
+        x = self.vector()
+        y = torch.from_numpy(remote).to(x.device)
+        reason = validate_payload(
+            y, float(meta.get("loss", 0.0)), self._recovery,
+            local_norm=float(torch.linalg.vector_norm(x, dtype=torch.float64)),
+        )
+        if reason is not None:
+            self._event("partition_reconcile_rejected", donor=donor, reason=reason)
+            return
+        # Bank the replica first: a sick merge rolls back on the usual path.
+        self.ring.push(self.flat.flat[0], self._step, self._clock, self._last_loss)
+        w = float(advice.get("weight", 0.5))
+        merged = reconcile_merge(x, y, w)
+        reason = validate_payload(merged, self._last_loss, self._recovery)
+        if reason is not None:
+            self._event("partition_reconcile_rejected", donor=donor, reason=reason,
+                        stage="merged")
+            return
+        self.flat.flat[0].index_copy_(0, self._order, merged)
+        self._event("partition_reconciled", donor=donor, weight=w, nbytes=nbytes,
+                    returning=returning)
 
     def close(self) -> None:
         self.transport.close()
+
+
+def reconcile_merge(x: torch.Tensor, y: torch.Tensor, w: float) -> torch.Tensor:
+    """The heal's merge ``(1 - w)·x + w·y`` in float32 as numpy rounds
+    ``((1.0 - w) * x + w * y)`` with the weights as float32 scalars: each
+    product rounded, then the sum (two kernels, so nothing fuses)."""
+    a = torch.tensor(1.0 - w, dtype=torch.float32, device=x.device)
+    b = torch.tensor(w, dtype=torch.float32, device=x.device)
+    return torch.add(torch.mul(x, a), torch.mul(y, b))
 
 
 class DpwaTorchAdapter:

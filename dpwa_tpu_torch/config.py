@@ -5,10 +5,12 @@ The same YAML file that drives ``dpwa_tpu`` drives the port: ``nodes:``
 lists the peers (its length is the stacked peer axis; host/port are where
 each node of the TCP transport serves), ``protocol:`` the schedule,
 ``interpolation:`` the merge coefficient, ``recovery:`` the guard, the
-rollback ring, the STATE wire and the bound of the α = 1 rescue, and
-``health:`` the TCP transport's failure detector and scoreboard.  The
-reference turns its ``membership:``, ``trust:`` and ``flowctl:`` planes on
-by default and the port has none of them yet: such a block loads when it
+rollback ring, the STATE wire and the bound of the α = 1 rescue,
+``health:`` the TCP transport's failure detector and scoreboard,
+``membership:`` the epidemic membership plane (its global view: a
+``view:`` block loads only as ``enabled: false``) and ``trust:`` the
+content-trust screen.  The reference also turns its ``flowctl:`` plane on
+by default, which the port does not have yet: that block loads when it
 says only ``enabled: false``, and any other content raises
 :class:`NotImplementedError` naming it, as does every other top-level block
 of a plane the port does not have, rather than dropping it.
@@ -25,10 +27,10 @@ import yaml
 DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 
 # The top-level blocks the port reads.
-PORTED_BLOCKS = ("nodes", "protocol", "interpolation", "recovery", "health")
+PORTED_BLOCKS = ("nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust")
 # Default-on planes of the reference that the port does not have yet: a
 # block of theirs may only switch the plane off.
-UNPORTED_DEFAULT_ON = ("membership", "trust", "flowctl")
+UNPORTED_DEFAULT_ON = ("flowctl",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,13 +237,145 @@ class HealthConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MembershipConfig:
+    """``membership:`` block: epidemic membership and partition tolerance
+    on the TCP transport (the reference's fields, defaults and checks).
+    Every frame carries the sender's digest of its view; receivers fold it
+    into theirs.  Needs ``health.enabled`` (the digest is the scoreboard's
+    view).  Decisions count gossip rounds and threefry draws, never wall
+    time.  The partial view (``view:``) is not ported: the block loads
+    only as ``view: {enabled: false}``."""
+
+    enabled: bool = True
+    # Before quarantining a peer on its own evidence, ask this many drawn
+    # healthy peers to header-probe it (0: quarantine on own evidence).
+    indirect_probes: int = 2
+    relay_timeout_ms: int = 250
+    # A quarantined peer that fails this many re-admission probes in a row
+    # is disseminated as dead.
+    dead_after_quarantines: int = 3
+    # Held dead this many further rounds, a peer is evicted (0: never).
+    dead_gossip_rounds: int = 16
+    # Degraded when |component| / ring size falls strictly below this.
+    quorum_fraction: float = 0.5
+    # α is scaled by this while degraded (1.0: off).
+    degraded_alpha_scale: float = 1.0
+    # On a heal, merge with a drawn donor of the returning side.
+    heal_reconcile: bool = True
+    reconcile_min_fraction: float = 0.3
+    max_heal_weight: float = 0.75
+    # The partial view's block: only ``{"enabled": False}`` (or none)
+    # loads, and is kept as None.
+    view: Any = None
+
+    def __post_init__(self) -> None:
+        view = dict(self.view or {"enabled": False})
+        if view != {"enabled": False}:
+            raise NotImplementedError(
+                f"membership.view: {view} (the partial view) is not ported to "
+                f"dpwa_tpu_torch yet (only 'enabled: false' is accepted)"
+            )
+        object.__setattr__(self, "view", None)
+        if self.indirect_probes < 0:
+            raise ValueError(f"indirect_probes must be >= 0, got {self.indirect_probes}")
+        if self.relay_timeout_ms < 1:
+            raise ValueError(f"relay_timeout_ms must be >= 1, got {self.relay_timeout_ms}")
+        if self.dead_after_quarantines < 1:
+            raise ValueError(
+                f"dead_after_quarantines must be >= 1, got {self.dead_after_quarantines}"
+            )
+        if self.dead_gossip_rounds < 0:
+            raise ValueError(f"dead_gossip_rounds must be >= 0, got {self.dead_gossip_rounds}")
+        if not 0.0 <= self.quorum_fraction <= 1.0:
+            raise ValueError(f"quorum_fraction must be in [0, 1], got {self.quorum_fraction}")
+        if not 0.0 < self.degraded_alpha_scale <= 1.0:
+            raise ValueError(
+                f"degraded_alpha_scale must be in (0, 1], got {self.degraded_alpha_scale}"
+            )
+        if not 0.0 <= self.reconcile_min_fraction <= 1.0:
+            raise ValueError(
+                f"reconcile_min_fraction must be in [0, 1], got {self.reconcile_min_fraction}"
+            )
+        if not 0.0 < self.max_heal_weight <= 1.0:
+            raise ValueError(f"max_heal_weight must be in (0, 1], got {self.max_heal_weight}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrustConfig:
+    """``trust:`` block: the content-trust screen of every fetched frame
+    (the reference's fields, defaults and checks).  It arms after
+    ``min_window`` accepted exchanges; a fully trusted peer's α scale snaps
+    to exactly 1.0, so an honest ring merges bit for bit as with trust
+    off.  Needs ``health.enabled`` for the quarantine feedback."""
+
+    enabled: bool = True
+    # Median/MAD window over accepted exchanges, and its arming fill.
+    window: int = 32
+    min_window: int = 8
+    # Robust z at or above these: suspect (damped), rejected.
+    mad_multiplier: float = 8.0
+    reject_multiplier: float = 24.0
+    # A suspect merges at α · trust ** damping.
+    damping: float = 1.0
+    ewma_half_life: float = 4.0
+    suspect_decay: float = 0.7
+    reject_decay: float = 0.25
+    # Below this trust every screening feeds an ``untrusted`` probe.
+    quarantine_trust: float = 0.15
+    # Hard bounds once armed: a sign-flip's cosine, a scale blow-up.
+    cosine_floor: float = -0.5
+    norm_ratio_max: float = 64.0
+    # A publish clock may run back this much before it counts as a replay.
+    replay_slack: float = 0.5
+    # A peer unscreened for more than amnesty_gap · (n_peers - 1) rounds
+    # gets amnesty_rounds lenient screenings (0 on either: no amnesty).
+    amnesty_gap: int = 4
+    amnesty_rounds: int = 8
+
+    def __post_init__(self) -> None:
+        if self.window < 2:
+            raise ValueError(f"window must be >= 2, got {self.window}")
+        if not 1 <= self.min_window <= self.window:
+            raise ValueError(f"min_window must be in [1, window], got {self.min_window}")
+        if self.mad_multiplier <= 0:
+            raise ValueError(f"mad_multiplier must be > 0, got {self.mad_multiplier}")
+        if self.reject_multiplier < self.mad_multiplier:
+            raise ValueError(
+                "reject_multiplier must be >= mad_multiplier, "
+                f"got {self.reject_multiplier} < {self.mad_multiplier}"
+            )
+        if self.damping <= 0:
+            raise ValueError(f"damping must be > 0, got {self.damping}")
+        if self.ewma_half_life <= 0:
+            raise ValueError(f"ewma_half_life must be > 0, got {self.ewma_half_life}")
+        for name in ("suspect_decay", "reject_decay"):
+            v = getattr(self, name)
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got {v}")
+        if not 0.0 < self.quarantine_trust < 1.0:
+            raise ValueError(f"quarantine_trust must be in (0, 1), got {self.quarantine_trust}")
+        if not -1.0 <= self.cosine_floor <= 1.0:
+            raise ValueError(f"cosine_floor must be in [-1, 1], got {self.cosine_floor}")
+        if self.norm_ratio_max <= 1.0:
+            raise ValueError(f"norm_ratio_max must be > 1, got {self.norm_ratio_max}")
+        if self.replay_slack < 0:
+            raise ValueError(f"replay_slack must be >= 0, got {self.replay_slack}")
+        for name in ("amnesty_gap", "amnesty_rounds"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 0:
+                raise ValueError(f"{name} must be a non-negative int, got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
     interpolation: InterpolationConfig = InterpolationConfig()
     recovery: RecoveryConfig = RecoveryConfig()
     health: HealthConfig = HealthConfig()
-    # The reference's default-on planes that this config switched off.
+    membership: MembershipConfig = MembershipConfig()
+    trust: TrustConfig = TrustConfig()
+    # The reference's unported default-on planes that this config switched off.
     disabled_planes: tuple[str, ...] = ()
 
     def unported_planes(self) -> tuple[str, ...]:
@@ -294,9 +428,9 @@ def _build_nodes(raw: Sequence[Any]) -> tuple[NodeSpec, ...]:
 def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
     """Build a :class:`DpwaConfig` from a parsed-YAML mapping.
 
-    Raises :class:`NotImplementedError` naming any other top-level block,
-    and a ``membership:``, ``trust:`` or ``flowctl:`` block that says more
-    than ``enabled: false``: the port has no plane that would read it."""
+    Raises :class:`NotImplementedError` naming any other top-level block, a
+    ``flowctl:`` block that says more than ``enabled: false`` (the port has
+    no plane that would read it) and a ``membership.view`` that is on."""
     if "nodes" not in raw:
         raise ValueError("config is missing the required 'nodes:' list")
     disabled = []
@@ -320,6 +454,8 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         interpolation=InterpolationConfig(**dict(raw.get("interpolation") or {})),
         recovery=RecoveryConfig(**dict(raw.get("recovery") or {})),
         health=HealthConfig(**dict(raw.get("health") or {})),
+        membership=MembershipConfig(**dict(raw.get("membership") or {})),
+        trust=TrustConfig(**dict(raw.get("trust") or {})),
         disabled_planes=tuple(disabled),
     )
 
@@ -344,19 +480,31 @@ def make_local_config(
     base_port: int = 45000,
     recovery: "RecoveryConfig | Mapping[str, Any] | None" = None,
     health: "HealthConfig | Mapping[str, Any] | None" = None,
+    membership: "MembershipConfig | Mapping[str, Any] | None" = None,
+    trust: "TrustConfig | Mapping[str, Any] | None" = None,
     disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
     """Programmatic config for tests and benchmarks: n local peers.
-    ``disabled_planes`` names the unported default-on planes switched off
-    (as ``membership: {enabled: false}`` and so on in a file)."""
+    ``disabled_planes`` names default-on planes switched off (as
+    ``flowctl: {enabled: false}`` in a file); ``membership`` and ``trust``
+    there stand for ``{"enabled": False}`` blocks."""
     if isinstance(recovery, Mapping):
         recovery = RecoveryConfig(**recovery)
     if isinstance(health, Mapping):
         health = HealthConfig(**health)
-    unknown = set(disabled_planes) - set(UNPORTED_DEFAULT_ON)
+    if "membership" in disabled_planes:
+        membership = {**dict(membership or {}), "enabled": False}
+    if "trust" in disabled_planes:
+        trust = {**dict(trust or {}), "enabled": False}
+    if isinstance(membership, Mapping):
+        membership = MembershipConfig(**membership)
+    if isinstance(trust, Mapping):
+        trust = TrustConfig(**trust)
+    unknown = set(disabled_planes) - set(UNPORTED_DEFAULT_ON) - {"membership", "trust"}
     if unknown:
-        raise ValueError(f"disabled_planes names no unported plane: {sorted(unknown)}")
+        raise ValueError(f"disabled_planes names no default-on plane: {sorted(unknown)}")
+    disabled_planes = tuple(p for p in disabled_planes if p in UNPORTED_DEFAULT_ON)
     return DpwaConfig(
         nodes=tuple(
             NodeSpec(name=f"node{i}", host="127.0.0.1", port=base_port + i)
@@ -371,5 +519,7 @@ def make_local_config(
         interpolation=InterpolationConfig(type=interpolation, factor=factor),
         recovery=recovery if recovery is not None else RecoveryConfig(),
         health=health if health is not None else HealthConfig(),
-        disabled_planes=tuple(disabled_planes),
+        membership=membership if membership is not None else MembershipConfig(),
+        trust=trust if trust is not None else TrustConfig(),
+        disabled_planes=disabled_planes,
     )

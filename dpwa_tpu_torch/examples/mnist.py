@@ -30,10 +30,11 @@ every ``--save-every`` steps; ``--resume`` continues from DIR the exact run
 (the same batches and the same exchanges).  Runs on the CUDA card unless
 ``--device cpu`` is given.
 
-A TCP node runs the reference's recovery and health planes: with
-``DPWA_BOOTSTRAP=1`` in its environment (as a restart supervisor sets it)
-it lands on a healthy peer's replica, clock and step and trains on from
-that step to ``--steps``.  ``--diverge-at STEP`` turns the node's replica
+A TCP node runs the reference's recovery, health, membership and trust
+planes (its summary line gives the trust verdicts and the planes' events):
+with ``DPWA_BOOTSTRAP=1`` in its environment (as a restart supervisor sets
+it) it lands on a healthy peer's replica, clock and step and trains on
+from that step to ``--steps``.  ``--diverge-at STEP`` turns the node's replica
 and loss to NaN after that step's update (a diverged step, which the
 node's guard rolls back); ``--trace-state FILE`` appends, after each
 round, the step, clock and CRC-32 of the replica a peer bootstrapping from
@@ -233,8 +234,11 @@ def run_tcp(args) -> dict:
     node's losses, test accuracy, rate, merged rounds, fetch outcomes, wire
     bytes, host copies per received frame, B2 launches and peak device
     memory, and its recovery and health: the bootstrap it landed on, its
-    rollbacks, remapped rounds, header probes sent and each change of a
-    peer's health state with the step it was seen at."""
+    rollbacks, remapped rounds, header and relay probes sent and each change of a
+    peer's health state with the step it was seen at; and its membership
+    and trust planes: the trust verdicts, the merged rounds and newest
+    merged publish clock per peer, the digest bytes a frame and the
+    membership, trust and heal events with their steps."""
     import zlib
 
     from dpwa_tpu_torch.adapters.tcp_adapter import DpwaTcpAdapter
@@ -330,7 +334,6 @@ def run_tcp(args) -> dict:
         print(f"[{args.name}] {dataset} test accuracy: {acc:.4f}", flush=True)
         stats = adapter.transport.stats
         timed = args.steps - start - 1
-        health = adapter.health_snapshot()["peers"]
         result = {
             "node": args.name,
             "dataset": dataset,
@@ -356,8 +359,13 @@ def run_tcp(args) -> dict:
             "rollbacks": adapter.ring.rollbacks if adapter.ring is not None else 0,
             "last_rollback": adapter.last_rollback,
             "remapped_rounds": remapped,
-            "probes": sum(info["probe_attempts"] for info in health.values()),
+            "probes": stats["probes"],
+            "relay_probes": stats["relay_probes"],
             "health_events": health_events,
+            "verdicts": dict(stats["verdicts"]),
+            "merged_from": {str(p): v for p, v in stats["merged_from"].items()},
+            "digest_bytes": adapter.transport.last_digest_nbytes,
+            "events": list(adapter.events),
         }
     finally:
         if trace is not None:

@@ -29,7 +29,7 @@ class Outcome:
     SHORT_READ = "short_read"  # the peer closed or reset mid-frame
     CORRUPT = "corrupt"  # bad magic, version or code, oversize, undecodable
     POISONED = "poisoned"  # a well-formed frame the recovery guard rejected
-    UNTRUSTED = "untrusted"  # rejected by trust screening (not ported yet)
+    UNTRUSTED = "untrusted"  # rejected by the trust screen
     BUSY = "busy"  # the peer shed the request with a BUSY frame
     SLOW = "slow"  # the deadline lapsed while bytes were still flowing
     STALE = "stale"  # an async round's frame too old to merge (not ported yet)

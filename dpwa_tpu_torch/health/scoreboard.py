@@ -14,10 +14,11 @@ backoff is ``base · 2^(k-1)`` rounds, clamped, plus the threefry jitter of
 clock here counts rounds, never wall time: equal outcome sequences give
 equal quarantine windows, on every replica and in either package.
 
-The membership plane's hooks (``attach_membership``, eviction by the
-membership manager) and the ``/metrics`` collector wait for those planes;
-the eviction bookkeeping is kept so the state machine stays the
-reference's.  Every public method takes the internal lock.
+The membership manager attaches itself (:meth:`Scoreboard.attach_membership`):
+the snapshot then carries its view, an evicted peer's successful probe
+tells it the peer is back, and it evicts peers held dead
+(:meth:`Scoreboard.evict_peer`).  The ``/metrics`` collector is not
+ported.  Every public method takes the internal lock.
 """
 
 from __future__ import annotations
@@ -93,6 +94,8 @@ class Scoreboard:
         # probe or a fresher-incarnation refutation brings it back.
         self._evicted: Dict[int, int] = {}
         self._round = 0  # highest round observed (fallback clock)
+        # The membership manager, once attached (its view rides the snapshot).
+        self._membership: Optional[Any] = None
 
     # ------------------------------------------------------------------
     # Outcome ingestion
@@ -184,6 +187,10 @@ class Scoreboard:
                 rec = self.detector.record(peer)
                 rec.suspicion = 0.0
                 rec.failure_streak = 0
+                # The membership plane clears its eviction (the
+                # scoreboard-then-manager lock order).
+                if self._membership is not None:
+                    self._membership.on_peer_returned(peer, r)
                 return
             self._probe_attempts[peer] = self._probe_attempts.get(peer, 0) + 1
             self._last_contact[peer] = r
@@ -344,9 +351,11 @@ class Scoreboard:
             return self.detector.suspicion(peer)
 
     def attach_membership(self, provider: Any) -> None:
-        """The membership plane's hook: a no-op until that plane is
-        ported (the reference folds its view into :meth:`snapshot`)."""
-        del provider
+        """Attach the membership manager: health snapshots carry its view,
+        and an evicted peer's successful probe reaches its
+        ``on_peer_returned``."""
+        with self._lock:
+            self._membership = provider
 
     # ------------------------------------------------------------------
     # Queries (the transport's decision points)
@@ -509,9 +518,13 @@ class Scoreboard:
         """JSON-ready health snapshot for metrics / the /healthz endpoint.
 
         Per remote peer: state, suspicion, quarantine accounting, and the
-        detector's EWMA statistics."""
+        detector's EWMA statistics.  With a membership manager attached,
+        each peer's ``incarnation`` and a top-level ``membership`` dict (own
+        incarnation, component, partition state)."""
         with self._lock:
             r = self._clock(round)
+            membership = self._membership
+            view = membership.view_snapshot() if membership is not None else None
             peers = {}
             for p in range(self.n_peers):
                 if p == self.me or p in self._evicted:
@@ -542,10 +555,14 @@ class Scoreboard:
                     probe_attempts=self._probe_attempts.get(p, 0),
                     probe_successes=self._probe_successes.get(p, 0),
                 )
+                if view is not None:
+                    info["incarnation"] = view["incarnations"].get(p, 0)
                 peers[p] = info
             snap = {"me": self.me, "round": r, "peers": peers}
             if self._evicted:
                 snap["evicted"] = sorted(self._evicted)
+            if view is not None:
+                snap["membership"] = {k: v for k, v in view.items() if k != "incarnations"}
             return snap
 
 

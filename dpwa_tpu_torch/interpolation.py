@@ -10,8 +10,8 @@ axis, these map ``[n]`` tensors (one entry per peer) to an ``[n]`` float32
 - **clock-weighted** — α = factor · remote_clock / (local + remote clock).
 - **loss-weighted** — α = factor · local_loss / (local + remote loss).
 
-The content-trust damping (``trust_scale``) belongs to the TCP transport
-and is not ported yet.
+The TCP transport also passes ``trust_scale``, the content-trust plane's
+damping of the current exchange, multiplied in after the clamp.
 """
 
 from __future__ import annotations
@@ -80,7 +80,9 @@ def loss_weighted(factor: float = 1.0) -> Interpolation:
 
 
 def _clamped(
-    strategy: Interpolation, max_abs_loss: float | None = None
+    strategy: Interpolation,
+    max_abs_loss: float | None = None,
+    trust_scale: Callable[[], float] | None = None,
 ) -> Interpolation:
     """Restrict α to [0, 1] so the merge is always an interpolation, and
     resolve sick metadata as the reference does.
@@ -90,7 +92,9 @@ def _clamped(
     loss beyond that bound.  A sick LOCAL side with a healthy remote gets
     α = 1 (adopt the healthy peer: the rescue gossip offers a diverged
     replica); every other non-finite α becomes 0; a sick REMOTE never
-    merges (α = 0).  Then α is clipped to [0, 1]."""
+    merges (α = 0).  Then α is clipped to [0, 1], and multiplied by
+    ``clip(float32(trust_scale()), 0, 1)`` when ``trust_scale`` is given:
+    a fully trusted peer's 1.0 leaves α bit for bit as it was."""
 
     def alpha(local: PeerMeta, remote: PeerMeta) -> torch.Tensor:
         a = strategy(local, remote)
@@ -104,20 +108,26 @@ def _clamped(
         rescue = torch.where(~local_ok & remote_ok, one, zero)
         a = torch.where(torch.isfinite(a) & local_ok, a, rescue)
         a = torch.where(remote_ok, a, zero)
-        return torch.clamp(a, 0.0, 1.0)
+        a = torch.clamp(a, 0.0, 1.0)
+        if trust_scale is not None:
+            a = a * torch.clamp(_f32(trust_scale(), a), 0.0, 1.0)
+        return a
 
     return alpha
 
 
 def make_interpolation(
-    config: InterpolationConfig, max_abs_loss: float | None = None
+    config: InterpolationConfig,
+    max_abs_loss: float | None = None,
+    trust_scale: Callable[[], float] | None = None,
 ) -> Interpolation:
     """Factory from the YAML ``interpolation:`` section; every strategy is
-    clamped to α ∈ [0, 1] (see :func:`_clamped`)."""
+    clamped to α ∈ [0, 1] and damped by ``trust_scale`` (see
+    :func:`_clamped`)."""
     if config.type == "constant":
-        return _clamped(constant(config.factor), max_abs_loss)
+        return _clamped(constant(config.factor), max_abs_loss, trust_scale)
     if config.type == "clock":
-        return _clamped(clock_weighted(config.factor), max_abs_loss)
+        return _clamped(clock_weighted(config.factor), max_abs_loss, trust_scale)
     if config.type == "loss":
-        return _clamped(loss_weighted(config.factor), max_abs_loss)
+        return _clamped(loss_weighted(config.factor), max_abs_loss, trust_scale)
     raise ValueError(f"unknown interpolation type {config.type!r}")

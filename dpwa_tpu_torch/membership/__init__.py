@@ -1,0 +1,42 @@
+"""Epidemic membership, partition tolerance and heal-time reconciliation on
+the TCP transport (the port of :mod:`dpwa_tpu.membership`, its global
+view):
+
+- :mod:`~dpwa_tpu_torch.membership.digest`: the compact versioned digest
+  every frame carries as an optional trailer, and the incarnation-based
+  merge rules;
+- :mod:`~dpwa_tpu_torch.membership.manager`: the merged view, refutation,
+  component, quorum and degraded mode, eviction, and the heal advice the
+  adapter acts on.
+
+The transport's wiring (the trailer, the RELAY verb, indirect probes) is
+in :mod:`dpwa_tpu_torch.parallel.tcp`; the heal's state merge is the
+adapter's.  The partial view is not ported."""
+
+from dpwa_tpu_torch.membership.digest import (
+    ALIVE,
+    DEAD,
+    QUARANTINED,
+    STATE_NAMES,
+    SUSPECT,
+    Digest,
+    MemberEntry,
+    decode_digest,
+    encode_digest,
+    merge_entry,
+)
+from dpwa_tpu_torch.membership.manager import MembershipManager
+
+__all__ = [
+    "ALIVE",
+    "SUSPECT",
+    "QUARANTINED",
+    "DEAD",
+    "STATE_NAMES",
+    "Digest",
+    "MemberEntry",
+    "decode_digest",
+    "encode_digest",
+    "merge_entry",
+    "MembershipManager",
+]

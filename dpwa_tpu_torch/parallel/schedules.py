@@ -17,8 +17,10 @@ per step, whether it exchanges (:func:`participation_draw`,
 reference, and :meth:`Schedule.drawn` gives the round's mask.  The TCP
 transport's control draws, the fallback partner of a quarantined one
 (:func:`fallback_draw`, :meth:`Schedule.remap_partner`), the quarantine
-backoff's jitter (:func:`backoff_jitter_draw`) and the bootstrap donor
-(:func:`donor_draw`), are the reference's threefry draws too.
+backoff's jitter (:func:`backoff_jitter_draw`), the bootstrap donor
+(:func:`donor_draw`), the relays of an indirect probe (:func:`relay_draw`)
+and the donor of a heal's reconciliation (:func:`heal_draw`), are the
+reference's threefry draws too.
 """
 
 from __future__ import annotations
@@ -76,6 +78,21 @@ def donor_draw(seed: int, step: int, me: int, n_candidates: int) -> int:
     """Index of the bootstrap donor a restarted peer fetches its state from
     (tag 5), keyed on ``(seed, step, me)`` like :func:`fallback_draw`."""
     return prng.randint(_pair_key(seed, step, me, _tags.TAG_DONOR), 0, n_candidates)
+
+
+def relay_draw(seed: int, step: int, me: int, probe_slot: int, n_candidates: int) -> int:
+    """Index of the ``probe_slot``-th relay a peer asks to header-probe a
+    suspect before quarantining it (tag 6), keyed on ``(seed, step, me)``
+    with the slot folded in, so the K relays of a round draw distinct
+    streams."""
+    key = prng.fold_in(_pair_key(seed, step, me, _tags.TAG_RELAY_PROBE), probe_slot)
+    return prng.randint(key, 0, n_candidates)
+
+
+def heal_draw(seed: int, step: int, me: int, n_candidates: int) -> int:
+    """Index of the reconciliation donor drawn from a returning partition
+    component at heal time (tag 7), keyed on ``(seed, step, me)``."""
+    return prng.randint(_pair_key(seed, step, me, _tags.TAG_HEAL_DONOR), 0, n_candidates)
 
 
 def pool_branch_draw(seed: int, step: int, pool_size: int, periodic: bool) -> int:

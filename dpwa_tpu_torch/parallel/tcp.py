@@ -11,10 +11,13 @@ training goes on.
 The frame is the reference's, byte for byte: ``BLOB_HDR`` (magic, version,
 payload code, clock, loss, nbytes) and the flat little-endian payload,
 float32 or bf16 (``protocol.wire_dtype``), rounded as the reference
-rounds it.  A port node and a ``dpwa_tpu`` node gossip with each other;
-the fetcher reads the header and ``nbytes`` and stops, so the trailers a
-reference node appends (its membership digest) are left unread, as the
-reference's own fetchers without membership leave them.
+rounds it, followed by the optional trailers: the sender's membership
+digest (``DPWM``), which ``nbytes`` does not count.  A port node and a
+``dpwa_tpu`` node gossip with each other; the fetcher reads the trailers
+after the payload tolerantly, dispatching on their magics (an
+observability section, ``DPWT``, is read past and dropped), and a peer
+that serves none is the old wire, not a failure.  The RELAY verb asks a
+node to header-probe a third on the asker's behalf (:func:`relay_probe`).
 
 :meth:`TcpTransport.exchange_on_device` merges a replica that lives on the
 card: the publish reads back only the wire's bytes and only once per merge
@@ -25,7 +28,7 @@ the guard runs there, and the merge is one launch of B2 over ``[1, d]``
 :meth:`TcpTransport.exchange` is the same round for a host vector, merged
 on the CPU by B2's plain version.
 
-Two planes run around the round, as the reference runs them by default.
+Four planes run around the round, as the reference runs them by default.
 Health: every classified fetch outcome feeds a
 :class:`~dpwa_tpu_torch.health.scoreboard.Scoreboard`, which quarantines a
 failing partner; :meth:`TcpTransport._resolve_partner` spends a header-only
@@ -35,17 +38,27 @@ round).  Recovery: the pre-merge guard, the STATE wire (a donor serves its
 packed state in CRC-checked chunks, one per connection; the fetch resumes
 after short reads) for a restarted node's bootstrap, and the re-sync
 advice when a probed peer's clock leads by more than
-``recovery.max_clock_lag``.
+``recovery.max_clock_lag``.  Membership: every published frame carries the
+digest of this node's view, every fetched digest is merged into it, a
+failure that would quarantine a peer first asks drawn healthy relays to
+probe it (``indirect_probes``), and each round ends with the component,
+quorum and heal bookkeeping (:class:`~dpwa_tpu_torch.membership.manager.
+MembershipManager`), whose degraded mode scales α.  Trust: after the
+guard, every fetched frame is screened against the local replica where it
+lies (:mod:`dpwa_tpu_torch.trust`); a rejection is the ``untrusted``
+outcome and a suspect's α is damped.  The guard's and the screen's scalars
+come back to the host in one readback.
 
 Ported: the threaded Rx server, the classified fetch (refused, timeout,
-slow, busy, short_read, corrupt, poisoned, success), every schedule of the
-port with ``fetch_probability`` and ``drop_probability``, the constant,
-clock and loss interpolations, recovery and health.  Not yet: the codecs
-(``wire_dtype: int8``, ``wire_codec: topk``, ``shard:``), the prefetch
-pipeline, the reactor and native Rx servers, the RELAY wire, ``/healthz``
-and the membership, trust and flowctl planes; the transport raises
-:class:`NotImplementedError` for the settings that ask for them, and warns
-once when the config leaves one of the reference's default-on planes on.
+slow, busy, short_read, corrupt, poisoned, untrusted, success), every
+schedule of the port with ``fetch_probability`` and ``drop_probability``,
+the constant, clock and loss interpolations, recovery, health, membership
+(its global view) and trust.  Not yet: the codecs (``wire_dtype: int8``,
+``wire_codec: topk``, ``shard:``), the prefetch pipeline, the reactor and
+native Rx servers, ``/healthz`` and the flowctl plane; the transport
+raises :class:`NotImplementedError` for the settings that ask for them, and
+warns once when the config leaves flowctl, a default-on plane of the
+reference, on.
 """
 
 from __future__ import annotations
@@ -66,11 +79,16 @@ from dpwa_tpu_torch.device.handoff import to_device
 from dpwa_tpu_torch.device.replica import DeviceReplica
 from dpwa_tpu_torch.health.detector import Outcome
 from dpwa_tpu_torch.health.scoreboard import Scoreboard
+from dpwa_tpu_torch.health.scoreboard import PeerState
 from dpwa_tpu_torch.interpolation import PeerMeta, make_interpolation
+from dpwa_tpu_torch.membership import digest as _digest
+from dpwa_tpu_torch.membership.manager import MembershipManager
 from dpwa_tpu_torch.parallel import ingest
 from dpwa_tpu_torch.parallel import protocol_constants as pc
-from dpwa_tpu_torch.parallel.schedules import Schedule, build_schedule
-from dpwa_tpu_torch.recovery.guard import validate_payload
+from dpwa_tpu_torch.parallel.schedules import Schedule, build_schedule, relay_draw
+from dpwa_tpu_torch.recovery.guard import payload_check_tensors, validate_payload
+from dpwa_tpu_torch.trust.manager import REJECTED, TrustManager
+from dpwa_tpu_torch.trust.screen import payload_sums, stats_from_sums
 from dpwa_tpu_torch.utils.devices import resolve_device
 
 # Flat payload codes: the numpy dtype the bytes are read as, and the torch
@@ -93,12 +111,26 @@ _PROBE_THRESHOLD = 1 << 20
 _PROBE_BYTES = 1 << 16
 # The Rx server's budget for one connection.
 _HANDLER_TIMEOUT_S = 5.0
+# The fetcher's budget for the optional trailers after a payload: a peer
+# that streamed the payload sends its ~11 B a peer of digest at once.
+_TRAILER_BUDGET_S = 0.25
+
+# The relay report's outcome byte indexes these; the names on the wire are
+# protocol_constants' and must stay aligned with the Outcome strings.
+_RELAY_OUTCOMES = (
+    Outcome.SUCCESS, Outcome.TIMEOUT, Outcome.REFUSED,
+    Outcome.SHORT_READ, Outcome.CORRUPT, Outcome.BUSY,
+)
+assert tuple(_RELAY_OUTCOMES) == pc.RELAY_OUTCOME_NAMES
 
 
-def _frame_segments(payload: torch.Tensor, clock: float, loss: float) -> tuple:
-    """``(header, payload bytes)``: the wire frame as the segments the
-    server sends, the payload a view of ``payload``'s host memory (which
-    the caller must not change while it is served).  The code follows the
+def _frame_segments(
+    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+) -> tuple:
+    """``(header, payload bytes[, digest])``: the wire frame as the segments
+    the server sends, the payload a view of ``payload``'s host memory
+    (which the caller must not change while it is served), then the
+    membership digest trailer when there is one.  The code follows the
     payload's dtype: float32, float64 or bf16."""
     code = next(c for c, (_, dt) in _FLAT.items() if dt == payload.dtype)
     flat = payload.reshape(-1).contiguous()
@@ -106,12 +138,14 @@ def _frame_segments(payload: torch.Tensor, clock: float, loss: float) -> tuple:
         flat = flat.view(torch.int16)
     data = flat.numpy().view(np.uint8)
     header = pc.BLOB_HDR.pack(pc.BLOB_MAGIC, 1, code, float(clock), float(loss), data.size)
-    return header, data
+    return (header, data) if not digest else (header, data, bytes(digest))
 
 
-def _frame(payload: torch.Tensor, clock: float, loss: float) -> bytes:
+def _frame(
+    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+) -> bytes:
     """:func:`_frame_segments` joined: the frame as one byte string."""
-    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss))
+    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss, digest))
 
 
 class _LazyState:
@@ -138,11 +172,12 @@ class PeerServer:
 
     One thread accepts; each connection gets a thread of its own with a
     bounded budget.  A blob request (a header probe too: it reads the
-    header and hangs up) gets the frame, or a close when nothing is
-    published; a STATE request one chunk of the published state (a
-    well-formed empty transfer when there is none); a RELAY request, or
-    anything else, is closed unanswered, as the reference's native server
-    does."""
+    header and hangs up) gets the frame with its digest trailer, or a close
+    when nothing is published; a STATE request one chunk of the published
+    state (a well-formed empty transfer when there is none); a RELAY
+    request the report of a header probe of the target this server runs
+    for the asker (:meth:`_handle_relay`); anything else is closed
+    unanswered."""
 
     def __init__(self, host: str, port: int):
         self._lock = threading.Lock()
@@ -164,10 +199,13 @@ class PeerServer:
         )
         self._thread.start()
 
-    def publish(self, payload: torch.Tensor, clock: float, loss: float) -> None:
+    def publish(
+        self, payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+    ) -> None:
         """Serve ``payload`` (a host tensor the caller no longer changes)
-        with ``clock`` and ``loss`` from now on."""
-        segments = _frame_segments(payload, clock, loss)
+        with ``clock`` and ``loss``, and ``digest`` as its trailer, from now
+        on."""
+        segments = _frame_segments(payload, clock, loss, digest)
         with self._lock:
             self._segments = segments
 
@@ -224,12 +262,33 @@ class PeerServer:
             body = ingest.recv_exact_into(conn, pc.STATE_REQ_BODY.size)
             self._handle_state(conn, *pc.STATE_REQ_BODY.unpack(body))
             return
+        if req == pc.RELAY_REQ:
+            self._handle_relay(conn)
+            return
         if req != pc.BLOB_REQ:
             return
         with self._lock:
             segments = self._segments
         if segments is not None:
             ingest.sendall_segments(conn, segments)
+
+    def _handle_relay(self, conn: socket.socket) -> None:
+        """Serve one relayed header probe: probe the requested target and
+        report the classified outcome and the target's publish clock (-1
+        when unknown).  The probe's budget is clamped to
+        ``MAX_RELAY_TIMEOUT_MS``, so an asker cannot pin this thread."""
+        body = ingest.recv_exact_into(conn, pc.RELAY_BODY.size)
+        _target, port, timeout_ms, hostlen = pc.RELAY_BODY.unpack(body)
+        host = (
+            str(bytes(ingest.recv_exact_into(conn, hostlen)), "ascii", "replace")
+            if hostlen else "127.0.0.1"
+        )
+        timeout_ms = min(max(int(timeout_ms), 1), pc.MAX_RELAY_TIMEOUT_MS)
+        outcome, clock = probe_header_classified(host, port, timeout_ms)
+        conn.sendall(pc.RELAY_HDR.pack(
+            pc.RELAY_MAGIC, 1, _RELAY_OUTCOMES.index(outcome),
+            float(clock) if clock is not None else -1.0,
+        ))
 
     def _handle_state(self, conn: socket.socket, offset: int, max_chunk: int) -> None:
         """Serve one STATE chunk at ``offset``: at most ``max_chunk`` bytes
@@ -277,6 +336,60 @@ def _decode(data: memoryview, code: int):
     return (t.view(torch.bfloat16) if dtype == torch.bfloat16 else t), arr
 
 
+def _recv_trailing(sock: socket.socket, n: int, deadline: float) -> Optional[memoryview]:
+    """An exact read of an optional trailing section: None, never a raise,
+    on a timeout, EOF or reset (a peer that closed after its payload has
+    no trailer: the old wire)."""
+    try:
+        return ingest.recv_exact_into(sock, n, deadline)
+    except OSError:  # socket.timeout and ConnectionError included
+        return None
+
+
+def _read_trailers(sock: socket.socket, budget_s: float = _TRAILER_BUDGET_S) -> Optional[bytes]:
+    """The membership digest among the trailers after a payload, or None.
+
+    Reads a 4-byte magic, dispatches on it and repeats (at most 4
+    sections): a digest (``DPWM``, its header and the entries its count
+    implies) ends the read, since the sections after it (the
+    observability section rides after the digest) carry nothing the port
+    reads, and waiting for the server's close would cost a thread switch
+    on its side; an observability section (``DPWT``) before any digest is
+    read past and dropped; anything else, or a malformed or missing
+    section, ends the read.  Never raises."""
+    deadline = time.monotonic() + budget_s
+    obs_seen = False
+    for _ in range(4):
+        magic = _recv_trailing(sock, 4, deadline)
+        if magic is None:
+            break
+        if magic == pc.DIGEST_MAGIC:
+            rest = _recv_trailing(sock, _digest.HEADER_SIZE - 4, deadline)
+            if rest is None:
+                break
+            head = b"".join((magic, rest))
+            nbytes = _digest.header_entries_nbytes(head)
+            if nbytes is None:
+                break
+            body = _recv_trailing(sock, nbytes, deadline)
+            if body is None:
+                break
+            return b"".join((head, body))
+        elif magic == pc.OBS_MAGIC and not obs_seen:
+            rest = _recv_trailing(sock, pc.OBS_HDR.size - 4, deadline)
+            if rest is None:
+                break
+            _m, version, n, _trace, _loss, _res = pc.OBS_HDR.unpack(b"".join((magic, rest)))
+            if version != pc.OBS_VERSION or n > pc.MAX_SKETCH_VALUES:
+                break
+            if _recv_trailing(sock, 4 * n, deadline) is None:
+                break
+            obs_seen = True
+        else:
+            break
+    return None
+
+
 def fetch_blob_full(
     host: str,
     port: int,
@@ -284,6 +397,7 @@ def fetch_blob_full(
     min_bandwidth_bps: float = _MIN_WIRE_BANDWIDTH,
     ring: Optional[ingest.BufferRing] = None,
     lease_box: Optional[list] = None,
+    trailer_box: Optional[list] = None,
 ) -> Tuple[Optional[Tuple[torch.Tensor, float, float]], str, float, int]:
     """Fetch a peer's frame: ``(result, outcome, latency_s, payload bytes
     received)``, ``result`` = ``(vector, clock, loss)`` or None.
@@ -302,7 +416,9 @@ def fetch_blob_full(
     default) and the vector is a CPU tensor viewing it: with ``lease_box``
     the lease is appended there and the caller releases it once nothing
     reads the vector; without, the lease returns to the ring when the
-    vector dies."""
+    vector dies.  With ``trailer_box`` the trailers after a valid payload
+    are read too (:func:`_read_trailers`) and the membership digest's
+    bytes, or None, appended there."""
     ring = ring if ring is not None else _default_ring()
     t0 = time.monotonic()
     deadline = t0 + timeout_ms / 1000.0
@@ -373,6 +489,8 @@ def fetch_blob_full(
                 return done(Outcome.CORRUPT)
             vec, arr = decoded
             del decoded
+            if trailer_box is not None:
+                trailer_box.append(_read_trailers(sock))
             ingest.note_rx_frame(0 if vec.dtype in (torch.float32, torch.bfloat16) else 1)
             if lease_box is not None:
                 lease_box.append(lease)
@@ -391,8 +509,8 @@ def fetch_blob_full(
         return done(Outcome.SHORT_READ)
 
 
-# The reference's name for the fetch without trailers: the port reads none,
-# so it is fetch_blob_full itself.
+# The reference's name for the fetch without trailers: fetch_blob_full
+# without a trailer_box.
 fetch_blob_ex = fetch_blob_full
 
 
@@ -568,6 +686,55 @@ def probe_header_classified(
         return Outcome.SHORT_READ, None
 
 
+def relay_probe(
+    relay_host: str,
+    relay_port: int,
+    target_index: int,
+    target_host: str,
+    target_port: int,
+    probe_timeout_ms: int,
+    timeout_ms: int,
+) -> Tuple[str, Optional[str], Optional[float]]:
+    """Ask a relay to header-probe ``target`` on our behalf (the SWIM
+    indirect probe): ``(relay_outcome, probe_outcome, clock)``.
+    ``relay_outcome`` classifies our connection to the relay,
+    ``probe_outcome`` is the relay's classified probe of the target (None
+    when the relay leg failed) and ``clock`` the target's publish clock as
+    the relay saw it (None when unknown).  ``timeout_ms`` must exceed
+    ``probe_timeout_ms``: the relay probes before it answers."""
+    deadline = time.monotonic() + timeout_ms / 1000.0
+    try:
+        sock = socket.create_connection((relay_host, relay_port), timeout=timeout_ms / 1000.0)
+    except socket.timeout:
+        return Outcome.TIMEOUT, None, None
+    except OSError:
+        return Outcome.REFUSED, None, None
+    try:
+        with sock:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return Outcome.TIMEOUT, None, None
+            sock.settimeout(remaining)
+            host_b = target_host.encode("ascii", "replace")[:255]
+            sock.sendall(
+                pc.RELAY_REQ
+                + pc.RELAY_BODY.pack(
+                    target_index & 0xFFFF, target_port & 0xFFFF,
+                    int(probe_timeout_ms) & 0xFFFFFFFF, len(host_b),
+                )
+                + host_b
+            )
+            raw = ingest.recv_exact_into(sock, pc.RELAY_HDR.size, deadline)
+            magic, version, code, clock = pc.RELAY_HDR.unpack(raw)
+            if magic != pc.RELAY_MAGIC or version != 1 or code >= len(_RELAY_OUTCOMES):
+                return Outcome.CORRUPT, None, None
+            return Outcome.SUCCESS, _RELAY_OUTCOMES[code], (float(clock) if clock >= 0 else None)
+    except socket.timeout:
+        return Outcome.TIMEOUT, None, None
+    except OSError:
+        return Outcome.SHORT_READ, None, None
+
+
 def probe_header_ex(host: str, port: int, timeout_ms: int = 100) -> Tuple[bool, Optional[float]]:
     """:func:`probe_header_classified` as ``(ok, clock)``."""
     outcome, clock = probe_header_classified(host, port, timeout_ms)
@@ -619,8 +786,11 @@ class TcpTransport:
     ``device`` is where its replicas merge and land: the CUDA card by
     default (the receive ring is then pinned), ``"cpu"`` on purpose.
     With ``health.enabled`` (the default) :attr:`scoreboard` holds the
-    peers' health, and :attr:`last_round` says each round's scheduled and
-    actual partner, whether it was remapped, and the fetch's outcome."""
+    peers' health, with ``membership.enabled`` too :attr:`membership` its
+    epidemic view, with ``trust.enabled`` :attr:`trust` the content-trust
+    state; :attr:`last_round` says each round's scheduled and actual
+    partner, whether it was remapped, the fetch's outcome and the trust
+    verdict."""
 
     def __init__(self, config: DpwaConfig, name: str, device=None):
         missing = _unsupported(config)
@@ -632,11 +802,22 @@ class TcpTransport:
         self.me = config.node_index(name)
         self.device = resolve_device(device)
         self.schedule: Schedule = build_schedule(config)
+        n = len(config.nodes)
+        # The content-trust plane screens every fetched payload; the current
+        # exchange's damping reaches the interpolation through
+        # _pending_trust_scale (1.0, fully trusted, changes α by nothing).
+        self.trust: Optional[TrustManager] = (
+            TrustManager(n, self.me, config.trust) if config.trust.enabled else None
+        )
+        self._pending_trust_scale = 1.0
+        # The replica the screen compares with: the one last published.
+        self._local_vec: Optional[torch.Tensor] = None
         self.interp = make_interpolation(
             config.interpolation,
             max_abs_loss=(
                 config.recovery.rescue_bound() if config.recovery.enabled else None
             ),
+            trust_scale=(lambda: self._pending_trust_scale) if self.trust is not None else None,
         )
         self.wire = config.protocol.wire_dtype
         self.ring = ingest.BufferRing(pinned=self.device.type == "cuda")
@@ -648,9 +829,22 @@ class TcpTransport:
         # Every fetch outcome feeds the scoreboard; a quarantined partner
         # is probed or remapped in _resolve_partner.
         self.scoreboard: Optional[Scoreboard] = (
-            Scoreboard(len(config.nodes), self.me, config.health, seed=self.schedule.seed)
+            Scoreboard(n, self.me, config.health, seed=self.schedule.seed)
             if config.health.enabled else None
         )
+        # Epidemic membership rides on the scoreboard; an evicted peer's
+        # trust records are pruned with its scoreboard records.
+        self.membership: Optional[MembershipManager] = None
+        if self.scoreboard is not None and config.membership.enabled:
+            self.membership = MembershipManager(
+                n, self.me, self.scoreboard, config.membership, seed=self.schedule.seed
+            )
+            if self.trust is not None:
+                self.membership.add_evict_listener(self.trust.evict_peer)
+        if self.trust is not None and self.scoreboard is not None:
+            # Collapsed trust feeds the scoreboard as untrusted probes.
+            self.trust.attach_scoreboard(self.scoreboard)
+        self.last_digest_nbytes = 0
         # The clock last published (the probe's freshness check reads it)
         # and the re-sync advice pending for the adapter.
         self._last_clock = 0.0
@@ -668,8 +862,11 @@ class TcpTransport:
         self.stats = {
             "frames_published": 0, "wire_bytes_published": 0,
             "rounds": 0, "merged": 0, "wire_bytes_fetched": 0,
-            "outcomes": {},
+            "outcomes": {}, "verdicts": {}, "probes": 0, "relay_probes": 0,
+            # peer -> [merged rounds, the newest publish clock merged]
+            "merged_from": {},
         }
+        self._round_clock: Optional[float] = None
         self.last_fetch: dict = {}
         self.last_round: dict = {}
 
@@ -688,7 +885,11 @@ class TcpTransport:
         with self._stats_lock:
             self.stats["frames_published"] += 1
             self.stats["wire_bytes_published"] += nbytes
-        self.server.publish(payload, clock, loss)
+        # The epidemic piggyback: this node's view rides every frame.
+        digest = self.membership.encode(int(clock)) if self.membership is not None else None
+        if digest is not None:
+            self.last_digest_nbytes = len(digest)
+        self.server.publish(payload, clock, loss, digest)
 
     def _replica(self, flat: torch.Tensor) -> DeviceReplica:
         """The replica that holds ``flat``: the current one when it does
@@ -710,30 +911,38 @@ class TcpTransport:
         self._publish_replica(self._replica(_flat(vec)), clock, loss)
 
     def _publish_replica(self, rep: DeviceReplica, clock: float, loss: float) -> None:
-        self._serve(rep.payload(self.wire), clock, loss)
         self._last_clock = float(clock)
+        if self.trust is not None:
+            self._local_vec = rep.dev
+        self._serve(rep.payload(self.wire), clock, loss)
         if self.config.recovery.enabled and self.config.recovery.min_param_norm_ratio > 0.0:
             self._local_norm = rep.norm()
 
     # -- fetch ----------------------------------------------------------
     def fetch(self, peer_index: int, timeout_ms: Optional[int] = None,
               step: Optional[int] = None, device=None):
-        """Fetch, land and guard ``peer_index``'s frame: ``(vector, clock,
-        loss)`` with the vector on ``device`` (the CPU by default; float32,
-        or bf16 as the wire carried it), or None if the fetch failed or the
-        guard refused it.  :attr:`last_fetch` holds the outcome, which the
-        scoreboard records against round ``step``."""
+        """Fetch, land, guard and screen ``peer_index``'s frame: ``(vector,
+        clock, loss)`` with the vector on ``device`` (the CPU by default;
+        float32, or bf16 as the wire carried it), or None if the fetch
+        failed, the guard refused it (``poisoned``) or the trust screen
+        rejected it (``untrusted``).  The frame's digest is merged into the
+        membership view; a failure that would quarantine the peer first
+        asks relays to probe it.  :attr:`last_fetch` holds the outcome,
+        which the scoreboard records against round ``step``."""
         if timeout_ms is None:
             timeout_ms = self.config.protocol.timeout_ms
         device = torch.device("cpu") if device is None else torch.device(device)
         host, port = self._ports[peer_index]
         box: list = []
+        trailers: Optional[list] = [] if self.membership is not None else None
         got, outcome, latency_s, nbytes = fetch_blob_full(
             host, port, timeout_ms,
             min_bandwidth_bps=self.config.protocol.min_wire_mb_per_s * 1e6,
-            ring=self.ring, lease_box=box,
+            ring=self.ring, lease_box=box, trailer_box=trailers,
         )
-        reason = None
+        digest = trailers[0] if trailers else None
+        reason = trust_info = None
+        self._pending_trust_scale = 1.0
         if got is not None:
             vec, rclock, rloss = got
             del got
@@ -745,28 +954,111 @@ class TcpTransport:
             del vec
             box.pop().release()
             got = (landed, rclock, rloss)
-            if self.config.recovery.enabled:
-                reason = validate_payload(
-                    landed, rloss, self.config.recovery, local_norm=self._local_norm
+            reason, sums = self._judge(peer_index, landed, rloss)
+            if reason is not None:
+                got = None
+                outcome = Outcome.POISONED
+            elif self.trust is not None and self._local_vec is not None:
+                # The screen judges the landed vector, as it would merge;
+                # a rejection is the untrusted outcome, recorded as
+                # poisoned is (and, like it, never gated behind relays).
+                verdict, scale, tstats = self.trust.screen(
+                    peer_index, landed, rclock, self._local_vec, round=step,
+                    stats=None if sums is None else stats_from_sums(sums),
                 )
-                if reason is not None:
+                trust_info = dict(tstats, verdict=verdict, alpha_scale=round(scale, 4))
+                with self._stats_lock:
+                    counts = self.stats["verdicts"]
+                    counts[verdict] = counts.get(verdict, 0) + 1
+                if verdict == REJECTED:
                     got = None
-                    outcome = Outcome.POISONED
+                    outcome = Outcome.UNTRUSTED
+                else:
+                    self._pending_trust_scale = scale
         self.last_fetch = {
             "peer": peer_index, "outcome": outcome,
             "latency_s": latency_s, "nbytes": nbytes,
         }
         if reason is not None:
             self.last_fetch["poison_reason"] = reason
+        if trust_info is not None:
+            self.last_fetch["trust"] = trust_info
         with self._stats_lock:
             self.stats["wire_bytes_fetched"] += nbytes
             counts = self.stats["outcomes"]
             counts[outcome] = counts.get(outcome, 0) + 1
-        if self.scoreboard is not None:
-            self.scoreboard.record(
-                peer_index, outcome, latency_s=latency_s, nbytes=nbytes, round=step
-            )
+        if self.membership is not None and digest is not None:
+            self.membership.merge(digest, round=step)
+        sb = self.scoreboard
+        if (
+            self.membership is not None
+            and sb is not None
+            and step is not None
+            and outcome in (Outcome.TIMEOUT, Outcome.REFUSED, Outcome.SHORT_READ, Outcome.CORRUPT)
+            and self.config.membership.indirect_probes > 0
+            and sb.would_quarantine(peer_index, outcome)
+        ):
+            # This failure would quarantine the peer on our evidence alone:
+            # ask relays first (an asymmetric link is not a dead peer).
+            self._indirect_probe(peer_index, step)
+        if sb is not None:
+            sb.record(peer_index, outcome, latency_s=latency_s, nbytes=nbytes, round=step)
         return got
+
+    def _judge(self, peer_index: int, landed: torch.Tensor, rloss: float):
+        """The guard's verdict on a landed frame and the trust screen's five
+        sums, read back together: ``(poison reason or None, sums or
+        None)``.  The sums are computed only when the screen will run on a
+        vector of the local replica's length (else it computes or rejects
+        on its own)."""
+        local = self._local_vec
+        sums = None
+        if self.trust is not None and local is not None and landed.numel() == local.numel():
+            sums = payload_sums(
+                local, landed.to(local.device), self.trust.leaf_starts(local.numel())
+            )
+        if not self.config.recovery.enabled:
+            return None, (None if sums is None else sums.tolist())
+        checks = payload_check_tensors(landed)
+        if sums is not None:
+            checks = torch.cat([checks, sums.to(device=checks.device, dtype=torch.float64)])
+        values = checks.tolist()
+        reason = validate_payload(
+            landed, rloss, self.config.recovery, local_norm=self._local_norm, checks=values[:2]
+        )
+        return reason, (values[2:] if sums is not None else None)
+
+    def _indirect_probe(self, suspect: int, step: int) -> None:
+        """Ask ``indirect_probes`` drawn healthy peers to header-probe
+        ``suspect`` for us (the RELAY verb) and feed the scoreboard at most
+        one summarized outcome for it: a success when any relay vouched.
+        Each relay's own reachability feeds its record too.  The relays are
+        :func:`~dpwa_tpu_torch.parallel.schedules.relay_draw`'s, keyed on
+        (seed, step, me, slot)."""
+        sb = self.scoreboard
+        candidates = [
+            p for p in range(len(self.config.nodes))
+            if p != self.me and p != suspect and sb.state(p) == PeerState.HEALTHY
+        ]
+        if not candidates:
+            return
+        k = min(int(self.config.membership.indirect_probes), len(candidates))
+        s_host, s_port = self._ports[suspect]
+        vouched = False
+        for slot in range(k):
+            relay = candidates.pop(relay_draw(self.schedule.seed, step, self.me, slot,
+                                              len(candidates)))
+            r_host, r_port = self._ports[relay]
+            with self._stats_lock:
+                self.stats["relay_probes"] += 1
+            relay_outcome, probe_outcome, _clock = relay_probe(
+                r_host, r_port, suspect, s_host, s_port,
+                self.config.health.probe_timeout_ms, self.config.membership.relay_timeout_ms,
+            )
+            sb.record_probe(relay, relay_outcome, round=step)
+            vouched |= probe_outcome == Outcome.SUCCESS
+        if vouched:
+            sb.record_probe(suspect, Outcome.SUCCESS, round=step)
 
     # -- health and recovery --------------------------------------------
     def _resolve_partner(self, step: int) -> Tuple[int, int, bool]:
@@ -784,6 +1076,8 @@ class TcpTransport:
         sb = self.scoreboard
         if sb is not None and sched != self.me:
             if sb.probe_due(sched, step):
+                with self._stats_lock:
+                    self.stats["probes"] += 1
                 host, port = self._ports[sched]
                 outcome, remote_clock = probe_header_classified(
                     host, port, self.config.health.probe_timeout_ms
@@ -827,40 +1121,85 @@ class TcpTransport:
         advice, self.resync_advice = self.resync_advice, None
         return advice
 
+    def pop_membership_events(self) -> list:
+        """Drain the membership events (refutations, component changes,
+        partition entered and healed, evictions and rejoins)."""
+        return [] if self.membership is None else self.membership.pop_events()
+
+    def pop_heal_advice(self) -> Optional[dict]:
+        """Consume the pending heal-reconciliation advice, if any."""
+        return None if self.membership is None else self.membership.pop_heal_advice()
+
+    def pop_trust_events(self) -> list:
+        """Drain the trust events (collapse, recovery, amnesty, clock
+        resets)."""
+        return [] if self.trust is None else self.trust.pop_events()
+
+    def set_trust_leaves(self, sizes) -> None:
+        """Adopt the model's leaf sizes, in the frame's order, so the
+        screen's per-leaf statistic follows the real parameter boundaries
+        (adapters call this once)."""
+        if self.trust is not None:
+            self.trust.set_leaf_sizes(sizes)
+
     def health_snapshot(self) -> dict:
-        """JSON-ready per-peer health (the scoreboard's snapshot)."""
+        """JSON-ready per-peer health: the scoreboard's snapshot (with the
+        membership view when that plane runs), plus each peer's trust
+        columns and a top-level ``trust`` view when the trust plane runs."""
         if self.scoreboard is None:
-            return {"me": self.me, "round": 0, "peers": {}}
-        return self.scoreboard.snapshot()
+            snap = {"me": self.me, "round": 0, "peers": {}}
+        else:
+            snap = self.scoreboard.snapshot()
+        if self.trust is not None:
+            tsnap = self.trust.snapshot()
+            for p, info in tsnap["peers"].items():
+                snap["peers"].setdefault(p, {}).update(info)
+            snap["trust"] = tsnap
+        return snap
 
     # -- the round ------------------------------------------------------
     def _weigh(self, got: tuple, clock: float, loss: float) -> float:
         """The interpolation α for a fetched frame, in float32 as the
-        reference's."""
+        reference's (the trust damping included), scaled by the membership
+        plane's degraded-mode factor."""
         _vec, remote_clock, remote_loss = got
         as_meta = lambda c, l: PeerMeta(
             torch.tensor([c], dtype=torch.float32), torch.tensor([l], dtype=torch.float32)
         )
-        return float(self.interp(as_meta(clock, loss), as_meta(remote_clock, remote_loss))[0])
+        alpha = float(self.interp(as_meta(clock, loss), as_meta(remote_clock, remote_loss))[0])
+        if self.membership is not None:
+            alpha *= self.membership.alpha_scale()
+        return alpha
 
     def _round(self, rep: DeviceReplica, clock: float, loss: float, step: int):
         """Publish, resolve the partner, check participation, fetch, guard,
-        weigh: ``(remote or None, α, partner)``; None skips the merge."""
-        self._publish_replica(rep, clock, loss)
-        sched, partner, remapped = self._resolve_partner(step)
-        self.last_round = {
-            "step": step, "sched_partner": sched, "partner": partner,
-            "remapped": remapped, "outcome": None,
-        }
-        # Participation stays keyed on the scheduled pairing; a remap moves
-        # only the fetch (to self when no healthy peer is left: skipped).
-        if partner == self.me or not self.schedule.participates(step, self.me):
-            return None, 0.0, partner
-        got = self.fetch(partner, step=step, device=rep.dev.device)
-        self.last_round["outcome"] = self.last_fetch.get("outcome")
-        if got is None:
-            return None, 0.0, partner
-        return got[0], self._weigh(got, clock, loss), partner
+        screen, weigh: ``(remote or None, α, partner)``; None skips the
+        merge.  The membership round boundary runs on every exit."""
+        try:
+            self._publish_replica(rep, clock, loss)
+            sched, partner, remapped = self._resolve_partner(step)
+            self.last_round = {
+                "step": step, "sched_partner": sched, "partner": partner,
+                "remapped": remapped, "outcome": None,
+            }
+            # Participation stays keyed on the scheduled pairing; a remap
+            # moves only the fetch (to self when no healthy peer is left).
+            if partner == self.me or not self.schedule.participates(step, self.me):
+                return None, 0.0, partner
+            got = self.fetch(partner, step=step, device=rep.dev.device)
+            self.last_round["outcome"] = self.last_fetch.get("outcome")
+            if "trust" in self.last_fetch:
+                self.last_round["trust"] = self.last_fetch["trust"]
+            if got is None:
+                return None, 0.0, partner
+            self._round_clock = got[1]
+            return got[0], self._weigh(got, clock, loss), partner
+        finally:
+            # Component and quorum state advance on skipped rounds too: a
+            # partitioned node skips every round, which is when it must
+            # notice.
+            if self.membership is not None:
+                self.membership.end_round(step)
 
     def exchange_on_device(self, vec_dev: torch.Tensor, clock: float, loss: float, step: int):
         """One gossip round for a flat float32 replica on the card (or any
@@ -872,6 +1211,10 @@ class TcpTransport:
         with self._stats_lock:
             self.stats["rounds"] += 1
             self.stats["merged"] += remote is not None
+            if remote is not None:
+                seen = self.stats["merged_from"].setdefault(partner, [0, self._round_clock])
+                seen[0] += 1
+                seen[1] = max(seen[1], self._round_clock)
         if remote is None:
             return rep.dev, alpha, partner
         merged = engine.merge(rep.dev, remote, alpha)

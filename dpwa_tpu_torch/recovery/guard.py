@@ -30,14 +30,19 @@ import torch
 from dpwa_tpu_torch.config import RecoveryConfig
 
 
-def payload_checks(vec) -> tuple[bool, float]:
-    """``(all finite, float64 L2 norm)`` of ``vec`` (a tensor on any
-    device, or a numpy array), with one readback."""
+def payload_check_tensors(vec) -> torch.Tensor:
+    """``[all finite, float64 L2 norm]`` of ``vec`` (a tensor on any
+    device, or a numpy array) as a float64 tensor where it lies, not read
+    back (a caller may read it back with other scalars)."""
     v = torch.from_numpy(np.ascontiguousarray(vec)) if isinstance(vec, np.ndarray) else vec
     v = v.reshape(-1)
     finite = torch.isfinite(v).all().to(torch.float64)
-    norm = torch.linalg.vector_norm(v, dtype=torch.float64)
-    ok, value = torch.stack([finite, norm]).tolist()
+    return torch.stack([finite, torch.linalg.vector_norm(v, dtype=torch.float64)])
+
+
+def payload_checks(vec) -> tuple[bool, float]:
+    """``(all finite, float64 L2 norm)`` of ``vec``, with one readback."""
+    ok, value = payload_check_tensors(vec).tolist()
     return bool(ok), float(value)
 
 
@@ -46,6 +51,7 @@ def validate_payload(
     loss: float,
     config: RecoveryConfig,
     local_norm: Optional[float] = None,
+    checks: Optional[tuple] = None,
 ) -> Optional[str]:
     """None if ``(vec, loss)`` is a sane replica, else the violation, one of
     the reference's strings: ``nonfinite_params`` | ``param_norm`` |
@@ -53,8 +59,10 @@ def validate_payload(
 
     ``vec`` is the frame's payload (float32 or bf16, checked in float64);
     ``local_norm`` the receiver's own replica norm, against which a remote
-    below ``min_param_norm_ratio`` of it is ``zero_energy``."""
-    finite, norm = payload_checks(vec)
+    below ``min_param_norm_ratio`` of it is ``zero_energy``.  ``checks``
+    are ``vec``'s :func:`payload_check_tensors` when the caller read them
+    back already."""
+    finite, norm = payload_checks(vec) if checks is None else (bool(checks[0]), float(checks[1]))
     if not finite:
         return "nonfinite_params"
     if norm > config.max_param_norm:

@@ -85,6 +85,15 @@ def leaf_order(names: Iterable[str]) -> list[str]:
     return sorted(names, key=lambda name: name.split("."))
 
 
+def leaf_sizes(tensors: Mapping[str, torch.Tensor]) -> Tuple[int, ...]:
+    """Per-leaf element counts in the reference's leaf order
+    (:func:`leaf_order`), the sizes ``dpwa_tpu.utils.pytree.leaf_sizes``
+    gives for the reference's tree: the leaves of the flat frame, in the
+    order :meth:`FlatParams.reference_order` gathers them.  The trust
+    screen's per-leaf statistic segments the frame by them."""
+    return tuple(int(tensors[k].numel()) for k in leaf_order(tensors))
+
+
 def padded_width(size: int) -> int:
     """``size`` floats rounded up to whole :data:`ROW_ALIGN` blocks (at least one)."""
     return -(-max(size, 1) // ROW_ALIGN) * ROW_ALIGN

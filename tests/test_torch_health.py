@@ -34,6 +34,7 @@ import torch
 
 from dpwa_tpu.config import HealthConfig as RefHealthConfig
 from dpwa_tpu.config import make_local_config as ref_config
+from dpwa_tpu.device import reset_device_stats
 from dpwa_tpu.health import detector as ref_detector
 from dpwa_tpu.health import scoreboard as ref_scoreboard
 from dpwa_tpu.parallel import schedules as ref_schedules
@@ -310,20 +311,25 @@ def test_probe_outcomes_match_reference_against_faulty_servers(fault):
 # -- the transport: warnings, settings ----------------------------------------
 
 def test_transport_warns_once_naming_each_unported_plane():
+    """Membership and trust are ported: a node at the defaults runs them
+    and warns about flowctl alone."""
     cfg = _ephemeral(make_local_config(2))
-    with pytest.warns(UserWarning, match="membership, trust, flowctl") as record:
+    with pytest.warns(UserWarning, match=r"default-on flowctl plane") as record:
         t = tcp.TcpTransport(cfg, "node0", device="cpu")
+    assert t.membership is not None and t.trust is not None
     t.close()
-    assert len(record) == 1
+    assert len(record) == 1 and "membership" not in str(record[0].message)
+    assert "trust" not in str(record[0].message)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        t = tcp.TcpTransport(_ephemeral(make_local_config(2, disabled_planes=("flowctl",))),
+                             "node0", device="cpu")
+        assert t.membership is not None and t.trust is not None
+        t.close()
         t = tcp.TcpTransport(_ephemeral(make_local_config(2, disabled_planes=UNPORTED_OFF)),
                              "node0", device="cpu")
+        assert t.membership is None and t.trust is None
         t.close()
-    with pytest.warns(UserWarning, match=r"default-on trust plane") as record:
-        t = tcp.TcpTransport(_ephemeral(make_local_config(
-            2, disabled_planes=("membership", "flowctl"))), "node0", device="cpu")
-    t.close()
 
 
 def test_healthz_port_raises_and_health_off_has_no_scoreboard():
@@ -378,6 +384,11 @@ def _down_group_run(kinds):
     exchanges); node 3's server closes at round DOWN and the node is
     rebuilt on a new port at BACK.  Returns every round's decisions and
     merges, and each survivor's final scoreboard snapshot."""
+    # A reference node's health snapshot gains a "wire" section once the
+    # reference's device merge engine has served a round anywhere in this
+    # process (``TcpTransport.health_snapshot``): start from a fresh engine,
+    # as the reference's own tests do.
+    reset_device_stats()
     nodes, ref_cfg, port_cfg = _group(kinds)
     rng = np.random.default_rng(0)
     vecs = [rng.standard_normal(257).astype(np.float32) for _ in kinds]

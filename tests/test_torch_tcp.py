@@ -326,7 +326,7 @@ def test_mixed_pair_with_reference_default_planes_every_round_succeeds(wire):
             assert [o for _, o in info] == ["success", "success"]
             assert all(a > 0 for a, _ in info) and all(np.isfinite(v).all() for v in vecs)
         # The reference node appended its membership digest after every
-        # payload; the port's fetcher read header + nbytes and stopped.
+        # payload; nbytes counts the payload alone.
         assert nodes[1].last_fetch["nbytes"] == start[0].nbytes // (2 if wire == "bf16" else 1)
     finally:
         for t in nodes:
