@@ -31,8 +31,12 @@ that they went through the kernels:
   the reference deploys it): two OS processes, one per node of a copy of
   ``examples/mnist/nodes.yaml`` on two free ports, SmallNet, 300 steps,
   each replica on the card and every fetched frame merged there by one B2
-  launch over ``[1, 66410]``, at the default planes (membership and trust
-  on: every frame carries its digest and is screened); three processes of
+  launch over ``[1, 66410]``, at the default planes (membership, trust and
+  flowctl on: every frame carries its digest and is screened, every fetch
+  runs on its adaptive deadline); four processes of a 4-node copy whose
+  node2 the chaos harness trickles at 2048 B/s for a window of its publish
+  clocks, which its partners must soft-degrade (hedging and shedding its
+  rounds to a fallback) and never quarantine; three processes of
   a 4-node copy and a byzantine fourth node serving sign-flips, which the
   honest nodes must reject, quarantine and never merge; the trust screen
   at 66,410 and 25,557,032 floats against its float64 plain version; the
@@ -98,21 +102,22 @@ R50_PEERS = 32
 WIRES = ("f32", "bf16", "int8")  # the merge kernels' arithmetic forms
 ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
-    "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "trust_screen",
-    "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
+    "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "slowpeer_tcp",
+    "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
 )
 # Phases run only when --phases names them (not by default).
 EXTRA_PHASES = ("train_tcp_planes",)
-# train_tcp_planes: train_tcp with the membership and trust planes on and
-# off, the four variants in turns (ABCD DCBA, PLANES_REPS times over).
+# train_tcp_planes: train_tcp with the membership, trust and flowctl planes
+# on and off, the variants in turns (ABCDE EDCBA, PLANES_REPS times over).
 PLANE_VARIANTS = {
     "defaults": "",
     "trust_off": "trust: {enabled: false}\n",
     "membership_off": "membership: {enabled: false}\n",
     "both_off": "membership: {enabled: false}\ntrust: {enabled: false}\n",
+    "flowctl_off": "flowctl: {enabled: false}\n",
 }
 PLANES_REPS = 2
 # The MNIST path (BASELINE config 1, stacked): 2 peers of SmallNet on the
@@ -139,6 +144,17 @@ TCP_WARMUPS, TCP_PASSES, TCP_ITERS = 3, 3, 10
 # BYZ_ROUND_S.  The honest nodes train on a quarter of the digits each and
 # run BYZ_STEPS steps.
 BYZ_NODES, BYZ_FLIP_AFTER, BYZ_ROUND_S, BYZ_STEPS = 4, 60, 0.005, 600
+# The slow-peer phase: examples/mnist/nodes.yaml widened to 4 nodes, all
+# processes of the MNIST example at the default planes; the chaos harness
+# trickles node SLOW_VICTIM's serving at the reference's default 2048 B/s
+# (a 265,640-byte frame would take about 130 s) for its publish clocks
+# SLOW_WINDOW; SLOW_STEPS steps, the nodes held at a start and an end
+# barrier so that no node's start or end reads as a dead peer.
+SLOW_NODES, SLOW_VICTIM, SLOW_WINDOW, SLOW_STEPS = 4, 2, (150, 450), 600
+SLOW_CHAOS = (
+    "chaos:\n  enabled: true\n  seed: 5\n  trickle_bytes_per_s: 2048.0\n"
+    f"  trickle_windows: [[{SLOW_VICTIM}, {SLOW_WINDOW[0]}, {SLOW_WINDOW[1]}]]\n"
+)
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -1077,8 +1093,8 @@ def train_tcp(kind: str) -> dict:
 
 
 def train_tcp_planes(kind: str) -> dict:
-    """``train_tcp`` at the defaults and with the membership and trust
-    planes switched off in its config, the variants in turns in this one
+    """``train_tcp`` at the defaults and with the membership, trust and
+    flowctl planes switched off in its config, the variants in turns in this one
     call (the order of ``PLANE_VARIANTS``, then reversed, ``PLANES_REPS``
     times): each run's mean steps/s over its two processes, and each
     variant's median and its seconds a step."""
@@ -1092,6 +1108,92 @@ def train_tcp_planes(kind: str) -> dict:
     medians = {name: statistics.median(v) for name, v in runs.items()}
     return {"order": order, "steps_per_sec": runs, "median_steps_per_sec": medians,
             "median_ms_per_step": {name: 1e3 / m for name, m in medians.items()}}
+
+
+def slowpeer_tcp(kind: str) -> dict:
+    """Four OS processes of the MNIST example (``examples/mnist/nodes.yaml``
+    widened to 4 nodes, at the default planes) with ``SLOW_CHAOS``: node2
+    serves its frames at 2048 B/s for its publish clocks ``SLOW_WINDOW``.
+    Passes only if every node reaches accuracy 0.9 and node2's ring
+    partners (node1 and node3) soft-degrade node2 and never quarantine it
+    (nor does node0), classify their fetches of it only as ``slow``,
+    ``busy`` or ``success`` (a hedge's won fetch is a success), shed at
+    least one degraded round to a fallback that succeeds, and take no round
+    longer than the flowctl budget: the primary's deadline and a hedge
+    leg's, each at most ``max(protocol.timeout_ms, flowctl.max_ms)``, and a
+    second for the rest of the step."""
+    workdir = os.path.join(HERE, "build", "slowpeer_tcp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    config = tcp_config(workdir, SLOW_NODES, extra=SLOW_CHAOS)
+    logs = [os.path.join(workdir, f"node{i}_rounds.jsonl") for i in range(SLOW_NODES)]
+    procs = []
+    try:
+        procs = [mnist_node(config, f"node{i}", SLOW_STEPS,
+                            ("--barrier", os.path.join(workdir, "barrier"),
+                             "--round-log", logs[i], "--log-every", "1000"))
+                 for i in range(SLOW_NODES)]
+        outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nodes = [node_result("slowpeer_tcp", f"node{i}", p.returncode, *out, kind, SLOW_STEPS)
+             for i, (p, out) in enumerate(zip(procs, outs))]
+    from dpwa_tpu_torch.config import load_config
+
+    cfg = load_config(config)
+    budget_ms = 2 * max(cfg.protocol.timeout_ms, cfg.flowctl.max_ms) + 1000
+    rounds = []
+    for path in logs:
+        with open(path) as f:
+            rounds.append([json.loads(line) for line in f])
+    shutil.rmtree(workdir, ignore_errors=True)
+    partners = [(SLOW_VICTIM - 1) % SLOW_NODES, (SLOW_VICTIM + 1) % SLOW_NODES]
+    shed_ok, victim_outcomes = [], {}
+    for i, res in enumerate(nodes):
+        states = [e["state"] for e in res["health_events"] if e["peer"] == SLOW_VICTIM]
+        if "quarantined" in states:
+            raise AssertionError(f"slowpeer_tcp: node{i} quarantined node{SLOW_VICTIM}: "
+                                 f"{res['health_events']}")
+        worst = max(r["round_ms"] for r in rounds[i][1:])
+        if worst > budget_ms:
+            raise AssertionError(f"slowpeer_tcp: node{i} took {worst} ms for a round "
+                                 f"(budget {budget_ms} ms)")
+        if i not in partners:
+            continue
+        if "degraded" not in states:
+            raise AssertionError(f"slowpeer_tcp: node{i} never degraded node{SLOW_VICTIM}: "
+                                 f"{res['health_events']}")
+        got = [r["outcome"] for r in rounds[i] if r["partner"] == SLOW_VICTIM and r["outcome"]]
+        victim_outcomes[f"node{i}"] = {o: got.count(o) for o in sorted(set(got))}
+        if set(got) - {"slow", "busy", "success"}:
+            raise AssertionError(f"slowpeer_tcp: node{i} classified node{SLOW_VICTIM}'s fetches "
+                                 f"as {victim_outcomes[f'node{i}']}")
+        shed_ok += [r for r in rounds[i] if r["sched_partner"] == SLOW_VICTIM and r["remapped"]
+                    and r["sched_state"] == "degraded" and r["outcome"] == "success"]
+    if not shed_ok:
+        raise AssertionError(f"slowpeer_tcp: no degraded round of node{SLOW_VICTIM} was shed "
+                             f"to a fallback that succeeded")
+    per_node = lambda key: {f"node{i}": n[key] for i, n in enumerate(nodes)}
+    return {
+        "nodes_steps": SLOW_STEPS, "victim": SLOW_VICTIM, "trickle_window": list(SLOW_WINDOW),
+        "trickle_bytes_per_s": 2048.0, "round_budget_ms": budget_ms,
+        "steps_per_sec": per_node("steps_per_sec"), "accuracy": per_node("accuracy"),
+        "outcomes": per_node("outcomes"), "victim_fetch_outcomes": victim_outcomes,
+        "hedged_rounds": per_node("hedged_rounds"),
+        "hedges": {f"node{i}": n["flowctl"]["hedges"] for i, n in enumerate(nodes)},
+        "hedge_wins": {f"node{i}": n["flowctl"]["hedge_wins"] for i, n in enumerate(nodes)},
+        "shed_rounds": per_node("shed_rounds"), "shed_rounds_succeeded": len(shed_ok),
+        "remapped_rounds": per_node("remapped_rounds"),
+        "deadline_ms": {f"node{i}": n["flowctl"]["deadline_ms"] for i, n in enumerate(nodes)},
+        "busy": {f"node{i}": n["flowctl"]["busy"] for i, n in enumerate(nodes)},
+        "slow": {f"node{i}": n["flowctl"]["slow"] for i, n in enumerate(nodes)},
+        "admission": {f"node{i}": n["flowctl"]["admission"] for i, n in enumerate(nodes)},
+        "health_events": per_node("health_events"),
+        "b2_launches": per_node("b2_launches"), "merged_rounds": per_node("merged_rounds"),
+        "round_ms": per_node("round_ms"),
+    }
 
 
 def rollback_tcp(kind: str) -> dict:
@@ -1455,7 +1557,7 @@ def state_exchange(torch, device) -> dict:
     scatter, as the adapter lands a bootstrap), a push and a rollback of
     the ring on the card, and the local guard; the landing and the
     rollback held bit for bit."""
-    from dpwa_tpu_torch.config import RecoveryConfig
+    from dpwa_tpu_torch.config import FlowctlConfig, RecoveryConfig
     from dpwa_tpu_torch.adapters.tcp_adapter import _packer
     from dpwa_tpu_torch.parallel import tcp
     from dpwa_tpu_torch.recovery import RollbackRing, pack_state, unpack_state, validate_payload
@@ -1476,7 +1578,11 @@ def state_exchange(torch, device) -> dict:
     readback_ms, host = host_ms(lambda: vec.cpu(), 3)
     pack_ms, blob = host_ms(lambda: pack_state([host], meta=meta), 3)
     eager_ms, _ = host_ms(lambda: pack_state([vec.cpu()], meta=meta), 3)
-    srv = tcp.PeerServer("127.0.0.1", 0)
+    # Admission on, its token bucket sized for this phase's eight back-to-
+    # back transfers (98 connections each, from one host in seconds): the
+    # default burst of 200 would shed the third with busy frames, which a
+    # STATE fetch reads as short reads.  A bootstrap is one transfer.
+    srv = tcp.PeerServer("127.0.0.1", 0, flowctl=FlowctlConfig(token_burst=1024.0))
     try:
         lazy_publish_ms, _ = host_ms(lambda: srv.publish_state(_packer(vec, meta)), 20)
         srv.publish_state(blob)
@@ -2007,6 +2113,14 @@ def main(argv=None) -> int:
               "trust_verdicts": [n["verdicts"] for n in res["nodes"]],
               "membership_events": [n["events"] for n in res["nodes"]]})
 
+    if "slowpeer_tcp" in phases:
+        t0 = time.perf_counter()
+        res = slowpeer_tcp(kind)
+        main_launches["slowpeer_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(res["b2_launches"].values())}
+        emit({"phase": "slowpeer_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+
     if "train_tcp_planes" in phases:
         t0 = time.perf_counter()
         res = train_tcp_planes(kind)
@@ -2412,6 +2526,8 @@ def main(argv=None) -> int:
                     "launches_recover_tcp": main_launches.get("recover_tcp", {}).get(name),
                     # The three honest MNIST processes of the byzantine phase.
                     "launches_byzantine_tcp": main_launches.get("byzantine_tcp", {}).get(name),
+                    # The four MNIST processes of the slow-peer phase.
+                    "launches_slowpeer_tcp": main_launches.get("slowpeer_tcp", {}).get(name),
                     "at_tcp_mnist": tcp_rows.get("mnist"),
                     "launches_tcp_exchange": [
                         main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],

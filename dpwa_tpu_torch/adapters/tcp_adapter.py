@@ -29,7 +29,11 @@
   them, the flat vector on the model's device.  As the reference's, it runs
   no recovery around the round; the transport's guard and health run.
 
-Not ported yet: the tune events and the metrics records.
+Each round's exchange record (the reference's metrics record: step,
+loss, α, the scheduled and actual partner, the remap, the outcome, the
+trust verdict and, when a hedge fired, its winner) is
+:attr:`DpwaTcpAdapter.last_record`.  Not ported yet: the tune events and
+the metrics files.
 """
 
 from __future__ import annotations
@@ -125,6 +129,7 @@ class DpwaTcpAdapter:
         self._last_loss = 0.0
         self.last_alpha = 0.0
         self.last_partner = -1
+        self.last_record: dict = {}
         rec = self.config.recovery
         self._recovery = rec if rec.enabled else None
         self.ring: Optional[RollbackRing] = RollbackRing(rec.snapshot_ring) if rec.enabled else None
@@ -264,6 +269,7 @@ class DpwaTcpAdapter:
         self._step = step + 1
         if merged is not vec:
             self.flat.flat[0].index_copy_(0, self._order, merged)
+        self._record(step, loss)
         if self._recovery is not None:
             self._last_loss = loss
             if not rolled_back and step % self._recovery.snapshot_every == 0:
@@ -280,6 +286,20 @@ class DpwaTcpAdapter:
         if heal is not None and self.config.membership.heal_reconcile and self._recovery is not None:
             self._reconcile_heal(heal)
         return self.params
+
+    def _record(self, step: int, loss: float) -> None:
+        """:attr:`last_record`: this round's exchange, with the reference's
+        field names (the trust and hedge columns only when they apply)."""
+        info = self.transport.last_round
+        rec = {"step": step, "loss": loss, "alpha": self.last_alpha,
+               **{k: info.get(k) for k in ("sched_partner", "partner", "remapped", "outcome")}}
+        if "trust" in info:
+            rec["trust_verdict"] = info["trust"].get("verdict")
+            rec["trust_scale"] = info["trust"].get("alpha_scale")
+        if info.get("hedged"):
+            rec["hedged"] = True
+            rec["hedge_winner"] = info.get("hedge_winner")
+        self.last_record = rec
 
     def _event(self, event: str, **fields) -> None:
         """An event record, at the step that runs next (the reference

@@ -6,14 +6,14 @@ lists the peers (its length is the stacked peer axis; host/port are where
 each node of the TCP transport serves), ``protocol:`` the schedule,
 ``interpolation:`` the merge coefficient, ``recovery:`` the guard, the
 rollback ring, the STATE wire and the bound of the α = 1 rescue,
-``health:`` the TCP transport's failure detector and scoreboard,
-``membership:`` the epidemic membership plane (its global view: a
-``view:`` block loads only as ``enabled: false``) and ``trust:`` the
-content-trust screen.  The reference also turns its ``flowctl:`` plane on
-by default, which the port does not have yet: that block loads when it
-says only ``enabled: false``, and any other content raises
-:class:`NotImplementedError` naming it, as does every other top-level block
-of a plane the port does not have, rather than dropping it.
+``health:`` the TCP transport's failure detector, scoreboard and
+``/healthz`` port, ``membership:`` the epidemic membership plane (its
+global view: a ``view:`` block loads only as ``enabled: false``),
+``trust:`` the content-trust screen, ``flowctl:`` the flow control plane
+(adaptive deadlines, hedged fetches, degrade shedding, serving admission)
+and ``chaos:`` the seeded fault injection of the TCP path.  Every other
+top-level block raises :class:`NotImplementedError` naming it, rather than
+being dropped.
 """
 
 from __future__ import annotations
@@ -27,10 +27,12 @@ import yaml
 DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 
 # The top-level blocks the port reads.
-PORTED_BLOCKS = ("nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust")
-# Default-on planes of the reference that the port does not have yet: a
-# block of theirs may only switch the plane off.
-UNPORTED_DEFAULT_ON = ("flowctl",)
+PORTED_BLOCKS = (
+    "nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust",
+    "flowctl", "chaos",
+)
+# The planes make_local_config's ``disabled_planes`` may switch off.
+DEFAULT_ON_PLANES = ("membership", "trust", "flowctl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,8 +196,8 @@ class HealthConfig:
     """``health:`` block: the TCP transport's peer-health plane (the
     reference's fields and defaults).  Quarantine timing is counted in
     gossip rounds, never wall time, so the plane's state is a function of
-    the outcome sequence.  ``healthz_port`` is validated and must stay
-    null: the ``/healthz`` endpoint is not ported yet."""
+    the outcome sequence.  ``healthz_port`` (null: off, 0: a port the OS
+    picks) serves the health snapshot at ``/healthz``."""
 
     enabled: bool = True
     # Quarantine when a peer's suspicion crosses this (about 1 per hard
@@ -367,6 +369,193 @@ class TrustConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlowctlConfig:
+    """``flowctl:`` block: the flow control plane of the TCP transport (the
+    reference's fields, defaults and checks).  Fetcher side: each peer's
+    success latencies set its next fetch's deadline (their ``quantile``
+    times ``margin``, clamped to ``[min_ms, max_ms]``; ``protocol.timeout_ms``
+    until ``warmup`` samples), and once the un-margined quantile lapses one
+    hedged fetch races the schedule's fallback partner; a ``degraded``
+    partner's rounds go to a fallback at ``degrade_shed_fraction``.
+    Serving side: admission sheds excess connections, a drained per-remote
+    token bucket and sends past ``max_inflight_bytes`` with a ``DPWB`` busy
+    frame, and evicts a request that trickles in slower than
+    ``min_ingest_bytes_per_s``.  ``reactor_max_connections`` is validated
+    and unused (the port has no reactor Rx server)."""
+
+    enabled: bool = True
+    quantile: float = 0.95
+    margin: float = 1.5
+    min_ms: float = 50.0
+    max_ms: float = 5000.0
+    window: int = 32
+    warmup: int = 5
+    hedge: bool = True
+    degrade_shed_fraction: float = 0.5
+    max_connections: int = 32
+    reactor_max_connections: int = 1024
+    token_rate: float = 100.0
+    token_burst: float = 200.0
+    max_inflight_bytes: int = 1 << 28
+    min_ingest_bytes_per_s: float = 4096.0
+    # The handler's socket budget and the request read's eviction deadline.
+    request_timeout_ms: int = 5000
+    busy_retry_ms: int = 50
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.quantile <= 1.0:
+            raise ValueError(f"quantile must be in (0, 1], got {self.quantile}")
+        if self.margin < 1.0:
+            raise ValueError(f"margin must be >= 1, got {self.margin}")
+        if not 0.0 < self.min_ms <= self.max_ms:
+            raise ValueError(
+                f"need 0 < min_ms <= max_ms, got min_ms={self.min_ms} max_ms={self.max_ms}"
+            )
+        if self.window < 2:
+            raise ValueError(f"window must be >= 2, got {self.window}")
+        if not 1 <= self.warmup <= self.window:
+            raise ValueError(f"warmup must be in [1, window], got {self.warmup}")
+        if not 0.0 <= self.degrade_shed_fraction <= 1.0:
+            raise ValueError(
+                f"degrade_shed_fraction must be in [0, 1], got {self.degrade_shed_fraction}"
+            )
+        for name, low in (("max_connections", 1), ("reactor_max_connections", 1),
+                          ("max_inflight_bytes", 1), ("request_timeout_ms", 1),
+                          ("busy_retry_ms", 0)):
+            if getattr(self, name) < low:
+                raise ValueError(f"{name} must be >= {low}, got {getattr(self, name)}")
+        if self.token_rate <= 0:
+            raise ValueError(f"token_rate must be > 0, got {self.token_rate}")
+        if self.token_burst < 1:
+            raise ValueError(f"token_burst must be >= 1, got {self.token_burst}")
+        if self.min_ingest_bytes_per_s <= 0:
+            raise ValueError(
+                f"min_ingest_bytes_per_s must be > 0, got {self.min_ingest_bytes_per_s}"
+            )
+
+
+# ChaosConfig's fields that are a probability.
+_CHAOS_PROBABILITIES = (
+    "drop_probability", "delay_probability", "throttle_probability",
+    "truncate_probability", "corrupt_probability", "partition_probability",
+    "byzantine_sign_probability", "byzantine_scale_probability",
+    "byzantine_replay_probability", "byzantine_zero_probability",
+    "stall_probability", "bandwidth_flap_probability",
+)
+# ChaosConfig's window lists whose entries are (peer, start, stop).
+_CHAOS_PEER_WINDOWS = ("down_windows", "trickle_windows", "accept_delay_windows",
+                       "bandwidth_windows")
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosConfig:
+    """``chaos:`` block: seeded fault injection on the TCP path (the
+    reference's fields, defaults and checks; :mod:`dpwa_tpu_torch.health.
+    chaos`).  Each fault is drawn per (seed, round, peer) on its own
+    threefry stream, so a seed replays the same faults.  Windows are
+    ``[start, stop)`` intervals of publish clocks: ``down_windows`` serve
+    nothing, ``trickle_windows`` serve at ``trickle_bytes_per_s``,
+    ``accept_delay_windows`` sleep before the request read,
+    ``bandwidth_windows`` flap the serving rate block by block;
+    ``partition_windows`` (a group and its complement) and ``link_windows``
+    (one directed link) block links, and ``partition_probability`` draws
+    partitions per block of ``partition_len_rounds``.  The byzantine faults
+    keep the frame valid and lie in its payload."""
+
+    enabled: bool = False
+    seed: int = 0
+    drop_probability: float = 0.0
+    delay_probability: float = 0.0
+    delay_ms: float = 50.0
+    throttle_probability: float = 0.0
+    throttle_bytes_per_s: float = 1e6
+    truncate_probability: float = 0.0
+    corrupt_probability: float = 0.0
+    # (peer, start, stop) or {peer, start, stop}.
+    down_windows: tuple = ()
+    # (group, start, stop) or {group, start, stop}.
+    partition_windows: tuple = ()
+    # (src, dst, start, stop) or {src, dst, start, stop}.
+    link_windows: tuple = ()
+    partition_probability: float = 0.0
+    partition_len_rounds: int = 8
+    byzantine_peers: tuple = ()
+    byzantine_start_round: int = 0
+    byzantine_sign_probability: float = 0.0
+    byzantine_scale_probability: float = 0.0
+    byzantine_scale_factor: float = 100.0
+    byzantine_replay_probability: float = 0.0
+    byzantine_replay_age: int = 8
+    byzantine_zero_probability: float = 0.0
+    trickle_windows: tuple = ()
+    trickle_bytes_per_s: float = 2048.0
+    stall_probability: float = 0.0
+    stall_ms_max: float = 200.0
+    accept_delay_windows: tuple = ()
+    accept_delay_ms: float = 100.0
+    bandwidth_windows: tuple = ()
+    bandwidth_flap_probability: float = 1.0
+    bandwidth_block_rounds: int = 4
+    bandwidth_bps_min: float = 4096.0
+    bandwidth_bps_max: float = 65536.0
+
+    def __post_init__(self) -> None:
+        for name in _CHAOS_PROBABILITIES:
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        for name, positive in (("byzantine_scale_factor", True), ("throttle_bytes_per_s", True),
+                               ("trickle_bytes_per_s", True), ("bandwidth_bps_min", True),
+                               ("delay_ms", False), ("stall_ms_max", False),
+                               ("accept_delay_ms", False)):
+            v = getattr(self, name)
+            if (v <= 0) if positive else (v < 0):
+                raise ValueError(f"{name} must be {'>' if positive else '>='} 0, got {v}")
+        for name, low in (("byzantine_replay_age", 1), ("byzantine_start_round", 0),
+                          ("partition_len_rounds", 1), ("bandwidth_block_rounds", 1)):
+            if getattr(self, name) < low:
+                raise ValueError(f"{name} must be >= {low}, got {getattr(self, name)}")
+        if self.bandwidth_bps_max < self.bandwidth_bps_min:
+            raise ValueError(
+                f"bandwidth_bps_max must be >= bandwidth_bps_min, "
+                f"got {self.bandwidth_bps_max} < {self.bandwidth_bps_min}"
+            )
+        byz = tuple(int(p) for p in self.byzantine_peers)
+        if any(p < 0 for p in byz):
+            raise ValueError(f"bad byzantine_peers entry in {byz!r}")
+        object.__setattr__(self, "byzantine_peers", byz)
+        for field in _CHAOS_PEER_WINDOWS:
+            windows = []
+            for w in getattr(self, field):
+                if isinstance(w, Mapping):
+                    w = (w["peer"], w["start"], w["stop"])
+                w = tuple(int(x) for x in w)
+                if len(w) != 3 or w[0] < 0 or w[1] < 0 or w[2] < w[1]:
+                    raise ValueError(f"bad {field} entry {w!r}")
+                windows.append(w)
+            object.__setattr__(self, field, tuple(windows))
+        parts = []
+        for w in self.partition_windows:
+            if isinstance(w, Mapping):
+                w = (w["group"], w["start"], w["stop"])
+            group = tuple(sorted(int(p) for p in w[0]))
+            start, stop = int(w[1]), int(w[2])
+            if not group or min(group) < 0 or start < 0 or stop < start:
+                raise ValueError(f"bad partition_windows entry {w!r}")
+            parts.append((group, start, stop))
+        object.__setattr__(self, "partition_windows", tuple(parts))
+        links = []
+        for w in self.link_windows:
+            if isinstance(w, Mapping):
+                w = (w["src"], w["dst"], w["start"], w["stop"])
+            w = tuple(int(x) for x in w)
+            if len(w) != 4 or min(w) < 0 or w[3] < w[2]:
+                raise ValueError(f"bad link_windows entry {w!r}")
+            links.append(w)
+        object.__setattr__(self, "link_windows", tuple(links))
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
@@ -375,13 +564,8 @@ class DpwaConfig:
     health: HealthConfig = HealthConfig()
     membership: MembershipConfig = MembershipConfig()
     trust: TrustConfig = TrustConfig()
-    # The reference's unported default-on planes that this config switched off.
-    disabled_planes: tuple[str, ...] = ()
-
-    def unported_planes(self) -> tuple[str, ...]:
-        """The reference's default-on planes that a node of the reference
-        would run under this config and a port node runs without."""
-        return tuple(p for p in UNPORTED_DEFAULT_ON if p not in self.disabled_planes)
+    flowctl: FlowctlConfig = FlowctlConfig()
+    chaos: ChaosConfig = ChaosConfig()
 
     @property
     def n_peers(self) -> int:
@@ -428,26 +612,23 @@ def _build_nodes(raw: Sequence[Any]) -> tuple[NodeSpec, ...]:
 def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
     """Build a :class:`DpwaConfig` from a parsed-YAML mapping.
 
-    Raises :class:`NotImplementedError` naming any other top-level block, a
-    ``flowctl:`` block that says more than ``enabled: false`` (the port has
-    no plane that would read it) and a ``membership.view`` that is on."""
+    Raises :class:`NotImplementedError` naming any other top-level block and
+    a ``membership.view`` that is on."""
     if "nodes" not in raw:
         raise ValueError("config is missing the required 'nodes:' list")
-    disabled = []
     for key in raw:
-        if key in UNPORTED_DEFAULT_ON and dict(raw[key] or {}) == {"enabled": False}:
-            disabled.append(key)
-        elif key not in PORTED_BLOCKS:
-            raise NotImplementedError(
-                f"config block {key!r} is not ported to dpwa_tpu_torch yet"
-                + (" (only 'enabled: false' is accepted)" if key in UNPORTED_DEFAULT_ON else "")
-            )
+        if key not in PORTED_BLOCKS:
+            raise NotImplementedError(f"config block {key!r} is not ported to dpwa_tpu_torch yet")
     proto = dict(raw.get("protocol") or {})
     if "async_rounds" in proto:
         raise NotImplementedError(
             "config block 'protocol.async_rounds' is not ported to "
             "dpwa_tpu_torch yet"
         )
+    chaos = dict(raw.get("chaos") or {})
+    for key in (*_CHAOS_PEER_WINDOWS, "partition_windows", "link_windows", "byzantine_peers"):
+        if chaos.get(key) is not None:
+            chaos[key] = tuple(chaos[key])
     return DpwaConfig(
         nodes=_build_nodes(raw["nodes"]),
         protocol=ProtocolConfig(**proto),
@@ -456,7 +637,8 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         health=HealthConfig(**dict(raw.get("health") or {})),
         membership=MembershipConfig(**dict(raw.get("membership") or {})),
         trust=TrustConfig(**dict(raw.get("trust") or {})),
-        disabled_planes=tuple(disabled),
+        flowctl=FlowctlConfig(**dict(raw.get("flowctl") or {})),
+        chaos=ChaosConfig(**chaos),
     )
 
 
@@ -482,29 +664,31 @@ def make_local_config(
     health: "HealthConfig | Mapping[str, Any] | None" = None,
     membership: "MembershipConfig | Mapping[str, Any] | None" = None,
     trust: "TrustConfig | Mapping[str, Any] | None" = None,
+    flowctl: "FlowctlConfig | Mapping[str, Any] | None" = None,
+    chaos: "ChaosConfig | Mapping[str, Any] | None" = None,
     disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
-    """Programmatic config for tests and benchmarks: n local peers.
-    ``disabled_planes`` names default-on planes switched off (as
-    ``flowctl: {enabled: false}`` in a file); ``membership`` and ``trust``
-    there stand for ``{"enabled": False}`` blocks."""
-    if isinstance(recovery, Mapping):
-        recovery = RecoveryConfig(**recovery)
-    if isinstance(health, Mapping):
-        health = HealthConfig(**health)
-    if "membership" in disabled_planes:
-        membership = {**dict(membership or {}), "enabled": False}
-    if "trust" in disabled_planes:
-        trust = {**dict(trust or {}), "enabled": False}
-    if isinstance(membership, Mapping):
-        membership = MembershipConfig(**membership)
-    if isinstance(trust, Mapping):
-        trust = TrustConfig(**trust)
-    unknown = set(disabled_planes) - set(UNPORTED_DEFAULT_ON) - {"membership", "trust"}
+    """Programmatic config for tests and benchmarks: n local peers.  The
+    blocks take a config object or its YAML mapping; ``disabled_planes``
+    names default-on planes (``DEFAULT_ON_PLANES``) switched off, each as
+    its ``{"enabled": False}`` block."""
+    unknown = set(disabled_planes) - set(DEFAULT_ON_PLANES)
     if unknown:
         raise ValueError(f"disabled_planes names no default-on plane: {sorted(unknown)}")
-    disabled_planes = tuple(p for p in disabled_planes if p in UNPORTED_DEFAULT_ON)
+    blocks = {"membership": membership, "trust": trust, "flowctl": flowctl}
+    for plane in disabled_planes:
+        given = blocks[plane]
+        blocks[plane] = (dataclasses.replace(given, enabled=False) if dataclasses.is_dataclass(given)
+                         else {**dict(given or {}), "enabled": False})
+    types = {"recovery": RecoveryConfig, "health": HealthConfig, "membership": MembershipConfig,
+             "trust": TrustConfig, "flowctl": FlowctlConfig, "chaos": ChaosConfig}
+    given = {"recovery": recovery, "health": health, "chaos": chaos, **blocks}
+    built = {
+        name: (types[name](**value) if isinstance(value, Mapping)
+               else types[name]() if value is None else value)
+        for name, value in given.items()
+    }
     return DpwaConfig(
         nodes=tuple(
             NodeSpec(name=f"node{i}", host="127.0.0.1", port=base_port + i)
@@ -517,9 +701,5 @@ def make_local_config(
             **protocol_kwargs,
         ),
         interpolation=InterpolationConfig(type=interpolation, factor=factor),
-        recovery=recovery if recovery is not None else RecoveryConfig(),
-        health=health if health is not None else HealthConfig(),
-        membership=membership if membership is not None else MembershipConfig(),
-        trust=trust if trust is not None else TrustConfig(),
-        disabled_planes=disabled_planes,
+        **built,
     )

@@ -30,15 +30,24 @@ every ``--save-every`` steps; ``--resume`` continues from DIR the exact run
 (the same batches and the same exchanges).  Runs on the CUDA card unless
 ``--device cpu`` is given.
 
-A TCP node runs the reference's recovery, health, membership and trust
-planes (its summary line gives the trust verdicts and the planes' events):
+A TCP node runs the reference's recovery, health, membership, trust and
+flow control planes, and its ``chaos:`` block when the config has one (its
+summary line gives the trust verdicts, the planes' events, the hedges, the
+rounds shed from a degraded partner, each peer's adaptive deadline, the
+admission counters and the round times):
 with ``DPWA_BOOTSTRAP=1`` in its environment (as a restart supervisor sets
 it) it lands on a healthy peer's replica, clock and step and trains on
 from that step to ``--steps``.  ``--diverge-at STEP`` turns the node's replica
 and loss to NaN after that step's update (a diverged step, which the
 node's guard rolls back); ``--trace-state FILE`` appends, after each
 round, the step, clock and CRC-32 of the replica a peer bootstrapping from
-this node would land on.
+this node would land on; ``--round-log FILE`` appends each round's exchange
+(partners, remap, outcome, hedge, the scheduled partner's health state and
+the round's milliseconds).  ``--barrier DIR`` serves the node's initial
+replica (at clock 0) at once, starts its first round only once every node
+of the config has finished its first step's computation, and keeps it
+serving after its last step until every node is done, so no node's start
+or end reads as a dead peer to the others.
 """
 
 from __future__ import annotations
@@ -53,6 +62,21 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[2]
+# How long a --barrier node waits for the others, at the start and the end.
+BARRIER_S = 300.0
+
+
+def _barrier(directory: str, phase: str, name: str, names, timeout_s: float = BARRIER_S) -> bool:
+    """Mark ``name`` as at ``phase`` in ``directory`` and wait until every
+    one of ``names`` is; False when ``timeout_s`` runs out first."""
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    Path(directory, f"{phase}.{name}").touch()
+    deadline = time.monotonic() + timeout_s
+    while not all(Path(directory, f"{phase}.{n}").exists() for n in names):
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
 
 
 def main(argv=None) -> dict:
@@ -85,6 +109,18 @@ def main(argv=None) -> dict:
         "CRC-32 of the replica in the reference's order) to FILE",
     )
     ap.add_argument(
+        "--round-log", metavar="FILE",
+        help="--transport tcp: append one JSON line a round (the exchange record, "
+        "the scheduled partner's health state, the round's milliseconds) to FILE",
+    )
+    ap.add_argument(
+        "--barrier", metavar="DIR",
+        help="--transport tcp: serve the initial replica at once, start the rounds "
+        "once every node of the config is past its first step's computation, and "
+        "serve on after the last step until every node is done (a file per node "
+        "and phase in DIR)",
+    )
+    ap.add_argument(
         "--profile", action="store_true",
         help="trace the timed steps with torch.profiler and report where the "
         "device time goes (the rate then includes the profiler's cost)",
@@ -103,8 +139,8 @@ def main(argv=None) -> dict:
         if args.checkpoint or args.profile:
             ap.error("--checkpoint and --profile are not wired into the per-process tcp loop")
         return run_tcp(args)
-    if args.diverge_at is not None or args.trace_state:
-        ap.error("--diverge-at and --trace-state need --transport tcp")
+    if args.diverge_at is not None or args.trace_state or args.round_log or args.barrier:
+        ap.error("--diverge-at, --trace-state, --round-log and --barrier need --transport tcp")
 
     from dpwa_tpu_torch import checkpoint
     from dpwa_tpu_torch.config import load_config
@@ -278,10 +314,14 @@ def run_tcp(args) -> dict:
     if adapter.last_bootstrap is not None:
         print(json.dumps({"node": args.name, "bootstrap": {
             **adapter.last_bootstrap, "crc32": replica_crc()}}), flush=True)
+    if args.barrier:
+        # A node still in its first step serves its initial replica.
+        adapter.transport.publish(adapter.vector(), adapter.clock, 0.0)
     trace = open(args.trace_state, "a") if args.trace_state else None
+    round_log = open(args.round_log, "a") if args.round_log else None
     sb = adapter.transport.scoreboard
     peer_state = {p: "healthy" for p in range(cfg.n_peers) if p != me}
-    health_events, remapped = [], 0
+    health_events, remapped, shed, hedged, round_ms = [], 0, 0, 0, []
     opt = adam(args.lr)
     opt_state = opt.init(flat.flat)
 
@@ -308,9 +348,24 @@ def run_tcp(args) -> dict:
             if step == args.diverge_at:
                 flat.flat.fill_(float("nan"))
                 loss = float("nan")
+            if step == start and args.barrier:
+                # The first rounds start together, once every node is past the
+                # slow first step: its first frames are no node's initial one.
+                if not _barrier(args.barrier, "ready", args.name, cfg.node_names):
+                    raise RuntimeError(f"{args.name}: not every node of {cfg.node_names} came up")
+            t_round = time.perf_counter()
             params = adapter.update(loss)
+            round_ms.append((time.perf_counter() - t_round) * 1e3)
             losses.append(loss)
-            remapped += bool(adapter.transport.last_round.get("remapped"))
+            rec = adapter.last_record
+            remapped += bool(rec.get("remapped"))
+            hedged += bool(rec.get("hedged"))
+            # The scheduled partner's state as the round began.
+            sched_state = peer_state.get(rec.get("sched_partner"))
+            shed += bool(rec.get("remapped")) and sched_state == "degraded"
+            if round_log is not None:
+                round_log.write(json.dumps({**rec, "sched_state": sched_state,
+                                            "round_ms": round_ms[-1]}) + "\n")
             if sb is not None:
                 for p, was in peer_state.items():
                     now = sb.state(p)
@@ -334,6 +389,7 @@ def run_tcp(args) -> dict:
         print(f"[{args.name}] {dataset} test accuracy: {acc:.4f}", flush=True)
         stats = adapter.transport.stats
         timed = args.steps - start - 1
+        fsnap = adapter.transport.health_snapshot().get("flowctl")
         result = {
             "node": args.name,
             "dataset": dataset,
@@ -366,10 +422,28 @@ def run_tcp(args) -> dict:
             "merged_from": {str(p): v for p, v in stats["merged_from"].items()},
             "digest_bytes": adapter.transport.last_digest_nbytes,
             "events": list(adapter.events),
+            "hedged_rounds": hedged,
+            "shed_rounds": shed,
+            "flowctl": None if fsnap is None else {
+                "hedges": fsnap["hedges"], "hedge_wins": fsnap["hedge_wins"],
+                **{key: {str(p): v[key] for p, v in fsnap["peers"].items()}
+                   for key in ("deadline_ms", "busy", "slow")},
+                "admission": fsnap.get("admission"),
+            },
+            # The rounds' wall time (adapter.update: publish, fetch, guard,
+            # screen, merge), the first (the build) left out.
+            "round_ms": dict(zip(("p50", "p90", "p99", "max"), (
+                float(np.percentile(round_ms[1:], q)) for q in (50, 90, 99, 100)
+            ))) if len(round_ms) > 1 else None,
         }
+        if args.barrier:
+            # Serve on until every node is done: no node's end is a dead peer.
+            _barrier(args.barrier, "done", args.name, cfg.node_names)
     finally:
         if trace is not None:
             trace.close()
+        if round_log is not None:
+            round_log.close()
         adapter.close()
     return result
 

@@ -35,10 +35,10 @@ OBS_MAGIC = b"DPWT"  # the observability section, a trailer after the digest
 
 # Gossip blob header: magic(4s) version(B) dtype(B) clock(d) loss(d) nbytes(Q).
 BLOB_HDR = struct.Struct("<4sBBddQ")
-# Busy shed reply: magic(4s) version(B) retry_hint_ms(H).  Deliberately
-# shorter than the blob header: a fetcher that does not know it reads EOF
-# inside the header and classifies a short read.
-BUSY_HDR = struct.Struct("<4sBH")
+# Busy shed reply: magic(4s) version(B) retry_hint_ms(H), shorter than the
+# blob header on purpose (BACK_COMPAT["busy_nack_short_frame"]).
+BUSY_HDR_FMT = "<4sBH"
+BUSY_HDR = struct.Struct(BUSY_HDR_FMT)
 # State request body after STATE_REQ: offset(Q) max_chunk(I).
 STATE_REQ_BODY = struct.Struct("<QI")
 # State response header: magic(4s) version(B) generation(I) total(Q)
@@ -98,3 +98,15 @@ MAX_STATE_CHUNK_BYTES = 1 << 26
 MAX_DIGEST_BYTES = 1 << 20
 MAX_SKETCH_VALUES = 4096
 MAX_RELAY_TIMEOUT_MS = 500
+
+# Why a layout above is as it is: part of the served contract.
+BACK_COMPAT = {
+    "busy_nack_short_frame": (
+        "The DPWB frame is 7 bytes, shorter than the 30-byte blob header: a "
+        "fetcher that does not know it hits EOF inside its header read when "
+        "the server closes and classifies a short read, while a "
+        "flowctl-aware fetcher peeks the 4-byte magic, reads the other 3 "
+        "and records the low-weight busy outcome, which soft-degrades the "
+        "peer instead of quarantining it."
+    ),
+}

@@ -18,9 +18,11 @@ reference, and :meth:`Schedule.drawn` gives the round's mask.  The TCP
 transport's control draws, the fallback partner of a quarantined one
 (:func:`fallback_draw`, :meth:`Schedule.remap_partner`), the quarantine
 backoff's jitter (:func:`backoff_jitter_draw`), the bootstrap donor
-(:func:`donor_draw`), the relays of an indirect probe (:func:`relay_draw`)
-and the donor of a heal's reconciliation (:func:`heal_draw`), are the
-reference's threefry draws too.
+(:func:`donor_draw`), the relays of an indirect probe (:func:`relay_draw`),
+the donor of a heal's reconciliation (:func:`heal_draw`), the shedding of
+a degraded partner's rounds (:func:`degrade_shed_draw`) and the chaos
+harness's faults (:func:`chaos_draw`), are the reference's threefry draws
+too.
 """
 
 from __future__ import annotations
@@ -93,6 +95,23 @@ def heal_draw(seed: int, step: int, me: int, n_candidates: int) -> int:
     """Index of the reconciliation donor drawn from a returning partition
     component at heal time (tag 7), keyed on ``(seed, step, me)``."""
     return prng.randint(_pair_key(seed, step, me, _tags.TAG_HEAL_DONOR), 0, n_candidates)
+
+
+def degrade_shed_draw(seed: int, step: int, me: int) -> float:
+    """Uniform [0, 1) deciding whether this round's exchange with a
+    ``degraded`` scheduled partner goes to a fallback (tag 8), compared
+    with ``flowctl.degrade_shed_fraction``; keyed on ``(seed, step, me)``."""
+    return float(prng.uniform_scalar(_pair_key(seed, step, me, _tags.TAG_DEGRADE_SHED)))
+
+
+# The chaos fault kinds' tags are CHAOS_TAG_BASE + kind (utils/tags.py).
+CHAOS_TAG_BASE = _tags.CHAOS_TAG_BASE
+
+
+def chaos_draw(seed: int, step: int, peer: int, kind: int) -> float:
+    """Uniform [0, 1) on the chaos harness's stream of fault ``kind`` for
+    ``peer`` at round ``step`` (tag ``CHAOS_TAG_BASE + kind``)."""
+    return float(prng.uniform_scalar(_pair_key(seed, step, peer, CHAOS_TAG_BASE + kind)))
 
 
 def pool_branch_draw(seed: int, step: int, pool_size: int, periodic: bool) -> int:

@@ -28,7 +28,7 @@ the guard runs there, and the merge is one launch of B2 over ``[1, d]``
 :meth:`TcpTransport.exchange` is the same round for a host vector, merged
 on the CPU by B2's plain version.
 
-Four planes run around the round, as the reference runs them by default.
+Five planes run around the round, as the reference runs them by default.
 Health: every classified fetch outcome feeds a
 :class:`~dpwa_tpu_torch.health.scoreboard.Scoreboard`, which quarantines a
 failing partner; :meth:`TcpTransport._resolve_partner` spends a header-only
@@ -47,36 +47,43 @@ MembershipManager`), whose degraded mode scales α.  Trust: after the
 guard, every fetched frame is screened against the local replica where it
 lies (:mod:`dpwa_tpu_torch.trust`); a rejection is the ``untrusted``
 outcome and a suspect's α is damped.  The guard's and the screen's scalars
-come back to the host in one readback.
+come back to the host in one readback.  Flow control
+(:mod:`dpwa_tpu_torch.flowctl`): each fetch runs on its peer's adaptive
+deadline and is hedged to the schedule's fallback once the peer's latency
+quantile lapses (two legs, each landing in its own lease of the receive
+ring; only the winner's frame is landed and merged); a soft-``degraded``
+partner's rounds are partly shed to the fallback; the Rx server sheds
+excess load with the ``DPWB`` busy frame and evicts a trickled request.
 
-Ported: the threaded Rx server, the classified fetch (refused, timeout,
-slow, busy, short_read, corrupt, poisoned, untrusted, success), every
-schedule of the port with ``fetch_probability`` and ``drop_probability``,
-the constant, clock and loss interpolations, recovery, health, membership
-(its global view) and trust.  Not yet: the codecs (``wire_dtype: int8``,
-``wire_codec: topk``, ``shard:``), the prefetch pipeline, the reactor and
-native Rx servers, ``/healthz`` and the flowctl plane; the transport
-raises :class:`NotImplementedError` for the settings that ask for them, and
-warns once when the config leaves flowctl, a default-on plane of the
-reference, on.
+With ``chaos.enabled`` the Rx server is the chaos harness's
+(:class:`~dpwa_tpu_torch.health.chaos.ChaosPeerServer`: seeded wire and
+content faults, trickles, partitions) and the fetcher honours its blocked
+links; ``health.healthz_port`` serves :meth:`TcpTransport.health_snapshot`
+at ``/healthz`` (:mod:`dpwa_tpu_torch.health.endpoint`).
+
+Not ported yet: the codecs (``wire_dtype: int8``, ``wire_codec: topk``,
+``shard:``), the prefetch pipeline, the reactor and native Rx servers, and
+``/metrics``; the transport raises :class:`NotImplementedError` for the
+settings that ask for them.
 """
 
 from __future__ import annotations
 
+import queue
 import socket
 import threading
 import time
-import warnings
 import zlib
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from dpwa_tpu_torch.config import DEFAULT_MIN_WIRE_MB_PER_S, DpwaConfig
+from dpwa_tpu_torch.config import DEFAULT_MIN_WIRE_MB_PER_S, DpwaConfig, FlowctlConfig
 from dpwa_tpu_torch.device import engine
 from dpwa_tpu_torch.device.handoff import to_device
 from dpwa_tpu_torch.device.replica import DeviceReplica
+from dpwa_tpu_torch.flowctl import AdmissionController, DeadlineEstimator
 from dpwa_tpu_torch.health.detector import Outcome
 from dpwa_tpu_torch.health.scoreboard import Scoreboard
 from dpwa_tpu_torch.health.scoreboard import PeerState
@@ -85,7 +92,9 @@ from dpwa_tpu_torch.membership import digest as _digest
 from dpwa_tpu_torch.membership.manager import MembershipManager
 from dpwa_tpu_torch.parallel import ingest
 from dpwa_tpu_torch.parallel import protocol_constants as pc
-from dpwa_tpu_torch.parallel.schedules import Schedule, build_schedule, relay_draw
+from dpwa_tpu_torch.parallel.schedules import (
+    Schedule, build_schedule, degrade_shed_draw, relay_draw,
+)
 from dpwa_tpu_torch.recovery.guard import payload_check_tensors, validate_payload
 from dpwa_tpu_torch.trust.manager import REJECTED, TrustManager
 from dpwa_tpu_torch.trust.screen import payload_sums, stats_from_sums
@@ -109,8 +118,6 @@ _MIN_WIRE_BANDWIDTH = DEFAULT_MIN_WIRE_MB_PER_S * 1e6
 # full buffer is leased: a peer that lies about nbytes costs 64 KiB.
 _PROBE_THRESHOLD = 1 << 20
 _PROBE_BYTES = 1 << 16
-# The Rx server's budget for one connection.
-_HANDLER_TIMEOUT_S = 5.0
 # The fetcher's budget for the optional trailers after a payload: a peer
 # that streamed the payload sends its ~11 B a peer of digest at once.
 _TRAILER_BUDGET_S = 0.25
@@ -167,23 +174,43 @@ class _LazyState:
             return self._blob
 
 
+def _busy_frame(retry_hint_ms: int = 0) -> bytes:
+    """The ``DPWB`` shed reply: loaded, come back in ``retry_hint_ms``."""
+    return pc.BUSY_HDR.pack(pc.BUSY_MAGIC, 1, min(max(int(retry_hint_ms), 0), 0xFFFF))
+
+
 class PeerServer:
     """The Rx thread: serves this node's latest published frame and state.
 
     One thread accepts; each connection gets a thread of its own with a
-    bounded budget.  A blob request (a header probe too: it reads the
-    header and hangs up) gets the frame with its digest trailer, or a close
-    when nothing is published; a STATE request one chunk of the published
-    state (a well-formed empty transfer when there is none); a RELAY
-    request the report of a header probe of the target this server runs
-    for the asker (:meth:`_handle_relay`); anything else is closed
-    unanswered."""
+    bounded budget (``flowctl.request_timeout_ms``).  A blob request (a
+    header probe too: it reads the header and hangs up) gets the frame
+    with its digest trailer, or a close when nothing is published; a STATE
+    request one chunk of the published state (a well-formed empty transfer
+    when there is none); a RELAY request the report of a header probe of
+    the target this server runs for the asker (:meth:`_handle_relay`);
+    anything else is closed unanswered.
 
-    def __init__(self, host: str, port: int):
+    With ``flowctl.enabled`` (the default) :attr:`admission` gates the
+    server: a connection over the cap or the remote's token bucket, or a
+    send past the in-flight-bytes ceiling, is answered with the ``DPWB``
+    busy frame, and a request read slower than the minimum ingest rate is
+    cut and counted.  :attr:`relay_guard`, when set (the chaos harness
+    sets it), is asked whether this node's own link to a relay's target is
+    blocked; such a probe reports ``refused``."""
+
+    relay_guard: Optional[Callable[[int], bool]] = None
+
+    def __init__(self, host: str, port: int, flowctl: Optional[FlowctlConfig] = None):
         self._lock = threading.Lock()
         self._segments: Optional[tuple] = None
+        self._payload_nbytes = 0
         self._state: Union[bytes, _LazyState, None] = None
         self._state_gen = 0
+        self.flowctl = flowctl if flowctl is not None else FlowctlConfig()
+        self.admission: Optional[AdmissionController] = (
+            AdmissionController(self.flowctl) if self.flowctl.enabled else None
+        )
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         try:
@@ -206,8 +233,10 @@ class PeerServer:
         with ``clock`` and ``loss``, and ``digest`` as its trailer, from now
         on."""
         segments = _frame_segments(payload, clock, loss, digest)
+        nbytes = sum(len(s) for s in segments)
         with self._lock:
             self._segments = segments
+            self._payload_nbytes = nbytes
 
     def publish_state(self, blob: Union[bytes, Callable[[], bytes]]) -> None:
         """Serve a packed train state for a peer's bootstrap from now on:
@@ -223,7 +252,7 @@ class PeerServer:
 
     @property
     def _payload(self) -> Optional[bytes]:
-        """The published frame as one byte string (for tests)."""
+        """The published frame as one byte string."""
         segs = self._segments
         return None if segs is None else b"".join(bytes(s) for s in segs)
 
@@ -234,20 +263,28 @@ class PeerServer:
             return
         while not self._stop.is_set():
             try:
-                conn, _addr = self._sock.accept()
+                conn, addr = self._sock.accept()
             except socket.timeout:
                 continue
             except OSError:
                 break
+            host = addr[0] if addr else ""
+            if self.admission is not None:
+                ok, retry_ms = self.admission.admit(host)
+                if not ok:
+                    self._shed(conn, retry_ms)
+                    continue
             threading.Thread(
-                target=self._conn_worker, args=(conn,),
+                target=self._conn_worker, args=(conn, host),
                 name=f"dpwa-torch-rx-conn:{self.port}", daemon=True,
             ).start()
 
-    def _conn_worker(self, conn: socket.socket) -> None:
+    @staticmethod
+    def _shed(conn: socket.socket, retry_ms: int) -> None:
+        """The busy reply and a close, without blocking the accept loop."""
         try:
-            conn.settimeout(_HANDLER_TIMEOUT_S)
-            self._handle(conn)
+            conn.settimeout(0.5)
+            conn.sendall(_busy_frame(retry_ms))
         except OSError:
             pass
         finally:
@@ -256,21 +293,64 @@ class PeerServer:
             except OSError:
                 pass
 
+    def _conn_worker(self, conn: socket.socket, host: str) -> None:
+        try:
+            conn.settimeout(self.flowctl.request_timeout_ms / 1000.0)
+            self._handle(conn)
+        except OSError:
+            pass
+        finally:
+            if self.admission is not None:
+                self.admission.release(host)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
     def _handle(self, conn: socket.socket) -> None:
-        req = ingest.recv_exact_into(conn, len(pc.BLOB_REQ))
+        """Serve one accepted connection.  Under flowctl the request read
+        has a cumulative deadline, extended per byte received at the
+        minimum ingest rate: a client trickling its request is evicted."""
+        fc = self.flowctl
+        deadline, per_byte = None, 0.0
+        if fc.enabled:
+            deadline = time.monotonic() + fc.request_timeout_ms / 1000.0
+            per_byte = 1.0 / fc.min_ingest_bytes_per_s
+        body = None
+        try:
+            req = ingest.recv_exact_into(conn, len(pc.BLOB_REQ), deadline, per_byte)
+            if req == pc.STATE_REQ:
+                body = ingest.recv_exact_into(conn, pc.STATE_REQ_BODY.size, deadline, per_byte)
+        except socket.timeout:
+            if self.admission is not None:
+                self.admission.note_eviction()
+            return
         if req == pc.STATE_REQ:
-            body = ingest.recv_exact_into(conn, pc.STATE_REQ_BODY.size)
             self._handle_state(conn, *pc.STATE_REQ_BODY.unpack(body))
-            return
-        if req == pc.RELAY_REQ:
+        elif req == pc.RELAY_REQ:
             self._handle_relay(conn)
-            return
-        if req != pc.BLOB_REQ:
-            return
+        elif req == pc.BLOB_REQ:
+            self._serve_blob(conn)
+
+    def _serve_blob(self, conn: socket.socket) -> None:
+        """Send the published frame's segments, under the in-flight-bytes
+        ceiling (past it, the busy frame)."""
         with self._lock:
-            segments = self._segments
-        if segments is not None:
+            segments, nbytes = self._segments, self._payload_nbytes
+        if segments is None:
+            return
+        adm = self.admission
+        if adm is not None and not adm.reserve_bytes(nbytes):
+            try:
+                conn.sendall(_busy_frame(self.flowctl.busy_retry_ms))
+            except OSError:
+                pass
+            return
+        try:
             ingest.sendall_segments(conn, segments)
+        finally:
+            if adm is not None:
+                adm.release_bytes(nbytes)
 
     def _handle_relay(self, conn: socket.socket) -> None:
         """Serve one relayed header probe: probe the requested target and
@@ -278,13 +358,17 @@ class PeerServer:
         when unknown).  The probe's budget is clamped to
         ``MAX_RELAY_TIMEOUT_MS``, so an asker cannot pin this thread."""
         body = ingest.recv_exact_into(conn, pc.RELAY_BODY.size)
-        _target, port, timeout_ms, hostlen = pc.RELAY_BODY.unpack(body)
+        target, port, timeout_ms, hostlen = pc.RELAY_BODY.unpack(body)
         host = (
             str(bytes(ingest.recv_exact_into(conn, hostlen)), "ascii", "replace")
             if hostlen else "127.0.0.1"
         )
         timeout_ms = min(max(int(timeout_ms), 1), pc.MAX_RELAY_TIMEOUT_MS)
-        outcome, clock = probe_header_classified(host, port, timeout_ms)
+        guard = self.relay_guard
+        if guard is not None and guard(int(target)):
+            outcome, clock = Outcome.REFUSED, None
+        else:
+            outcome, clock = probe_header_classified(host, port, timeout_ms)
         conn.sendall(pc.RELAY_HDR.pack(
             pc.RELAY_MAGIC, 1, _RELAY_OUTCOMES.index(outcome),
             float(clock) if clock is not None else -1.0,
@@ -314,13 +398,13 @@ class PeerServer:
         self._thread.join(timeout=2.0)
 
 
-def make_peer_server(host: str, port: int) -> PeerServer:
+def make_peer_server(host: str, port: int, flowctl: Optional[FlowctlConfig] = None) -> PeerServer:
     """The Rx server: the threaded :class:`PeerServer`.  The reference
-    picks its native C++ server where it builds and falls back to this one;
-    the port has no native server yet (nor the reactor, which
+    picks its native C++ server where it builds and no Python-only plane is
+    on; the port has no native server yet (nor the reactor, which
     ``protocol.rx_server: reactor`` asks for and :class:`TcpTransport`
     refuses)."""
-    return PeerServer(host, port)
+    return PeerServer(host, port, flowctl=flowctl)
 
 
 def _decode(data: memoryview, code: int):
@@ -398,6 +482,7 @@ def fetch_blob_full(
     ring: Optional[ingest.BufferRing] = None,
     lease_box: Optional[list] = None,
     trailer_box: Optional[list] = None,
+    sock_box: Optional[list] = None,
 ) -> Tuple[Optional[Tuple[torch.Tensor, float, float]], str, float, int]:
     """Fetch a peer's frame: ``(result, outcome, latency_s, payload bytes
     received)``, ``result`` = ``(vector, clock, loss)`` or None.
@@ -418,7 +503,9 @@ def fetch_blob_full(
     reads the vector; without, the lease returns to the ring when the
     vector dies.  With ``trailer_box`` the trailers after a valid payload
     are read too (:func:`_read_trailers`) and the membership digest's
-    bytes, or None, appended there."""
+    bytes, or None, appended there.  ``sock_box`` gets the socket once it
+    is connected: a hedging caller cancels this fetch from another thread
+    by shutting it down (:func:`_cancel`)."""
     ring = ring if ring is not None else _default_ring()
     t0 = time.monotonic()
     deadline = t0 + timeout_ms / 1000.0
@@ -435,6 +522,8 @@ def fetch_blob_full(
         return done(Outcome.TIMEOUT)
     except OSError:
         return done(Outcome.REFUSED)
+    if sock_box is not None:
+        sock_box.append(sock)
     try:
         with sock:
             remaining = deadline - time.monotonic()
@@ -758,6 +847,108 @@ def _default_ring() -> ingest.BufferRing:
         return _RING[0]
 
 
+def _cancel(socks: list) -> None:
+    """Cancel a fetch leg from another thread: shut its socket down (which
+    wakes a recv blocked in the leg at once, where a bare close would leave
+    it waiting out its deadline) and close it."""
+    for sock in socks:
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+
+class _Leg:
+    """One fetch leg, run inline (:meth:`run`) or on a thread of its own
+    (:meth:`start`), its payload landing in a lease of the transport's
+    receive ring.  A hedge's loser is :meth:`abandon`-ed: its socket is shut
+    down, and its lease goes back to the ring only once the leg's thread is
+    done with it (a payload it finished receiving is recycled when its
+    vector dies), so a late recv never writes into a buffer another fetch
+    holds and no loser's bytes are landed."""
+
+    def __init__(self, transport: "TcpTransport", peer: int, deadline_ms: float):
+        self.peer = peer
+        self.leases: list = []
+        self.socks: list = []
+        self.trailers: Optional[list] = [] if transport.membership is not None else None
+        self.result: Optional[tuple] = None
+        self._abandoned = False
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        host, port = transport._ports[peer]
+        self._args = (host, port, int(deadline_ms),
+                      transport.config.protocol.min_wire_mb_per_s * 1e6, transport.ring)
+
+    def run(self) -> None:
+        host, port, deadline_ms, bandwidth, ring = self._args
+        result = fetch_blob_full(
+            host, port, deadline_ms, min_bandwidth_bps=bandwidth, ring=ring,
+            lease_box=self.leases, trailer_box=self.trailers, sock_box=self.socks,
+        )
+        with self._lock:
+            self.result = result
+            if self._abandoned:
+                self._recycle()
+
+    def start(self, done: queue.SimpleQueue) -> None:
+        """Run on a thread; the leg puts itself on ``done`` when finished (a
+        leg that died without a result, which the fetch's classification
+        should rule out, is a short read)."""
+        def target():
+            t0 = time.monotonic()
+            try:
+                self.run()
+            finally:
+                with self._lock:
+                    if self.result is None:
+                        self.result = (None, Outcome.SHORT_READ, time.monotonic() - t0, 0)
+                done.put(self)
+
+        self._thread = threading.Thread(target=target, name=f"dpwa-torch-leg:{self.peer}",
+                                        daemon=True)
+        self._thread.start()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    @property
+    def finished(self) -> bool:
+        return self.result is not None
+
+    @property
+    def ok(self) -> bool:
+        result = self.result
+        return result is not None and result[1] == Outcome.SUCCESS
+
+    def abandon(self) -> None:
+        """This leg lost the race: cancel it and give its lease back."""
+        _cancel(self.socks)
+        with self._lock:
+            self._abandoned = True
+            if self.result is not None:
+                self._recycle()
+
+    def _recycle(self) -> None:
+        got = self.result[0]
+        while self.leases:
+            lease = self.leases.pop()
+            lease.recycle(got[0]) if got is not None else lease.release()
+
+    def raw(self, hedged: bool, hedge_winner: Optional[int]) -> tuple:
+        """``(peer, got, outcome, latency_s, nbytes, leases, digest, hedged,
+        hedge_winner)`` for the consuming half of a fetch."""
+        got, outcome, latency_s, nbytes = self.result
+        digest = self.trailers[0] if self.trailers else None
+        return (self.peer, got, outcome, latency_s, nbytes, self.leases, digest,
+                hedged, hedge_winner)
+
+
 def _unsupported(config: DpwaConfig) -> Optional[str]:
     proto = config.protocol
     if proto.wire_dtype not in _WIRE_CODES:
@@ -768,8 +959,6 @@ def _unsupported(config: DpwaConfig) -> Optional[str]:
         return "protocol.overlap_prefetch: true (the prefetch pipeline)"
     if proto.rx_server != "threaded":
         return f"protocol.rx_server: {proto.rx_server} (the reactor Rx server)"
-    if config.health.enabled and config.health.healthz_port is not None:
-        return f"health.healthz_port: {config.health.healthz_port} (the /healthz endpoint)"
     return None
 
 
@@ -824,7 +1013,23 @@ class TcpTransport:
         self._dev_replica: Optional[DeviceReplica] = None
         self._local_norm: Optional[float] = None
         spec = config.nodes[self.me]
-        self.server = make_peer_server(spec.host, spec.port)
+        # Fetcher-side flow control: adaptive deadlines and hedging (None:
+        # every fetch runs on protocol.timeout_ms).
+        self._estimator: Optional[DeadlineEstimator] = (
+            DeadlineEstimator(config.flowctl, timeout_ms=config.protocol.timeout_ms)
+            if config.flowctl.enabled else None
+        )
+        # Chaos wraps the Rx server; its engine also blocks the links its
+        # partitions cut on this fetching side.
+        self._chaos_engine = None
+        if config.chaos.enabled:
+            from dpwa_tpu_torch.health.chaos import ChaosEngine, ChaosPeerServer
+
+            self._chaos_engine = ChaosEngine(config.chaos, self.me)
+            self.server = ChaosPeerServer(spec.host, spec.port, self._chaos_engine,
+                                          flowctl=config.flowctl)
+        else:
+            self.server = make_peer_server(spec.host, spec.port, flowctl=config.flowctl)
         self._ports = {i: (n.host, n.port) for i, n in enumerate(config.nodes)}
         # Every fetch outcome feeds the scoreboard; a quarantined partner
         # is probed or remapped in _resolve_partner.
@@ -841,6 +1046,8 @@ class TcpTransport:
             )
             if self.trust is not None:
                 self.membership.add_evict_listener(self.trust.evict_peer)
+            if self._estimator is not None:
+                self.membership.add_evict_listener(self._estimator.evict_peer)
         if self.trust is not None and self.scoreboard is not None:
             # Collapsed trust feeds the scoreboard as untrusted probes.
             self.trust.attach_scoreboard(self.scoreboard)
@@ -849,15 +1056,6 @@ class TcpTransport:
         # and the re-sync advice pending for the adapter.
         self._last_clock = 0.0
         self.resync_advice: Optional[dict] = None
-        missing_planes = config.unported_planes()
-        if missing_planes:
-            warnings.warn(
-                f"node {name!r} runs without the reference's default-on "
-                f"{', '.join(missing_planes)} plane(s), which dpwa_tpu_torch does not "
-                f"have yet; a dpwa_tpu node under this config runs them (switch them "
-                f"off with 'enabled: false' to silence this)",
-                stacklevel=2,
-            )
         self._stats_lock = threading.Lock()
         self.stats = {
             "frames_published": 0, "wire_bytes_published": 0,
@@ -869,6 +1067,12 @@ class TcpTransport:
         self._round_clock: Optional[float] = None
         self.last_fetch: dict = {}
         self.last_round: dict = {}
+        self.healthz = None
+        if config.health.enabled and config.health.healthz_port is not None:
+            from dpwa_tpu_torch.health.endpoint import HealthzServer
+
+            self.healthz = HealthzServer(self.health_snapshot, spec.host,
+                                         config.health.healthz_port)
 
     @property
     def port(self) -> int:
@@ -925,34 +1129,33 @@ class TcpTransport:
         clock, loss)`` with the vector on ``device`` (the CPU by default;
         float32, or bf16 as the wire carried it), or None if the fetch
         failed, the guard refused it (``poisoned``) or the trust screen
-        rejected it (``untrusted``).  The frame's digest is merged into the
+        rejected it (``untrusted``).  Under flowctl the fetch runs on the
+        peer's adaptive deadline and may be hedged to a fallback
+        (:meth:`_hedged_fetch`); everything after the wire is charged to the
+        peer whose frame won.  The frame's digest is merged into the
         membership view; a failure that would quarantine the peer first
         asks relays to probe it.  :attr:`last_fetch` holds the outcome,
-        which the scoreboard records against round ``step``."""
+        which the scoreboard and the estimator record against round
+        ``step``."""
         if timeout_ms is None:
             timeout_ms = self.config.protocol.timeout_ms
         device = torch.device("cpu") if device is None else torch.device(device)
-        host, port = self._ports[peer_index]
-        box: list = []
-        trailers: Optional[list] = [] if self.membership is not None else None
-        got, outcome, latency_s, nbytes = fetch_blob_full(
-            host, port, timeout_ms,
-            min_bandwidth_bps=self.config.protocol.min_wire_mb_per_s * 1e6,
-            ring=self.ring, lease_box=box, trailer_box=trailers,
-        )
-        digest = trailers[0] if trailers else None
+        (peer_index, got, outcome, latency_s, nbytes, leases, digest,
+         hedged, hedge_winner) = self._wire_fetch(peer_index, timeout_ms, step)
+        for lease in leases:
+            # Back to the ring once no view of the payload is left.
+            lease.recycle(got[0])
         reason = trust_info = None
         self._pending_trust_scale = 1.0
         if got is not None:
             vec, rclock, rloss = got
-            del got
+            got = None
             if vec.dtype not in (torch.float32, torch.bfloat16):
                 vec = vec.to(torch.float32)  # an f64 or u16 frame: one copy
             landed, event = to_device(vec, device)
             if event is not None:
                 event.synchronize()
             del vec
-            box.pop().release()
             got = (landed, rclock, rloss)
             reason, sums = self._judge(peer_index, landed, rloss)
             if reason is not None:
@@ -979,6 +1182,9 @@ class TcpTransport:
             "peer": peer_index, "outcome": outcome,
             "latency_s": latency_s, "nbytes": nbytes,
         }
+        if hedged:
+            self.last_fetch["hedged"] = True
+            self.last_fetch["hedge_winner"] = hedge_winner
         if reason is not None:
             self.last_fetch["poison_reason"] = reason
         if trust_info is not None:
@@ -1003,7 +1209,101 @@ class TcpTransport:
             self._indirect_probe(peer_index, step)
         if sb is not None:
             sb.record(peer_index, outcome, latency_s=latency_s, nbytes=nbytes, round=step)
+        if self._estimator is not None:
+            # The final outcome, after the guard and the screen: a poisoned
+            # success must not teach the deadline that the peer is fast.
+            self._estimator.observe(peer_index, outcome, latency_s=latency_s, nbytes=nbytes)
         return got
+
+    def _wire_fetch(self, peer: int, timeout_ms: int, step: Optional[int]) -> tuple:
+        """The wire half of a fetch: ``(winner, got, outcome, latency_s,
+        nbytes, leases, digest, hedged, hedge_winner)``.  A link the chaos
+        harness blocks is refused without a socket."""
+        if self._link_blocked(peer):
+            return peer, None, Outcome.REFUSED, 0.0, 0, [], None, False, None
+        if self._estimator is not None:
+            return self._hedged_fetch(peer, step, timeout_ms)
+        leg = _Leg(self, peer, timeout_ms)
+        leg.run()
+        return leg.raw(False, None)
+
+    def _hedged_fetch(self, peer: int, step: Optional[int], timeout_ms: int) -> tuple:
+        """A fetch on the estimator's deadline for ``peer`` (``timeout_ms``
+        while it is cold) with at most one hedge: if the un-margined
+        quantile lapses with the fetch still in flight and a healthy
+        fallback exists, a second leg fetches the fallback and the first
+        success wins (the primary on a tie, or when both fail).  Only the
+        loser is recorded here; the winner goes through :meth:`fetch`'s
+        tail."""
+        est = self._estimator
+        deadline_ms = est.deadline_ms(peer) if est.warm(peer) else float(timeout_ms)
+        launch_ms = est.hedge_launch_ms(peer) if self.config.flowctl.hedge else None
+        primary = _Leg(self, peer, deadline_ms)
+        if launch_ms is None or len(self.config.nodes) <= 2:
+            # No hedge: a cold estimator, or no third peer to fall back on.
+            primary.run()
+            return primary.raw(False, None)
+        t0 = time.monotonic()
+        done: queue.SimpleQueue = queue.SimpleQueue()
+        primary.start(done)
+        primary.join(launch_ms / 1000.0)
+        fallback = None
+        if not primary.finished:
+            fallback = self._hedge_fallback(peer, int(step) if step is not None else 0)
+        if fallback is None:
+            primary.join()
+            return primary.raw(False, None)
+        est.note_hedge(peer)
+        hedge = _Leg(self, fallback, est.deadline_ms(fallback))
+        hedge.start(done)
+        # Both legs end on their own deadlines, so this wait is bounded.
+        while not (done.get().ok or (primary.finished and hedge.finished)):
+            pass
+        elapsed = time.monotonic() - t0
+        if primary.ok or not hedge.ok:
+            hedge_done = hedge.finished
+            hedge.abandon()
+            if hedge_done:
+                self._record_loser(fallback, hedge.result, False, 0.0, step)
+            return primary.raw(True, peer)
+        est.note_hedge_win(peer)
+        primary_done = primary.finished
+        primary.abandon()
+        # A leg cancelled by our own close is not evidence against its
+        # peer: it records the soft slow outcome.
+        self._record_loser(peer, primary.result if primary_done else None,
+                           not primary_done, elapsed, step)
+        return hedge.raw(True, fallback)
+
+    def _hedge_fallback(self, peer: int, step: int) -> Optional[int]:
+        """The hedge's target: the schedule's fallback draw over the healthy
+        peers (the draw a quarantine remap makes this round), or None when
+        there is no other healthy, reachable peer."""
+        mask = (self.scoreboard.healthy_mask(step) if self.scoreboard is not None
+                else [True] * len(self.config.nodes))
+        fallback = self.schedule.remap_partner(step, self.me, peer, mask)
+        if fallback in (self.me, peer) or self._link_blocked(fallback):
+            return None
+        return int(fallback)
+
+    def _record_loser(self, peer: int, result: Optional[tuple], cancelled: bool,
+                      latency_s: float, step: Optional[int]) -> None:
+        """Feed a hedge's losing leg to the scoreboard and the estimator: its
+        own outcome when it finished, ``slow`` when we cancelled it."""
+        if cancelled or result is None:
+            outcome, lat, nbytes = Outcome.SLOW, latency_s, 0
+        else:
+            _got, outcome, lat, nbytes = result
+        if self.scoreboard is not None:
+            self.scoreboard.record(peer, outcome, latency_s=lat, nbytes=nbytes, round=step)
+        self._estimator.observe(peer, outcome, latency_s=lat, nbytes=nbytes)
+
+    def _link_blocked(self, peer: int) -> bool:
+        """Whether the chaos harness blocks this node's link to ``peer`` at
+        the round of the clock last published (False without chaos)."""
+        if self._chaos_engine is None:
+            return False
+        return self._chaos_engine.link_blocked(int(self._last_clock), self.me, peer)
 
     def _judge(self, peer_index: int, landed: torch.Tensor, rloss: float):
         """The guard's verdict on a landed frame and the trust screen's five
@@ -1048,13 +1348,16 @@ class TcpTransport:
         for slot in range(k):
             relay = candidates.pop(relay_draw(self.schedule.seed, step, self.me, slot,
                                               len(candidates)))
-            r_host, r_port = self._ports[relay]
-            with self._stats_lock:
-                self.stats["relay_probes"] += 1
-            relay_outcome, probe_outcome, _clock = relay_probe(
-                r_host, r_port, suspect, s_host, s_port,
-                self.config.health.probe_timeout_ms, self.config.membership.relay_timeout_ms,
-            )
+            if self._link_blocked(relay):
+                relay_outcome, probe_outcome = Outcome.REFUSED, None
+            else:
+                r_host, r_port = self._ports[relay]
+                with self._stats_lock:
+                    self.stats["relay_probes"] += 1
+                relay_outcome, probe_outcome, _clock = relay_probe(
+                    r_host, r_port, suspect, s_host, s_port,
+                    self.config.health.probe_timeout_ms, self.config.membership.relay_timeout_ms,
+                )
             sb.record_probe(relay, relay_outcome, round=step)
             vouched |= probe_outcome == Outcome.SUCCESS
         if vouched:
@@ -1070,7 +1373,11 @@ class TcpTransport:
         :meth:`Schedule.remap_partner`'s healthy fallback.  A successful
         probe whose clock leads ours by more than
         ``recovery.max_clock_lag`` leaves re-sync advice: we are the stale
-        replica.  Without health, the scheduled partner."""
+        replica.  Under flowctl a ``degraded`` partner (load, not death)
+        keeps a share of its rounds and the rest, where
+        :func:`degrade_shed_draw` falls below
+        ``flowctl.degrade_shed_fraction``, go to the fallback.  Without
+        health, the scheduled partner."""
         sched = self.schedule.partner(step, self.me)
         partner, remapped = sched, False
         sb = self.scoreboard
@@ -1078,10 +1385,13 @@ class TcpTransport:
             if sb.probe_due(sched, step):
                 with self._stats_lock:
                     self.stats["probes"] += 1
-                host, port = self._ports[sched]
-                outcome, remote_clock = probe_header_classified(
-                    host, port, self.config.health.probe_timeout_ms
-                )
+                if self._link_blocked(sched):
+                    outcome, remote_clock = Outcome.REFUSED, None
+                else:
+                    host, port = self._ports[sched]
+                    outcome, remote_clock = probe_header_classified(
+                        host, port, self.config.health.probe_timeout_ms
+                    )
                 sb.record_probe(sched, outcome, round=step)
                 local_clock = self._last_clock
                 if (
@@ -1094,7 +1404,13 @@ class TcpTransport:
                         "peer": sched, "remote_clock": float(remote_clock),
                         "local_clock": float(local_clock), "step": int(step),
                     }
-            if sb.is_quarantined(sched, step):
+            fc = self.config.flowctl
+            if sb.is_quarantined(sched, step) or (
+                fc.enabled
+                and fc.degrade_shed_fraction > 0.0
+                and sb.is_degraded(sched, step)
+                and degrade_shed_draw(self.schedule.seed, step, self.me) < fc.degrade_shed_fraction
+            ):
                 partner = self.schedule.remap_partner(step, self.me, sched, sb.healthy_mask(step))
                 remapped = True
         return sched, partner, remapped
@@ -1108,6 +1424,8 @@ class TcpTransport:
     def fetch_state(self, peer_index: int, timeout_ms: Optional[int] = None):
         """A donor's whole packed state over the STATE wire
         (:func:`fetch_state`), sized by the ``recovery:`` block."""
+        if self._link_blocked(peer_index):
+            return None, Outcome.REFUSED, 0.0, 0
         host, port = self._ports[peer_index]
         rec = self.config.recovery
         return fetch_state(
@@ -1143,9 +1461,12 @@ class TcpTransport:
             self.trust.set_leaf_sizes(sizes)
 
     def health_snapshot(self) -> dict:
-        """JSON-ready per-peer health: the scoreboard's snapshot (with the
-        membership view when that plane runs), plus each peer's trust
-        columns and a top-level ``trust`` view when the trust plane runs."""
+        """JSON-ready per-peer health (what ``/healthz`` serves): the
+        scoreboard's snapshot (with the membership view when that plane
+        runs), plus each peer's trust columns and a top-level ``trust`` view
+        when the trust plane runs, and each peer's deadline, hedge, busy and
+        slow columns and a top-level ``flowctl`` view (the estimator's, with
+        the server's admission counters) when flowctl runs."""
         if self.scoreboard is None:
             snap = {"me": self.me, "round": 0, "peers": {}}
         else:
@@ -1155,6 +1476,16 @@ class TcpTransport:
             for p, info in tsnap["peers"].items():
                 snap["peers"].setdefault(p, {}).update(info)
             snap["trust"] = tsnap
+        if self._estimator is not None:
+            fsnap = self._estimator.snapshot()
+            admission = getattr(self.server, "admission", None)
+            if admission is not None:
+                fsnap["admission"] = admission.snapshot()
+            for p, info in fsnap["peers"].items():
+                snap["peers"].setdefault(p, {}).update(
+                    {k: info[k] for k in ("deadline_ms", "hedges", "hedge_wins", "busy", "slow")}
+                )
+            snap["flowctl"] = fsnap
         return snap
 
     # -- the round ------------------------------------------------------
@@ -1190,6 +1521,9 @@ class TcpTransport:
             self.last_round["outcome"] = self.last_fetch.get("outcome")
             if "trust" in self.last_fetch:
                 self.last_round["trust"] = self.last_fetch["trust"]
+            if self.last_fetch.get("hedged"):
+                self.last_round["hedged"] = True
+                self.last_round["hedge_winner"] = self.last_fetch.get("hedge_winner")
             if got is None:
                 return None, 0.0, partner
             self._round_clock = got[1]
@@ -1212,7 +1546,9 @@ class TcpTransport:
             self.stats["rounds"] += 1
             self.stats["merged"] += remote is not None
             if remote is not None:
-                seen = self.stats["merged_from"].setdefault(partner, [0, self._round_clock])
+                # The peer whose frame merged: a hedge's winner may be the fallback.
+                seen = self.stats["merged_from"].setdefault(
+                    self.last_fetch["peer"], [0, self._round_clock])
                 seen[0] += 1
                 seen[1] = max(seen[1], self._round_clock)
         if remote is None:
@@ -1234,4 +1570,6 @@ class TcpTransport:
         return (merged.numpy() if as_numpy else merged), alpha, partner
 
     def close(self) -> None:
+        if self.healthz is not None:
+            self.healthz.close()
         self.server.close()

@@ -2,8 +2,10 @@
 
 The same YAML files load to equal fields in ``dpwa_tpu.config`` and
 ``dpwa_tpu_torch.config`` (the ``health:`` block too, and its validation);
-a ``membership:``, ``trust:`` or ``flowctl:`` block loads when it only
-switches the plane off and raises :class:`NotImplementedError` otherwise; α from ``dpwa_tpu_torch.interpolation`` equals
+the ``membership:``, ``trust:``, ``flowctl:`` and ``chaos:`` blocks load
+what the reference loads and refuse what it refuses, and a block of a
+plane the port does not have raises :class:`NotImplementedError` naming
+it; α from ``dpwa_tpu_torch.interpolation`` equals
 ``dpwa_tpu.interpolation``'s bit for bit on a grid of (clock, loss) that
 includes NaN, inf and losses beyond the rescue bound.
 """
@@ -45,10 +47,7 @@ def test_example_yaml_loads_to_equal_core_fields(path):
     assert port.recovery.rescue_bound() == ref.recovery.rescue_bound()
 
 
-@pytest.mark.parametrize(
-    "block",
-    ["shard", "chaos", "flowctl", "obs", "topology", "run", "tune"],
-)
+@pytest.mark.parametrize("block", ["shard", "obs", "topology", "run", "tune"])
 def test_unported_block_raises_naming_it(block):
     raw = {"nodes": ["a", "b"], block: {}}
     ref_config.config_from_dict(raw)  # the reference accepts every block
@@ -56,34 +55,34 @@ def test_unported_block_raises_naming_it(block):
         config.config_from_dict(raw)
 
 
+@pytest.mark.parametrize("block", ["chaos", "flowctl"])
+def test_flowctl_and_chaos_blocks_load_like_the_reference(block):
+    """An empty block loads the reference's defaults: flowctl on, chaos
+    off."""
+    raw = {"nodes": ["a", "b"], block: {}}
+    assert _fields(getattr(config.config_from_dict(raw), block)) == _fields(
+        getattr(ref_config.config_from_dict(raw), block))
+    assert getattr(config.config_from_dict(raw), block).enabled == (block == "flowctl")
+
+
 @pytest.mark.parametrize("block", ["membership", "trust", "flowctl"])
 def test_default_on_block_that_only_disables_loads(block):
-    """A default-on block saying only ``enabled: false`` loads as the
-    reference loads it: membership and trust (ported) switched off, flowctl
-    (not ported) recorded as a disabled plane.  Only flowctl is unported."""
+    """A default-on block saying only ``enabled: false`` switches the plane
+    off, as the reference's does; without the block each of the three is
+    on, as in the reference."""
     raw = yaml.safe_load(f"nodes: [a, b]\n{block}: {{enabled: false}}\n")
     assert not getattr(ref_config.config_from_dict(raw), block).enabled
-    cfg = config.config_from_dict(raw)
-    if block == "flowctl":
-        assert cfg.disabled_planes == ("flowctl",) and cfg.unported_planes() == ()
-    else:
-        assert not getattr(cfg, block).enabled and cfg.disabled_planes == ()
-        assert cfg.unported_planes() == ("flowctl",)
-    assert config.config_from_dict({"nodes": ["a"]}).unported_planes() == ("flowctl",)
+    assert not getattr(config.config_from_dict(raw), block).enabled
+    assert getattr(config.config_from_dict({"nodes": ["a"]}), block).enabled
 
 
 @pytest.mark.parametrize("content", [None, {}, {"enabled": True}, {"enabled": False, "x": 1},
                                      {"indirect_probes": 0}])
 @pytest.mark.parametrize("block", ["membership", "trust", "flowctl"])
-def test_default_on_block_with_other_content_raises(block, content):
-    """flowctl (not ported) raises NotImplementedError naming it for any
-    content but ``enabled: false``; membership and trust (ported) load what
-    the reference loads, with its fields, and refuse what it refuses."""
+def test_default_on_block_loads_what_the_reference_loads(block, content):
+    """membership, trust and flowctl load what the reference loads, with
+    its fields, and refuse what it refuses."""
     doc = {"nodes": ["a", "b"], block: content}
-    if block == "flowctl":
-        with pytest.raises(NotImplementedError, match=repr(block)):
-            config.config_from_dict(doc)
-        return
     try:
         ref = getattr(ref_config.config_from_dict(doc), block)
     except TypeError:

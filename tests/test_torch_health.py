@@ -16,8 +16,9 @@
   each round's (sched_partner, partner, remapped, outcome), every merge,
   and each node's scoreboard snapshot (quarantine and readmission rounds,
   probes) equal to an all-reference group's.
-- The transport warns once, naming each default-on plane it does not
-  have, unless the config switches the plane off; ``healthz_port`` raises.
+- A transport at the default config runs every default-on plane of the
+  reference (membership, trust, flowctl) and warns about nothing;
+  ``healthz_port`` serves the health snapshot.
 
 Every socket binds port 0 and peers are wired with ``set_peer_port``.
 """
@@ -310,32 +311,37 @@ def test_probe_outcomes_match_reference_against_faulty_servers(fault):
 
 # -- the transport: warnings, settings ----------------------------------------
 
-def test_transport_warns_once_naming_each_unported_plane():
-    """Membership and trust are ported: a node at the defaults runs them
-    and warns about flowctl alone."""
-    cfg = _ephemeral(make_local_config(2))
-    with pytest.warns(UserWarning, match=r"default-on flowctl plane") as record:
-        t = tcp.TcpTransport(cfg, "node0", device="cpu")
-    assert t.membership is not None and t.trust is not None
-    t.close()
-    assert len(record) == 1 and "membership" not in str(record[0].message)
-    assert "trust" not in str(record[0].message)
+def test_transport_at_the_defaults_runs_every_plane_and_warns_nothing():
+    """Membership, trust and flowctl are ported: a node at the defaults
+    runs all three, and a node with them switched off none, without a
+    warning either way."""
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        t = tcp.TcpTransport(_ephemeral(make_local_config(2)), "node0", device="cpu")
+        assert t.membership is not None and t.trust is not None
+        assert t._estimator is not None and t.server.admission is not None
+        t.close()
         t = tcp.TcpTransport(_ephemeral(make_local_config(2, disabled_planes=("flowctl",))),
                              "node0", device="cpu")
-        assert t.membership is not None and t.trust is not None
+        assert t.membership is not None and t.trust is not None and t._estimator is None
         t.close()
         t = tcp.TcpTransport(_ephemeral(make_local_config(2, disabled_planes=UNPORTED_OFF)),
                              "node0", device="cpu")
-        assert t.membership is None and t.trust is None
+        assert t.membership is None and t.trust is None and t._estimator is None
+        assert t.server.admission is None
         t.close()
 
 
-def test_healthz_port_raises_and_health_off_has_no_scoreboard():
-    with pytest.raises(NotImplementedError, match="healthz_port"):
-        tcp.TcpTransport(_ephemeral(make_local_config(2, health={"healthz_port": 0})),
+def test_healthz_port_serves_and_health_off_has_no_scoreboard():
+    t = tcp.TcpTransport(_ephemeral(make_local_config(2, health={"healthz_port": 0})),
                          "node0", device="cpu")
+    try:
+        with socket.create_connection(("127.0.0.1", t.healthz.port), timeout=5) as c:
+            c.sendall(b"GET /healthz HTTP/1.0\r\n\r\n")
+            raw = b"".join(iter(lambda: c.recv(4096), b""))
+        assert json.loads(raw.split(b"\r\n\r\n", 1)[1])["me"] == 0
+    finally:
+        t.close()
     cfg = _ephemeral(make_local_config(2, health={"enabled": False},
                                        disabled_planes=UNPORTED_OFF))
     t = tcp.TcpTransport(cfg, "node0", device="cpu")

@@ -197,5 +197,5 @@ def test_view_on_raises_naming_the_partial_view():
     with pytest.raises(NotImplementedError, match="topology"):
         config_from_dict({"nodes": ["a"], "topology": {"enabled": False}})
     cfg = load_config("examples/mnist/nodes.yaml")
-    assert cfg.membership.enabled and cfg.trust.enabled and cfg.unported_planes() == ("flowctl",)
+    assert cfg.membership.enabled and cfg.trust.enabled and cfg.flowctl.enabled
     assert config_from_dict({"nodes": ["a"], "membership": {"view": {"enabled": False}}}).membership
