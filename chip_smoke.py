@@ -104,6 +104,7 @@ ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
     "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "slowpeer_tcp",
     "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
+    "codec_kernels", "wire_exchange", "codecs_tcp",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -155,6 +156,29 @@ SLOW_CHAOS = (
     "chaos:\n  enabled: true\n  seed: 5\n  trickle_bytes_per_s: 2048.0\n"
     f"  trickle_windows: [[{SLOW_VICTIM}, {SLOW_WINDOW[0]}, {SLOW_WINDOW[1]}]]\n"
 )
+# The TCP wire's codecs: bench.py's wire and shard sweeps (WIRE_SWEEP_CODECS,
+# SHARD_SWEEP_KS on f32 and topk 0.05) on the card at ResNet-50's d, plus the
+# int8 wire with the guard and the screen off (no dequantised copy: the
+# merge alone reads the frame), 2 warm-up rounds and 2 passes of 5; and the
+# MNIST example over TCP under int8, topk 0.05 and shard k 4 (int8 and topk
+# inners), with examples/mnist_torch.py on the int8 wire beside them.
+WIRE_LEGS = (
+    ("f32", {}), ("bf16", {"wire_dtype": "bf16"}), ("int8", {"wire_dtype": "int8"}),
+    ("topk_0.1", {"wire_codec": "topk", "topk_fraction": 0.1}),
+    ("topk_0.05", {"wire_codec": "topk", "topk_fraction": 0.05}),
+    *((f"shard{k}_f32", {"shard": {"k": k}}) for k in (2, 4, 8)),
+    *((f"shard{k}_topk_0.05", {"shard": {"k": k}, "wire_codec": "topk", "topk_fraction": 0.05})
+      for k in (2, 4, 8)),
+    ("int8_unjudged", {"wire_dtype": "int8", "recovery": {"enabled": False},
+                       "trust": {"enabled": False}}),
+)
+WIRE_WARMUPS, WIRE_PASSES, WIRE_ITERS = 2, 2, 5
+CODEC_RUNS = {  # name: (protocol lines, top-level blocks)
+    "int8": ("  wire_dtype: int8\n", ""),
+    "topk": ("  wire_codec: topk\n  topk_fraction: 0.05\n", ""),
+    "shard4_int8": ("  wire_dtype: int8\n", "shard: {k: 4}\n"),
+    "shard4_topk": ("  wire_codec: topk\n  topk_fraction: 0.05\n", "shard: {k: 4}\n"),
+}
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -1168,8 +1192,10 @@ def slowpeer_tcp(kind: str) -> dict:
         got = [r["outcome"] for r in rounds[i] if r["partner"] == SLOW_VICTIM and r["outcome"]]
         victim_outcomes[f"node{i}"] = {o: got.count(o) for o in sorted(set(got))}
         if set(got) - {"slow", "busy", "success"}:
+            odd = [r for r in rounds[i] if r["partner"] == SLOW_VICTIM
+                   and r["outcome"] not in (None, "slow", "busy", "success")]
             raise AssertionError(f"slowpeer_tcp: node{i} classified node{SLOW_VICTIM}'s fetches "
-                                 f"as {victim_outcomes[f'node{i}']}")
+                                 f"as {victim_outcomes[f'node{i}']}: {odd}")
         shed_ok += [r for r in rounds[i] if r["sched_partner"] == SLOW_VICTIM and r["remapped"]
                     and r["sched_state"] == "degraded" and r["outcome"] == "success"]
     if not shed_ok:
@@ -1785,6 +1811,282 @@ def tcp_exchange(torch, merge, device, wire: str) -> dict:
             t.close()
 
 
+def codec_kernel_checks(torch, merge, device, flush) -> dict:
+    """The codec kernels at ResNet-50's d on the card, each against its
+    plain version on the same inputs there: the int8 quantiser
+    (``quantize_sr``, the whole code-4 body byte for byte, a zero chunk
+    among the values), B2's int8-frame form and its support form at topk
+    0.05's k (both bit for bit, NaN for NaN); then each timed with CUDA
+    events, L2 flushed, beside its bound and its plain version, and beside
+    what it replaces on the card: the dequantise-then-B2 route, and the
+    whole top-k merge (the self-lerp and the support) and the row copy a
+    shard merge pays."""
+    from dpwa_tpu_torch.device import engine
+    from dpwa_tpu_torch.ops import quantize as q
+
+    d = R50_D
+    chunks = q.n_chunks(d)
+    gen = torch.Generator(device=device).manual_seed(41)
+    x = torch.randn(d, generator=gen, device=device)
+    y = torch.randn(d, generator=gen, device=device) * 3
+    y[256:512] = 0.0
+    k0, k1 = q._np_key_words(0, 7.5, 1)
+    out = {}
+    body = q.quantize_sr(y, k0, k1)
+    plain = q.torch_quantize_sr(y, k0, k1)
+    if not torch.equal(body, plain):
+        raise AssertionError(f"quantize_sr differs from its plain version in "
+                             f"{int((body != plain).sum())} bytes at d={d}")
+    n_bytes = 4 * d + q.int8_nbytes(d)
+    b_ms, b_by = bound_ms(n_bytes, 6 * d + 2 * chunks)
+    ms = time_ms(torch, lambda: q.quantize_sr(y, k0, k1), 10, flush)
+    out["quantize_sr"] = {
+        "shape": [d], "bytes": n_bytes, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": time_ms(torch, lambda: q.torch_quantize_sr(y, k0, k1), 2, flush),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+    }
+    payload = q.Int8Payload(d, body)
+    scales, codes = payload.views()
+    got = merge.int8_frame_merge(x, codes, scales, 0.3)
+    same, err = nan_equal(torch, got, merge.torch_int8_frame_merge(x, codes, scales, 0.3))
+    if not same:
+        raise AssertionError(f"b2 int8-frame form differs from its plain version: {err}")
+    res = torch.empty_like(x)
+    n_bytes = 9 * d + 4 * chunks
+    b_ms, b_by = bound_ms(n_bytes, 4 * d)
+    ms = time_ms(torch, lambda: merge.int8_frame_merge(x, codes, scales, 0.3, out=res), 10, flush)
+    out["b2_int8_frame"] = {
+        "shape": [1, d], "bytes": n_bytes, "max_abs_err": err, "ms": ms,
+        "plain_ms": time_ms(torch, lambda: merge.torch_int8_frame_merge(x, codes, scales, 0.3),
+                            3, flush),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+        "dequantise_then_b2_ms": time_ms(
+            torch, lambda: engine.merge_dense(x, payload.dequantize(), 0.3), 10, flush),
+    }
+    k = q.topk_k(d, 0.05)
+    idx = torch.sort(torch.randperm(d, generator=gen, device=device)[:k]).values.to(torch.int32)
+    vals = torch.randn(k, generator=gen, device=device)
+    base = x * 2
+    got = merge.support_merge_(base.clone(), x, idx, vals, 0.3)
+    same, err = nan_equal(torch, got, merge.torch_support_merge_(base.clone(), x, idx, vals, 0.3))
+    if not same:
+        raise AssertionError(f"b2 support form differs from its plain version: {err}")
+    n_bytes = 16 * k
+    b_ms, b_by = bound_ms(n_bytes, 3 * k)
+    ms = time_ms(torch, lambda: merge.support_merge_(base, x, idx, vals, 0.3), 10, flush)
+    topk = q.TopkPayload(d, idx.long(), vals)
+    whole = time_ms(torch, lambda: engine.merge_topk(x, topk, 0.3), 10, flush)
+    whole_bound = bound_ms(8 * d + n_bytes, 3 * d + 3 * k)[0]
+    out["b2_support"] = {
+        "shape": [1, d], "k": k, "bytes": n_bytes, "max_abs_err": err, "ms": ms,
+        "plain_ms": time_ms(torch, lambda: merge.torch_support_merge_(base, x, idx, vals, 0.3),
+                            3, flush),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+        "topk_merge_ms": whole, "topk_merge_bound_ms": whole_bound,
+        "row_copy_ms": time_ms(torch, lambda: x.clone(), 10, flush),
+        "row_copy_bound_ms": bound_ms(8 * d, 0)[0],
+    }
+    del x, y, body, plain, payload, got, res, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def wire_frame_bytes(q, d: int, kw: dict) -> int:
+    """A frame's payload bytes at ``d`` under a WIRE_LEGS setting, from the
+    layouts (every shard has the same length here: d % 8 == 0)."""
+    k = kw.get("shard", {}).get("k", 1)
+    m = d // k
+    if kw.get("wire_codec") == "topk":
+        inner = q.topk_nbytes(m, q.topk_k(m, kw["topk_fraction"]), "int8")
+    else:
+        inner = {"f32": 4 * m, "bf16": 2 * m, "int8": q.int8_nbytes(m)}[kw.get("wire_dtype", "f32")]
+    return inner + (17 if k > 1 else 0)
+
+
+def wire_exchange(torch, merge, device) -> dict:
+    """``bench.py``'s ``bench_wire`` and ``bench_shard`` on the card: for
+    each of WIRE_LEGS, two nodes in this process on port 0 with replicas of
+    ResNet-50's d on the card, lock-step (both publish, then both exchange
+    through ``exchange_on_device`` on their own threads; flowctl off, so a
+    round that outlasts the other legs' latencies is not cut by an adaptive
+    deadline learned on them), 2 warm-up rounds
+    then 2 passes of 5; the exchange ms from the median of the pass
+    medians, the wire bytes a frame from ``wire_snapshot()`` (held to the
+    layout), the compression ratio, every round merged with finite
+    replicas, the kernels' launches; the encode, readback and landing of
+    one frame timed alone with CUDA events."""
+    import threading
+
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.device import handoff
+    from dpwa_tpu_torch.device.replica import bf16_wire
+    from dpwa_tpu_torch.ops import quantize as q
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    legs = {}
+    for name, kw in WIRE_LEGS:
+        t0 = time.perf_counter()
+        cfg = make_local_config(2, schedule="ring", interpolation="constant", factor=0.3,
+                                timeout_ms=20000, disabled_planes=("flowctl",), **kw)
+        cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            gen = torch.Generator(device=device).manual_seed(51)
+            vecs = [torch.randn(R50_D, generator=gen, device=device) for _ in range(2)]
+            merge.reset_launch_counts()
+
+            def one_round(step: int) -> float:
+                for i, t in enumerate(nodes):
+                    t.publish(vecs[i], step, 0)
+                results = [None, None]
+
+                def run(i):
+                    results[i] = nodes[i].exchange_on_device(vecs[i], step, 0, step)
+
+                start = time.perf_counter()
+                threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=120)
+                torch.cuda.synchronize(device)
+                elapsed = time.perf_counter() - start
+                if any(th.is_alive() for th in threads) or any(r is None or r[1] == 0.0 for r in results):
+                    raise AssertionError(f"wire_exchange {name}: round {step} did not merge: "
+                                         f"{[t.last_fetch for t in nodes]}")
+                for i in range(2):
+                    vecs[i] = results[i][0]
+                return elapsed
+
+            for w in range(WIRE_WARMUPS):
+                one_round(w)
+            medians = []
+            for rep in range(WIRE_PASSES):
+                durations = [one_round(WIRE_WARMUPS + rep * WIRE_ITERS + it) for it in range(WIRE_ITERS)]
+                medians.append(float(np.median(durations)))
+            rounds = WIRE_WARMUPS + WIRE_PASSES * WIRE_ITERS
+            if not all(bool(torch.isfinite(v).all()) for v in vecs):
+                raise AssertionError(f"wire_exchange {name}: a replica is not finite")
+            snap = nodes[0].wire_snapshot()
+            per_frame = snap["wire_bytes"] / max(snap["frames"], 1)
+            layout = wire_frame_bytes(q, R50_D, kw)
+            if per_frame != layout:
+                raise AssertionError(f"wire_exchange {name}: {per_frame} bytes a frame, the layout "
+                                     f"says {layout}")
+            launches = {"gather_merge": merge.gather_merge.launches,
+                        "int8_frame_merge": merge.int8_frame_merge.launches,
+                        "support_merge_": merge.support_merge_.launches,
+                        "quantize_sr": q.quantize_sr.launches}
+            b2 = launches["gather_merge"] + launches["int8_frame_merge"]
+            if device.type == "cuda" and b2 != 2 * rounds:
+                raise AssertionError(f"wire_exchange {name}: {rounds} rounds on 2 nodes, B2 {launches}")
+            # One frame's legs alone: encode on the card, read back, land.
+            node, vec = nodes[0], vecs[0]
+            if node._codec:
+                encode = lambda: node.codec_body(vec, 99.0)[0]
+            else:
+                encode = lambda: bf16_wire(vec) if node.wire == "bf16" else vec
+            encode_ms = cuda_event_ms(torch, encode, 3)
+            body = encode()
+            readback = cuda_event_ms(torch, lambda: handoff.to_host(body), 5)
+            host = handoff.to_host(body)
+            landing = cuda_event_ms(torch, lambda: handoff.to_device(host, device), 5)
+            median_s = float(np.median(medians))
+            legs[name] = {
+                "setting": kw, "codec": snap["codec"], "wire_bytes_per_frame": per_frame,
+                "layout_bytes": layout, "compression_ratio": snap["compression_ratio"],
+                "reduction_vs_f32": 4 * R50_D / per_frame,
+                "exchange_ms": median_s * 1e3 / 2, "round_ms": median_s * 1e3,
+                "pass_median_ms": [m * 1e3 for m in medians], "rounds": rounds,
+                "encode_ms": encode_ms, "readback_ms": readback, "landing_ms": landing,
+                "launches": launches, "outcomes": [t.stats["outcomes"] for t in nodes],
+                "verdicts": [t.stats["verdicts"] for t in nodes],
+                "shard": snap.get("shard"), "seconds": time.perf_counter() - t0,
+            }
+        finally:
+            for t in nodes:
+                t.close()
+            del vecs
+            torch.cuda.empty_cache()
+    return {"d": R50_D, "warmups": WIRE_WARMUPS, "passes": WIRE_PASSES, "iters": WIRE_ITERS,
+            "legs": legs}
+
+
+def codec_config(workdir: str, protocol: str, blocks: str) -> str:
+    """``tcp_config``'s copy of examples/mnist/nodes.yaml with ``protocol``
+    lines added to its ``protocol:`` block and ``blocks`` appended."""
+    config = tcp_config(workdir, extra=blocks)
+    with open(config) as f:
+        text = f.read()
+    if "  seed: 0\n" not in text:
+        raise AssertionError("examples/mnist/nodes.yaml has no '  seed: 0' protocol line")
+    with open(config, "w") as f:
+        f.write(text.replace("  seed: 0\n", "  seed: 0\n" + protocol, 1))
+    return config
+
+
+def codecs_tcp(kind: str) -> dict:
+    """The MNIST example over TCP (two OS processes on a copy of
+    examples/mnist/nodes.yaml, 300 steps, the default planes, a start and an
+    end barrier) under each of CODEC_RUNS, and two processes of ``examples/mnist_torch.py`` (the
+    reference's PyTorch surface) on the int8 wire, all at once: every node
+    at accuracy >= 0.9, its B2 launches equal to its merged rounds; the
+    quantiser launched under int8, B2's support form once a merged top-k
+    round."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    try:
+        for name, (protocol, blocks) in CODEC_RUNS.items():
+            config = codec_config(os.path.join(HERE, "build", f"codecs_tcp_{name}"), protocol, blocks)
+            barrier = os.path.join(HERE, "build", f"codecs_tcp_{name}", "barrier")
+            procs[name] = [mnist_node(config, f"node{i}", MNIST_STEPS, ("--barrier", barrier), env=env)
+                           for i in range(2)]
+        config = codec_config(os.path.join(HERE, "build", "codecs_tcp_mnist_torch"),
+                              CODEC_RUNS["int8"][0], "")
+        procs["mnist_torch"] = [subprocess.Popen(
+            [sys.executable, "-m", "dpwa_tpu_torch.examples.mnist_torch", "--name", f"node{i}",
+             "--config", config, "--steps", str(MNIST_STEPS)],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        ) for i in range(2)]
+        outs = {name: [p.communicate(timeout=TCP_TIMEOUT_S) for p in ps] for name, ps in procs.items()}
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    res = {}
+    for name in CODEC_RUNS:
+        nodes = [node_result(f"codecs_tcp {name}", f"node{i}", p.returncode, *out, kind, MNIST_STEPS)
+                 for i, (p, out) in enumerate(zip(procs[name], outs[name]))]
+        for n in nodes:
+            topk = "topk" in name
+            if topk and n["support_launches"] != n["merged_rounds"]:
+                raise AssertionError(f"codecs_tcp {name}: {n['merged_rounds']} merged rounds, "
+                                     f"{n['support_launches']} support launches")
+            if "int8" in name and n["quantize_launches"] < n["steps"]:
+                raise AssertionError(f"codecs_tcp {name}: {n['quantize_launches']} quantiser launches")
+            n.pop("losses", None)
+        res[name] = nodes
+    accs = []
+    for i, (p, (stdout, stderr)) in enumerate(zip(procs["mnist_torch"], outs["mnist_torch"])):
+        m = re.search(r"test accuracy: ([0-9.]+)", stdout)
+        if p.returncode != 0 or m is None or float(m.group(1)) < 0.9:
+            print(stdout[-3000:], stderr[-3000:], file=sys.stderr)
+            raise AssertionError(f"mnist_torch node{i}: exit {p.returncode}, accuracy "
+                                 f"{m.group(1) if m else None}")
+        accs.append(float(m.group(1)))
+    res["mnist_torch"] = {"wire": "int8", "steps": MNIST_STEPS, "accuracy": accs}
+    for name in (*CODEC_RUNS, "mnist_torch"):
+        shutil.rmtree(os.path.join(HERE, "build", f"codecs_tcp_{name}"), ignore_errors=True)
+    return res
+
+
 def cuda_event_ms(torch, fn, iters: int) -> float:
     """Mean time of ``fn`` between two CUDA events on the current stream
     (host work inside ``fn`` that waits on the card shows up too)."""
@@ -1919,6 +2221,13 @@ def main(argv=None) -> int:
             res["tcp"] = tcp_merge_checks(torch, merge, device, flush)
         results[kind_name] = res
         emit({"phase": kind_name, "seconds": time.perf_counter() - t0, **res})
+    if "codec_kernels" in phases:
+        # The TCP codecs' kernels at ResNet-50's d: the int8 quantiser and
+        # B2's int8-frame and support forms.
+        t0 = time.perf_counter()
+        results["codec_kernels"] = codec_kernel_checks(torch, merge, device, flush)
+        emit({"phase": "codec_kernels", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **results["codec_kernels"]})
     if "b5" in phases:
         t0 = time.perf_counter()
         results["b5"] = flash_checks(torch, fa, device, flush, ptxas)
@@ -2113,6 +2422,19 @@ def main(argv=None) -> int:
               "trust_verdicts": [n["verdicts"] for n in res["nodes"]],
               "membership_events": [n["events"] for n in res["nodes"]]})
 
+    if "codecs_tcp" in phases:
+        # The launches are counted in each process (fresh counts there).
+        t0 = time.perf_counter()
+        res = codecs_tcp(kind)
+        runs = [n for name in CODEC_RUNS for n in res[name]]
+        main_launches["codecs_tcp"] = {
+            "gather_merge": sum(n["b2_launches"] - n["int8_frame_launches"] for n in runs),
+            "int8_frame_merge": sum(n["int8_frame_launches"] for n in runs),
+            "support_merge_": sum(n["support_launches"] for n in runs),
+            "quantize_sr": sum(n["quantize_launches"] for n in runs)}
+        emit({"phase": "codecs_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              "steps": MNIST_STEPS, **res})
+
     if "slowpeer_tcp" in phases:
         t0 = time.perf_counter()
         res = slowpeer_tcp(kind)
@@ -2154,6 +2476,18 @@ def main(argv=None) -> int:
             emit({"phase": "tcp_exchange", "seconds": time.perf_counter() - t0,
                   "nvidia_smi": name_limit, **res})
             torch.cuda.empty_cache()
+
+    if "wire_exchange" in phases:
+        t0 = time.perf_counter()
+        res = wire_exchange(torch, merge, device)
+        totals = {}
+        for leg in res["legs"].values():
+            for key, n in leg["launches"].items():
+                totals[key] = totals.get(key, 0) + n
+        main_launches["wire_exchange"] = totals
+        results["wire_exchange"] = res
+        emit({"phase": "wire_exchange", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, "launches": totals, **res})
 
     if "rollback_tcp" in phases:
         t0 = time.perf_counter()
@@ -2533,6 +2867,32 @@ def main(argv=None) -> int:
                         main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],
                     "at_tcp": tcp_rows.get("resnet50"),
                 })
+    if "codec_kernels" in results:
+        # The TCP codecs' kernels: their launches in the wire sweep (two
+        # nodes in this process) and in the MNIST codec runs (per process).
+        for key, name, source, replaces in (
+            ("quantize_sr", "quantize_sr", "dpwa_tpu_torch/ops/csrc/quantize.cu",
+             "dpwa_tpu/native/dpwa_native.cpp:56 (dpwa_quantize_sr; no Pallas kernel)"),
+            ("b2_int8_frame", "int8_frame_merge", "dpwa_tpu_torch/ops/csrc/merge.cu",
+             "dpwa_tpu/ops/merge.py:103 (B2), dpwa_tpu/device/kernels.py:156 (build_int8)"),
+            ("b2_support", "support_merge_", "dpwa_tpu_torch/ops/csrc/merge.cu",
+             "dpwa_tpu/ops/merge.py:103 (B2), dpwa_tpu/device/kernels.py:176 (build_topk)"),
+        ):
+            at = results["codec_kernels"][key]
+            wire_n = main_launches.get("wire_exchange", {}).get(name)
+            tcp_n = main_launches.get("codecs_tcp", {}).get(name)
+            kernels.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": wire_n, "launches_phase": "wire_exchange",
+                "launches_codecs_tcp": tcp_n,
+                "max_abs_err": at["max_abs_err"], "ms": at["ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                "library_ms": at["library_ms"], "at_shape": at["shape"],
+            })
+        for key, name in (("b2_int8_frame", "int8_frame_merge"), ("b2_support", "support_merge_"),
+                          ("quantize_sr", "quantize_sr")):
+            if "wire_exchange" in main_launches and not main_launches["wire_exchange"].get(name):
+                raise AssertionError(f"wire_exchange launched {name} no time")
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):
             at_main = results["b5"]["timings"][kind_name]

@@ -31,8 +31,10 @@
 
 Each round's exchange record (the reference's metrics record: step,
 loss, α, the scheduled and actual partner, the remap, the outcome, the
-trust verdict and, when a hedge fired, its winner) is
-:attr:`DpwaTcpAdapter.last_record`.  Not ported yet: the tune events and
+trust verdict, when a hedge fired its winner, and the codec of a top-k or
+sharded frame) is :attr:`DpwaTcpAdapter.last_record`.  The adapters run on
+every wire the transport has, the codecs included: their frames and
+decisions are the transport's.  Not ported yet: the tune events and
 the metrics files.
 """
 
@@ -289,7 +291,8 @@ class DpwaTcpAdapter:
 
     def _record(self, step: int, loss: float) -> None:
         """:attr:`last_record`: this round's exchange, with the reference's
-        field names (the trust and hedge columns only when they apply)."""
+        field names (the trust, hedge and codec columns only when they
+        apply: the codec of a top-k or sharded frame merged)."""
         info = self.transport.last_round
         rec = {"step": step, "loss": loss, "alpha": self.last_alpha,
                **{k: info.get(k) for k in ("sched_partner", "partner", "remapped", "outcome")}}
@@ -299,6 +302,8 @@ class DpwaTcpAdapter:
         if info.get("hedged"):
             rec["hedged"] = True
             rec["hedge_winner"] = info.get("hedge_winner")
+        if info.get("codec"):
+            rec["codec"] = info["codec"]
         self.last_record = rec
 
     def _event(self, event: str, **fields) -> None:

@@ -10,8 +10,9 @@ rollback ring, the STATE wire and the bound of the α = 1 rescue,
 ``/healthz`` port, ``membership:`` the epidemic membership plane (its
 global view: a ``view:`` block loads only as ``enabled: false``),
 ``trust:`` the content-trust screen, ``flowctl:`` the flow control plane
-(adaptive deadlines, hedged fetches, degrade shedding, serving admission)
-and ``chaos:`` the seeded fault injection of the TCP path.  Every other
+(adaptive deadlines, hedged fetches, degrade shedding, serving admission),
+``chaos:`` the seeded fault injection of the TCP path and ``shard:`` the
+TCP wire's k-way sharding.  Every other
 top-level block raises :class:`NotImplementedError` naming it, rather than
 being dropped.
 """
@@ -29,7 +30,7 @@ DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 # The top-level blocks the port reads.
 PORTED_BLOCKS = (
     "nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust",
-    "flowctl", "chaos",
+    "flowctl", "chaos", "shard",
 )
 # The planes make_local_config's ``disabled_planes`` may switch off.
 DEFAULT_ON_PLANES = ("membership", "trust", "flowctl")
@@ -50,11 +51,10 @@ class ProtocolConfig:
     ``min_wire_mb_per_s``, ``wire_codec``, ``topk_*``,
     ``overlap_prefetch``, ``rx_server``) are validated as in the reference
     and unused by the stacked transport, as there; the TCP transport reads
-    ``timeout_ms`` and ``min_wire_mb_per_s`` and raises for the values that
-    ask for what it does not have yet (``wire_dtype: int8``, ``wire_codec:
-    topk``, ``overlap_prefetch: true``, ``rx_server: reactor``);
-    ``async_rounds`` is a TCP plane the port does not have (see
-    :func:`config_from_dict`)."""
+    them all (``wire_dtype`` f32, bf16 or int8, ``wire_codec`` dense or
+    topk) and raises for the values that ask for what it does not have yet
+    (``overlap_prefetch: true``, ``rx_server: reactor``); ``async_rounds``
+    is a TCP plane the port does not have (see :func:`config_from_dict`)."""
 
     schedule: str = "ring"
     mode: str = "pairwise"  # pairwise (mutual merge) | pull (one-sided)
@@ -556,6 +556,29 @@ class ChaosConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """``shard:`` block: exchange 1/k of the replica a round.
+
+    ``k: 1`` (the default, or no block) keeps sharding off and every frame
+    as without it.  ``k > 1`` cuts the flat replica into k contiguous
+    shards; each publish ships the one that the per-epoch
+    :func:`~dpwa_tpu_torch.parallel.schedules.shard_draw` permutation gives
+    its clock, and the merge touches only that slice.  The slice is
+    encoded as ``protocol.wire_dtype`` / ``wire_codec`` say (top-k within
+    the shard, int8 scale tables restarting at the slice).  TCP only."""
+
+    k: int = 1
+
+    def __post_init__(self) -> None:
+        if self.k < 1:
+            raise ValueError(f"shard.k must be >= 1, got {self.k}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.k > 1
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
@@ -566,6 +589,7 @@ class DpwaConfig:
     trust: TrustConfig = TrustConfig()
     flowctl: FlowctlConfig = FlowctlConfig()
     chaos: ChaosConfig = ChaosConfig()
+    shard: ShardConfig = ShardConfig()
 
     @property
     def n_peers(self) -> int:
@@ -639,6 +663,7 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         trust=TrustConfig(**dict(raw.get("trust") or {})),
         flowctl=FlowctlConfig(**dict(raw.get("flowctl") or {})),
         chaos=ChaosConfig(**chaos),
+        shard=ShardConfig(**dict(raw.get("shard") or {})),
     )
 
 
@@ -666,6 +691,7 @@ def make_local_config(
     trust: "TrustConfig | Mapping[str, Any] | None" = None,
     flowctl: "FlowctlConfig | Mapping[str, Any] | None" = None,
     chaos: "ChaosConfig | Mapping[str, Any] | None" = None,
+    shard: "ShardConfig | Mapping[str, Any] | None" = None,
     disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
@@ -682,8 +708,9 @@ def make_local_config(
         blocks[plane] = (dataclasses.replace(given, enabled=False) if dataclasses.is_dataclass(given)
                          else {**dict(given or {}), "enabled": False})
     types = {"recovery": RecoveryConfig, "health": HealthConfig, "membership": MembershipConfig,
-             "trust": TrustConfig, "flowctl": FlowctlConfig, "chaos": ChaosConfig}
-    given = {"recovery": recovery, "health": health, "chaos": chaos, **blocks}
+             "trust": TrustConfig, "flowctl": FlowctlConfig, "chaos": ChaosConfig,
+             "shard": ShardConfig}
+    given = {"recovery": recovery, "health": health, "chaos": chaos, "shard": shard, **blocks}
     built = {
         name: (types[name](**value) if isinstance(value, Mapping)
                else types[name]() if value is None else value)

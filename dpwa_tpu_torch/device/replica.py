@@ -11,11 +11,17 @@ new readback.  A torch tensor can change in place, so the mirror also
 records the tensor's version counter and is read anew once it moves.  The
 mirror is a snapshot, immutable by convention: the server sends from it
 while the next round runs.
+
+A codec's frame (:meth:`~DeviceReplica.encoded`) is encoded on the card at
+every publish and only its body is read back; it is never served from the
+mirror: the int8 dither is keyed on the publish clock and the top-k
+encoder's error feedback moves at every publish, so the reference encodes
+anew each time, a skipped round's republish included.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -58,6 +64,14 @@ class DeviceReplica:
             return self._mirror[1]
         host = handoff.to_host(bf16_wire(self.dev) if wire == "bf16" else self.dev)
         self._mirror = (key, host)
+        self.readbacks += 1
+        return host
+
+    def encoded(self, encode: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """``encode(replica)`` (a codec's uint8 body, made where the replica
+        lies) read back to a host snapshot: one readback of the wire's
+        bytes, at every call."""
+        host = handoff.to_host(encode(self.dev))
         self.readbacks += 1
         return host
 

@@ -268,8 +268,8 @@ def run_tcp(args) -> dict:
     """One node of the TCP deployment (the reference's ``run_tcp``):
     train this node's replica and gossip it every step; returns the
     node's losses, test accuracy, rate, merged rounds, fetch outcomes, wire
-    bytes, host copies per received frame, B2 launches and peak device
-    memory, and its recovery and health: the bootstrap it landed on, its
+    bytes and the wire's snapshot, host copies per received frame, B2's and
+    the quantiser's launches and peak device memory, and its recovery and health: the bootstrap it landed on, its
     rollbacks, remapped rounds, header and relay probes sent and each change of a
     peer's health state with the step it was seen at; and its membership
     and trust planes: the trust verdicts, the merged rounds and newest
@@ -331,7 +331,14 @@ def run_tcp(args) -> dict:
 
     grad_fn = torch.func.grad_and_value(loss_fn)
     rng = np.random.default_rng(1000 + me)
-    launches0 = merge.gather_merge.launches
+    from dpwa_tpu_torch.ops import quantize
+
+    def b2_launches() -> int:  # B2's forms that merge a row: one a merged round
+        return merge.gather_merge.launches + merge.int8_frame_merge.launches
+
+    launches0 = b2_launches()
+    support0, quantize0 = merge.support_merge_.launches, quantize.quantize_sr.launches
+    int8_form0 = merge.int8_frame_merge.launches
     losses = []
     t0 = None
     try:
@@ -407,7 +414,14 @@ def run_tcp(args) -> dict:
             # host copies of a landed payload before its copy to the device
             # (0: the frame crossed from the receive buffer it landed in)
             "rx_copies_per_frame": ingest.rx_stats()["copies_per_frame"],
-            "b2_launches": merge.gather_merge.launches - launches0,
+            "b2_launches": b2_launches() - launches0,
+            # of them B2's int8-frame form (one a merged int8 round); then
+            # B2's support form (one a merged top-k round) and the int8
+            # quantiser (one an int8 publish, a top-k one with int8 values)
+            "int8_frame_launches": merge.int8_frame_merge.launches - int8_form0,
+            "support_launches": merge.support_merge_.launches - support0,
+            "quantize_launches": quantize.quantize_sr.launches - quantize0,
+            "wire": adapter.transport.wire_snapshot(),
             "peak_memory_bytes": (
                 torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
             ),

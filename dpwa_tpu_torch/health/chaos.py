@@ -333,10 +333,11 @@ class ChaosPeerServer:
         # Relayed probes honour the injected partitions too.
         self._srv.relay_guard = lambda target: engine.link_blocked(self._round, engine.peer, target)
 
-    def publish(self, payload, clock: float, loss: float, digest: Optional[bytes] = None) -> None:
+    def publish(self, payload, clock: float, loss: float, digest: Optional[bytes] = None,
+                code: Optional[int] = None) -> None:
         # The integer publish clock is the round key.
         self._round = int(clock)
-        self._srv.publish(payload, clock, loss, digest)
+        self._srv.publish(payload, clock, loss, digest, code)
         if self._history is not None:
             framed = self._srv._payload
             if framed is not None:

@@ -41,6 +41,23 @@
 //     reference's device engine bitcasts and upcasts in-graph), so no f32
 //     copy of the frame is ever written.
 //
+// B2 has two more forms for the TCP transport's codec frames, each one row
+// and the int8 arithmetic fma(1 - a, x, a * y) with a the host's alpha:
+//   dpwa_int8_frame_merge   y = q[j] * s[j / 256], the landed int8-chunked
+//       frame's codes and scales (dpwa_tpu/device/kernels.py::build_int8),
+//       the dequantisation rounded on its own as the reference's decode
+//       rounds it, so the dense float32 frame is never written;
+//   dpwa_support_merge      out[idx[j]] = lerp(a, x[idx[j]], v[j]) over the k
+//       sorted, unique indices of a top-k frame, after B2's self-lerp of
+//       the row (y = x) has written the off-support values.  It rounds as
+//       the reference's host merge of the densified frame (native.merge_out)
+//       rounds, the path the transport follows.
+// Both are grid-stride loops of scalar loads and stores: the int8 form moves
+// 9 bytes an element (x, q and out; the scales are 1/64 of a byte), the
+// support form 16 bytes a support element (its index, value, x and out, 4
+// bytes each).  Each of the support form's scattered 4-byte reads and writes
+// touches a whole 32-byte sector, so it moves several times its bound.
+//
 // What bounds them on the card: device-memory bytes.  B1 moves 2*rows*d*4
 // bytes (each touched row read once and written once, the floor for any
 // merge), 3*rows*d*4 in the wire form (w's rows read too); B2 moves
@@ -260,6 +277,27 @@ void launch_gather_form(int form, bool vec, dim3 grid, cudaStream_t s, const flo
   else launch_gather<kInt8>(vec, grid, s, x, ld_x, y, ld_y, out, ld_out, d, head, partner, alpha);
 }
 
+__global__ void __launch_bounds__(kThreads)
+int8_frame_merge_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                        const float* __restrict__ scales, float* __restrict__ out, int64_t d,
+                        float a) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; j < d; j += stride) {
+    const float y = __fmul_rn(static_cast<float>(q[j]), __ldg(scales + (j >> 8)));
+    out[j] = lerp<kInt8>(a, __ldg(x + j), y);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+support_merge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                     const float* __restrict__ v, float* __restrict__ out, int64_t k, float a) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; j < k; j += stride) {
+    const int64_t i = __ldg(idx + j);
+    out[i] = lerp<kInt8>(a, __ldg(x + i), __ldg(v + j));
+  }
+}
+
 bool same_phase(const void* a, const void* b) {
   return (reinterpret_cast<uintptr_t>(a) & 15) == (reinterpret_cast<uintptr_t>(b) & 15);
 }
@@ -321,6 +359,30 @@ int dpwa_gather_merge_f32(const float* x, int64_t ld_x, const void* w, int64_t l
   else
     launch_gather_form(form, vec, grid, s, x, ld_x, static_cast<const float*>(y), ld_y,
                        out, ld_out, d, head, partner, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's int8-frame form.  x: float32[d]; q: int8[d]; scales: float32[ceil(d /
+// 256)]; out: float32[d], overlapping none of them.  Returns the launch's
+// cudaError_t.
+int dpwa_int8_frame_merge(const float* x, const int8_t* q, const float* scales, float* out,
+                          int64_t d, float alpha, void* stream) {
+  if (d <= 0) return 0;
+  const dim3 grid = grid_for(d, 1);
+  int8_frame_merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, q, scales, out, d, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's support form.  x, out: float32 rows of the same length (out may be
+// x's own output buffer, never x); idx: int32[k] unique indices into them;
+// v: float32[k].  Returns the launch's cudaError_t.
+int dpwa_support_merge(const float* x, const int* idx, const float* v, float* out, int64_t k,
+                       float alpha, void* stream) {
+  if (k <= 0) return 0;
+  const dim3 grid = grid_for(k, 1);
+  support_merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, v, out, k, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,11 @@ for Hopper (``csrc/merge.cu``), each beside its plain PyTorch version:
   element, the floor for any merge.  The stacked train step's pairwise
   exchange is one launch of it.
 - :func:`gather_merge` (B2, replaces ``pallas_pairwise_merge``) is the
-  out-of-place gather form, for pull maps that are not involutions.
+  out-of-place gather form, for pull maps that are not involutions.  The
+  TCP transport's codec frames take two more forms of it over one row:
+  :func:`int8_frame_merge` (the partner's value dequantised from a landed
+  int8-chunked frame in registers) and :func:`support_merge_` (a top-k
+  frame's support, scattered over B2's self-lerp of the row).
 
 ``y`` is the partner's row as it arrived over the wire: ``x`` itself, or
 in the wire form a second buffer ``w`` laid out like ``x`` — the int8
@@ -90,10 +94,10 @@ def involution_pairs(
 WIRES = ("f32", "bf16", "int8")  # the kernels' arithmetic forms, in order
 
 
-def _form(wire: str, w: torch.Tensor | None) -> int:
+def _form(wire: str, w: torch.Tensor | None, lerp_self: bool = False) -> int:
     if wire not in WIRES:
         raise ValueError(f"unknown wire {wire!r}; expected one of {WIRES}")
-    if wire == "int8" and w is None:
+    if wire == "int8" and w is None and not lerp_self:
         raise ValueError("the int8 wire merges with the dequantized rows: pass w")
     return WIRES.index(wire)
 
@@ -120,11 +124,12 @@ def torch_pairwise_merge(
     *,
     wire: str = "f32",
     w: torch.Tensor | None = None,
+    lerp_self: bool = False,
 ) -> torch.Tensor:
     """Plain version of :func:`gather_merge`: out-of-place
     ``(1−α_i)·x_i + α_i·y[partner[i]]`` over ``x`` of shape ``[n, d]``,
     ``y`` = ``w`` if given, else ``x``."""
-    _form(wire, w)
+    _form(wire, w, lerp_self)
     a = alpha.to(torch.float32)[:, None]
     return _lerp(a, x, (x if w is None else w)[partner.long()], wire)
 
@@ -178,6 +183,10 @@ def _lib() -> ctypes.CDLL:
         _VOID, _I64, _VOID, _I64, _INT, _VOID, _I64, _I64, _INT, _VOID, _VOID, _INT, _VOID,
     ]
     lib.dpwa_gather_merge_f32.restype = _INT
+    lib.dpwa_int8_frame_merge.argtypes = [_VOID, _VOID, _VOID, _VOID, _I64, ctypes.c_float, _VOID]
+    lib.dpwa_int8_frame_merge.restype = _INT
+    lib.dpwa_support_merge.argtypes = [_VOID, _VOID, _VOID, _VOID, _I64, ctypes.c_float, _VOID]
+    lib.dpwa_support_merge.restype = _INT
     lib.dpwa_cuda_error_string.argtypes = [_INT]
     lib.dpwa_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -314,6 +323,7 @@ def gather_merge(
     wire: str = "f32",
     out: torch.Tensor | None = None,
     w: torch.Tensor | None = None,
+    lerp_self: bool = False,
 ) -> torch.Tensor:
     """B2: out-of-place gather merge
     ``out[i] = (1−α_i)·x[i] + α_i·y[partner[i]]`` over float32 ``x``
@@ -325,10 +335,12 @@ def gather_merge(
     :func:`pair_merge_`), ``alpha`` float32 ``[n]``.  ``out`` (float32
     ``[n, d]``, contiguous rows, not overlapping ``x`` or ``w``) is
     allocated when not given, with rows laid out so that the kernel can
-    move 16-byte words.  Returns ``out``."""
-    form = _form(wire, w)
+    move 16-byte words.  ``lerp_self`` lets the int8 wire's arithmetic run
+    with ``y`` = ``x`` (the TCP transport's self-lerp of a row, the value of
+    a top-k or sharded merge off the frame's support).  Returns ``out``."""
+    form = _form(wire, w, lerp_self)
     if x.device.type == "cpu":
-        merged = torch_pairwise_merge(x, partner, alpha, wire=wire, w=w)
+        merged = torch_pairwise_merge(x, partner, alpha, wire=wire, w=w, lerp_self=lerp_self)
         if out is None:
             return merged
         return out.copy_(merged)
@@ -365,14 +377,113 @@ def gather_merge(
     return out
 
 
+def _scalar(alpha: float, device) -> torch.Tensor:
+    return torch.tensor(float(alpha), dtype=torch.float32, device=device)
+
+
+def torch_int8_frame_merge(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                           alpha: float) -> torch.Tensor:
+    """Plain version of :func:`int8_frame_merge`."""
+    from dpwa_tpu_torch.ops.quantize import dequantize_flat
+
+    return _lerp(_scalar(alpha, x.device), x, dequantize_flat(q, scales), "int8")
+
+
+def torch_support_merge_(out: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                         values: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Plain version of :func:`support_merge_`."""
+    idx = idx.long()
+    out[idx] = _lerp(_scalar(alpha, x.device), x[idx], values, "int8")
+    return out
+
+
+def _check_flat(t: torch.Tensor, name: str, dtype, device, length: int | None = None) -> None:
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be a contiguous {dtype} vector on {device}, "
+                         f"got {t.dtype}{list(t.shape)} on {t.device}")
+    if length is not None and t.numel() != length:
+        raise ValueError(f"{name} must hold {length} elements, got {t.numel()}")
+
+
+def int8_frame_merge(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor, alpha: float,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """B2's int8-frame form over one row: ``out = fma(1−α, x, α·y)`` with
+    ``y[j] = q[j] · scales[j // 256]``, the partner's replica as a landed
+    int8-chunked frame carries it (float32 ``x`` ``[d]``, int8 ``q`` ``[d]``,
+    float32 ``scales`` ``[ceil(d / 256)]``).  Bit-equal to B2's int8 form
+    on the dequantised frame, without writing it.  Returns ``out`` (a new
+    float32 ``[d]`` when not given)."""
+    from dpwa_tpu_torch.ops.quantize import n_chunks
+
+    if x.device.type == "cpu":
+        merged = torch_int8_frame_merge(x, q, scales, alpha)
+        return merged if out is None else out.copy_(merged)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_frame_merge: unsupported device {x.device}")
+    d = x.numel()
+    _check_flat(x, "x", torch.float32, x.device)
+    _check_flat(q, "q", torch.int8, x.device, d)
+    _check_flat(scales, "scales", torch.float32, x.device, n_chunks(d))
+    if out is None:
+        out = torch.empty_like(x)
+    _check_flat(out, "out", torch.float32, x.device, d)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_int8_frame_merge(
+            x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), d,
+            float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "int8_frame_merge", err)
+    int8_frame_merge.launches += 1
+    return out
+
+
+def support_merge_(out: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+                   alpha: float) -> torch.Tensor:
+    """B2's support form over one row: ``out[idx[j]] = fma(1−α, x[idx[j]],
+    α·values[j])`` for unique ``idx`` (int32 on the card) into float32 rows
+    ``x`` and ``out`` of one length (not the same tensor), the reference's
+    host merge of a densified top-k frame (B2's int8-wire arithmetic).
+    Other elements of ``out`` are left as they are (B2's self-lerp of ``x``
+    writes them first: a top-k merge).  Returns ``out``."""
+    if x.device.type == "cpu":
+        return torch_support_merge_(out, x, idx, values, alpha)
+    if x.device.type != "cuda":
+        raise ValueError(f"support_merge_: unsupported device {x.device}")
+    k = idx.numel()
+    _check_flat(x, "x", torch.float32, x.device)
+    _check_flat(out, "out", torch.float32, x.device, x.numel())
+    _check_flat(idx, "idx", torch.int32, x.device)
+    _check_flat(values, "values", torch.float32, x.device, k)
+    if out.data_ptr() == x.data_ptr():
+        raise ValueError("support_merge_: out must not be x")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_support_merge(
+            x.data_ptr(), idx.data_ptr(), values.data_ptr(), out.data_ptr(), k,
+            float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "support_merge_", err)
+    support_merge_.launches += 1
+    return out
+
+
 pair_merge_.launches = 0
 gather_merge.launches = 0
+int8_frame_merge.launches = 0
+support_merge_.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's ``launches`` count to 0."""
+    """Set every kernel wrapper's ``launches`` count to 0 (the quantiser's
+    too, :func:`dpwa_tpu_torch.ops.quantize.quantize_sr`)."""
+    from dpwa_tpu_torch.ops import quantize
+
     pair_merge_.launches = 0
     gather_merge.launches = 0
+    int8_frame_merge.launches = 0
+    support_merge_.launches = 0
+    quantize.quantize_sr.launches = 0
 
 
 def pairwise_merge(

@@ -67,8 +67,8 @@ OBS_HDR = struct.Struct("<4sBHIfH")
 OBS_VERSION = 1
 
 # Payload codes: the ``dtype`` byte of BLOB_HDR.  Codes 0-3 are flat
-# little-endian vectors; 4-6 are the reference's codecs (int8-chunked,
-# top-k delta, sharded), whose bodies the port does not decode yet.
+# little-endian vectors; 4-6 are the codecs (int8-chunked, top-k delta,
+# sharded: dpwa_tpu_torch/ops/quantize.py and ops/shard.py).
 PAYLOAD_F32 = 0
 PAYLOAD_F64 = 1
 PAYLOAD_U16 = 2
@@ -77,6 +77,12 @@ PAYLOAD_INT8_CHUNKED = 4
 PAYLOAD_TOPK_DELTA = 5
 PAYLOAD_SHARD = 6
 CODEC_PAYLOAD_CODES = (PAYLOAD_INT8_CHUNKED, PAYLOAD_TOPK_DELTA, PAYLOAD_SHARD)
+# Sharded-payload preamble (code 6), before the inner payload's bytes:
+# shard_idx(I) k(I) d(Q) inner_code(B), ``d`` the FULL replica's length and
+# ``inner_code`` the payload code of the slice's encoding (f32, bf16,
+# int8-chunked or top-k; never another shard).
+SHARD_HDR_FMT = "<IIQB"
+SHARD_HDR = struct.Struct(SHARD_HDR_FMT)
 
 # Length prefix of the packed state blob's JSON header
 # (recovery/state_transfer.py), and the blob's own magic: the blob rides

@@ -104,6 +104,25 @@ def degrade_shed_draw(seed: int, step: int, me: int) -> float:
     return float(prng.uniform_scalar(_pair_key(seed, step, me, _tags.TAG_DEGRADE_SHED)))
 
 
+def shard_permutation(seed: int, epoch: int, k: int) -> np.ndarray:
+    """The shard-visit order of one k-round epoch (tag 32): a permutation of
+    ``range(k)`` keyed on ``(seed, epoch)`` only, so both sides of a pair
+    ship the same slice each round and every shard is visited once an
+    epoch (the reference's ``jax.random.permutation`` of the pair key)."""
+    return prng.permutation(_pair_key(seed, epoch, 0, _tags.TAG_SHARD), int(k))
+
+
+def shard_draw(seed: int, step: int, k: int) -> int:
+    """The shard published at ``step`` under a k-way partition: ``step``'s
+    place in its epoch of ``k`` rounds, looked up in the epoch's
+    :func:`shard_permutation` (0 for ``k <= 1``)."""
+    k = int(k)
+    if k <= 1:
+        return 0
+    epoch, pos = divmod(int(step), k)
+    return int(shard_permutation(seed, epoch, k)[pos])
+
+
 # The chaos fault kinds' tags are CHAOS_TAG_BASE + kind (utils/tags.py).
 CHAOS_TAG_BASE = _tags.CHAOS_TAG_BASE
 

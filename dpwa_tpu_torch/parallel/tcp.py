@@ -61,9 +61,28 @@ content faults, trickles, partitions) and the fetcher honours its blocked
 links; ``health.healthz_port`` serves :meth:`TcpTransport.health_snapshot`
 at ``/healthz`` (:mod:`dpwa_tpu_torch.health.endpoint`).
 
-Not ported yet: the codecs (``wire_dtype: int8``, ``wire_codec: topk``,
-``shard:``), the prefetch pipeline, the reactor and native Rx servers, and
-``/metrics``; the transport raises :class:`NotImplementedError` for the
+The codecs (:mod:`dpwa_tpu_torch.ops.quantize`, :mod:`dpwa_tpu_torch.ops.
+shard`): ``wire_dtype: int8`` (code 4), ``wire_codec: topk`` with int8 or
+float32 values (code 5) and ``shard: {k: >1}`` over any of the encodings
+(code 6) publish the reference's frames byte for byte, encoded where the
+replica lies (the int8 quantiser is ``csrc/quantize.cu`` on the card, the
+top-k encoders' error feedback stays there, and only the body is read back,
+at every publish: the int8 dither is keyed on the clock and the encoders
+move).  A fetched codec frame is decoded and checked on the host (malformed
+is ``corrupt``, never a crash) and lands as it came; its decisions follow
+the reference's ``exchange``, the adapters' path: an int8 frame is judged
+dequantised on the card, a top-k frame densified against the replica last
+published (the guard's zero-energy check and the screen on its support), a
+shard frame slice against slice, each codec against trust baselines of its
+own (the reference's ``exchange_on_device`` judges some of these on what it
+ships alone, which can decide otherwise).  The merges are the reference's
+bit for bit: B2's int8-frame form from the codes and scales, the self-lerp
+and the support form for top-k, the slice alone for a shard
+(:mod:`dpwa_tpu_torch.device.engine`).  :meth:`TcpTransport.wire_snapshot`
+tallies the wire.
+
+Not ported yet: the prefetch pipeline, the reactor and native Rx servers,
+and ``/metrics``; the transport raises :class:`NotImplementedError` for the
 settings that ask for them.
 """
 
@@ -82,7 +101,7 @@ import torch
 from dpwa_tpu_torch.config import DEFAULT_MIN_WIRE_MB_PER_S, DpwaConfig, FlowctlConfig
 from dpwa_tpu_torch.device import engine
 from dpwa_tpu_torch.device.handoff import to_device
-from dpwa_tpu_torch.device.replica import DeviceReplica
+from dpwa_tpu_torch.device.replica import DeviceReplica, bf16_wire
 from dpwa_tpu_torch.flowctl import AdmissionController, DeadlineEstimator
 from dpwa_tpu_torch.health.detector import Outcome
 from dpwa_tpu_torch.health.scoreboard import Scoreboard
@@ -90,14 +109,23 @@ from dpwa_tpu_torch.health.scoreboard import PeerState
 from dpwa_tpu_torch.interpolation import PeerMeta, make_interpolation
 from dpwa_tpu_torch.membership import digest as _digest
 from dpwa_tpu_torch.membership.manager import MembershipManager
+from dpwa_tpu_torch.ops.quantize import (
+    Int8Payload, TopkEncoder, TopkPayload, decode_int8_payload, decode_topk_payload,
+    encode_int8_payload,
+)
+from dpwa_tpu_torch.ops.shard import (
+    INNER_NAMES, ShardPayload, decode_shard_payload, encode_shard_payload, shard_bounds,
+)
 from dpwa_tpu_torch.parallel import ingest
 from dpwa_tpu_torch.parallel import protocol_constants as pc
 from dpwa_tpu_torch.parallel.schedules import (
-    Schedule, build_schedule, degrade_shed_draw, relay_draw,
+    Schedule, build_schedule, degrade_shed_draw, relay_draw, shard_permutation,
 )
-from dpwa_tpu_torch.recovery.guard import payload_check_tensors, validate_payload
+from dpwa_tpu_torch.recovery.guard import (
+    payload_check_tensors, sparse_norm_tensors, validate_payload,
+)
 from dpwa_tpu_torch.trust.manager import REJECTED, TrustManager
-from dpwa_tpu_torch.trust.screen import payload_sums, stats_from_sums
+from dpwa_tpu_torch.trust.screen import payload_sums, payload_sums_sparse, stats_from_sums
 from dpwa_tpu_torch.utils.devices import resolve_device
 
 # Flat payload codes: the numpy dtype the bytes are read as, and the torch
@@ -108,7 +136,6 @@ _FLAT = {
     pc.PAYLOAD_U16: (np.dtype("<u2"), torch.uint16),
     pc.PAYLOAD_BF16: (np.dtype("<i2"), torch.bfloat16),
 }
-_WIRE_CODES = {"f32": pc.PAYLOAD_F32, "bf16": pc.PAYLOAD_BF16}
 
 # The payload read's deadline grows by one second per this many bytes
 # received (protocol.min_wire_mb_per_s), so a large replica streaming from
@@ -132,14 +159,17 @@ assert tuple(_RELAY_OUTCOMES) == pc.RELAY_OUTCOME_NAMES
 
 
 def _frame_segments(
-    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
+    code: Optional[int] = None,
 ) -> tuple:
     """``(header, payload bytes[, digest])``: the wire frame as the segments
     the server sends, the payload a view of ``payload``'s host memory
     (which the caller must not change while it is served), then the
     membership digest trailer when there is one.  The code follows the
-    payload's dtype: float32, float64 or bf16."""
-    code = next(c for c, (_, dt) in _FLAT.items() if dt == payload.dtype)
+    payload's dtype (float32, float64 or bf16), unless ``code`` names a
+    codec and ``payload`` is its encoded body (uint8)."""
+    if code is None:
+        code = next(c for c, (_, dt) in _FLAT.items() if dt == payload.dtype)
     flat = payload.reshape(-1).contiguous()
     if flat.dtype == torch.bfloat16:
         flat = flat.view(torch.int16)
@@ -149,10 +179,11 @@ def _frame_segments(
 
 
 def _frame(
-    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+    payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
+    code: Optional[int] = None,
 ) -> bytes:
     """:func:`_frame_segments` joined: the frame as one byte string."""
-    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss, digest))
+    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss, digest, code))
 
 
 class _LazyState:
@@ -227,12 +258,13 @@ class PeerServer:
         self._thread.start()
 
     def publish(
-        self, payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None
+        self, payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
+        code: Optional[int] = None,
     ) -> None:
-        """Serve ``payload`` (a host tensor the caller no longer changes)
-        with ``clock`` and ``loss``, and ``digest`` as its trailer, from now
-        on."""
-        segments = _frame_segments(payload, clock, loss, digest)
+        """Serve ``payload`` (a host tensor the caller no longer changes;
+        with ``code``, a codec's encoded body) with ``clock`` and ``loss``,
+        and ``digest`` as its trailer, from now on."""
+        segments = _frame_segments(payload, clock, loss, digest, code)
         nbytes = sum(len(s) for s in segments)
         with self._lock:
             self._segments = segments
@@ -407,10 +439,25 @@ def make_peer_server(host: str, port: int, flowctl: Optional[FlowctlConfig] = No
     return PeerServer(host, port, flowctl=flowctl)
 
 
+_CODEC_DECODERS = {
+    pc.PAYLOAD_INT8_CHUNKED: decode_int8_payload,
+    pc.PAYLOAD_TOPK_DELTA: decode_topk_payload,
+    pc.PAYLOAD_SHARD: decode_shard_payload,
+}
+
+
 def _decode(data: memoryview, code: int):
-    """``(vector, array)``: the flat payload as a CPU tensor viewing
-    ``data`` through the numpy array it keeps alive, or None when its
-    length is not a whole number of elements."""
+    """``(vector, owner)``: the flat payload as a CPU tensor viewing
+    ``data`` through the numpy array it keeps alive (the owner), or a
+    codec's decoded payload (its own owner: an int8 body views ``data``);
+    None when the payload is malformed (a flat one of no whole number of
+    elements; a codec body its decoder rejects)."""
+    if code in _CODEC_DECODERS:
+        try:
+            payload = _CODEC_DECODERS[code](np.frombuffer(data, dtype=np.uint8))
+        except ValueError:
+            return None
+        return payload, payload
     np_dtype, dtype = _FLAT[code]
     try:
         arr = np.frombuffer(data, dtype=np_dtype)
@@ -492,8 +539,10 @@ def fetch_blob_full(
     nothing received), ``slow`` (it lapsed while bytes flowed), ``busy``
     (the peer answered the BUSY shed frame), ``short_read`` (closed or
     reset mid-frame), ``corrupt`` (bad magic, version or code, oversize, a
-    payload of no whole elements; also a reference codec frame, int8, top-k
-    or sharded, which the port does not decode yet), ``success``.
+    payload of no whole elements, a codec body that its decoder rejects),
+    ``success``.  A codec frame's result holds its decoded payload
+    (:class:`~dpwa_tpu_torch.ops.quantize.Int8Payload`, ``TopkPayload``,
+    :class:`~dpwa_tpu_torch.ops.shard.ShardPayload`) in the vector's place.
 
     ``timeout_ms`` bounds connect, request and header together; the
     payload read earns ``1 / min_bandwidth_bps`` seconds for every byte
@@ -544,7 +593,8 @@ def fetch_blob_full(
             )
             magic, version, code, clock, loss, nbytes = pc.BLOB_HDR.unpack_from(hdr, 0)
             if (
-                magic != pc.BLOB_MAGIC or version != 1 or code not in _FLAT
+                magic != pc.BLOB_MAGIC or version != 1
+                or (code not in _FLAT and code not in _CODEC_DECODERS)
                 or nbytes > pc.MAX_BLOB_BYTES
             ):
                 return done(Outcome.CORRUPT)
@@ -580,7 +630,10 @@ def fetch_blob_full(
             del decoded
             if trailer_box is not None:
                 trailer_box.append(_read_trailers(sock))
-            ingest.note_rx_frame(0 if vec.dtype in (torch.float32, torch.bfloat16) else 1)
+            if code in _CODEC_DECODERS:  # an int8 body lands as it arrived
+                ingest.note_rx_frame(0 if code == pc.PAYLOAD_INT8_CHUNKED else 1)
+            else:
+                ingest.note_rx_frame(0 if vec.dtype in (torch.float32, torch.bfloat16) else 1)
             if lease_box is not None:
                 lease_box.append(lease)
             else:
@@ -951,15 +1004,39 @@ class _Leg:
 
 def _unsupported(config: DpwaConfig) -> Optional[str]:
     proto = config.protocol
-    if proto.wire_dtype not in _WIRE_CODES:
-        return f"protocol.wire_dtype: {proto.wire_dtype} (the int8-chunked codec)"
-    if proto.wire_codec != "dense":
-        return f"protocol.wire_codec: {proto.wire_codec} (the top-k codec)"
     if proto.overlap_prefetch:
         return "protocol.overlap_prefetch: true (the prefetch pipeline)"
     if proto.rx_server != "threaded":
         return f"protocol.rx_server: {proto.rx_server} (the reactor Rx server)"
     return None
+
+
+class _Landed:
+    """A fetched frame on the merge's device: ``merge``, what the engine
+    merges (a flat tensor or a codec payload); ``dense``, the sender's
+    estimate at the replica's length that the guard checks (a top-k or
+    shard frame densified against the replica last published); ``sparse``,
+    ``(values, local_selected)`` of what a top-k or shard frame ships, whose
+    norms the zero-energy check compares; and what the trust screen judges:
+    the slices of a shard frame (``trust_local``, ``trust_remote``), a
+    top-k frame's support (``trust_sparse``), the codec's baseline family
+    (``trust_codec``) and the shard (``shard``).  ``codec`` is the frame's
+    codec as ``last_fetch`` reports it (None for a dense or int8 frame)."""
+
+    __slots__ = ("merge", "dense", "sparse", "codec", "trust_codec", "trust_local",
+                 "trust_remote", "trust_sparse", "shard")
+
+    def __init__(self, merge, dense, sparse=None, codec=None, trust_codec=None,
+                 trust_local=None, trust_remote=None, trust_sparse=None, shard=None):
+        self.merge, self.dense, self.sparse, self.codec = merge, dense, sparse, codec
+        self.trust_codec, self.trust_local, self.trust_remote = trust_codec, trust_local, trust_remote
+        self.trust_sparse, self.shard = trust_sparse, shard
+
+    def vector(self) -> torch.Tensor:
+        """The sender's estimate as a flat vector (dequantised on demand)."""
+        if self.dense is None:
+            self.dense = self.merge.dequantize()
+        return self.dense
 
 
 def _flat(vec: torch.Tensor) -> torch.Tensor:
@@ -1009,6 +1086,20 @@ class TcpTransport:
             trust_scale=(lambda: self._pending_trust_scale) if self.trust is not None else None,
         )
         self.wire = config.protocol.wire_dtype
+        proto = config.protocol
+        # The codecs: the replica's publish is encoded on its device and only
+        # the body's bytes are read back.  The top-k encoders' error feedback
+        # lives there too; a sharded wire keeps one encoder per shard.
+        self._wire_topk = proto.wire_codec == "topk"
+        self._shard_k = int(config.shard.k)
+        self._shard_on = config.shard.enabled
+        self._codec = self._shard_on or self._wire_topk or self.wire == "int8"
+        self._topk_encoder = (TopkEncoder(proto.topk_fraction, proto.topk_values)
+                              if self._wire_topk and not self._shard_on else None)
+        self._shard_topk_encoders: dict = {}
+        self._shard_perm: Optional[tuple] = None  # (epoch, permutation)
+        self._wire_tally = {"frames": 0, "wire_bytes": 0, "dense_bytes": 0}
+        self._shard_tally: dict = {}
         self.ring = ingest.BufferRing(pinned=self.device.type == "cuda")
         self._dev_replica: Optional[DeviceReplica] = None
         self._local_norm: Optional[float] = None
@@ -1084,16 +1175,25 @@ class TcpTransport:
         self._ports[index] = (host, port)
 
     # -- publish --------------------------------------------------------
-    def _serve(self, payload: torch.Tensor, clock: float, loss: float) -> None:
+    def _serve(self, payload: torch.Tensor, clock: float, loss: float, dense_bytes: int,
+               code: Optional[int] = None, shard: Optional[int] = None) -> None:
         nbytes = payload.numel() * payload.element_size()
         with self._stats_lock:
             self.stats["frames_published"] += 1
             self.stats["wire_bytes_published"] += nbytes
+            tally = self._wire_tally
+            tally["frames"] += 1
+            tally["wire_bytes"] += nbytes
+            tally["dense_bytes"] += dense_bytes
+            if shard is not None:
+                st = self._shard_tally.setdefault(shard, {"frames": 0, "wire_bytes": 0})
+                st["frames"] += 1
+                st["wire_bytes"] += nbytes
         # The epidemic piggyback: this node's view rides every frame.
         digest = self.membership.encode(int(clock)) if self.membership is not None else None
         if digest is not None:
             self.last_digest_nbytes = len(digest)
-        self.server.publish(payload, clock, loss, digest)
+        self.server.publish(payload, clock, loss, digest, code)
 
     def _replica(self, flat: torch.Tensor) -> DeviceReplica:
         """The replica that holds ``flat``: the current one when it does
@@ -1116,27 +1216,141 @@ class TcpTransport:
 
     def _publish_replica(self, rep: DeviceReplica, clock: float, loss: float) -> None:
         self._last_clock = float(clock)
-        if self.trust is not None:
+        rec = self.config.recovery
+        zero_energy = rec.enabled and rec.min_param_norm_ratio > 0.0
+        if self.trust is not None or self._wire_topk or self._shard_on or zero_energy:
+            # What a fetched frame is judged against, and what a top-k or
+            # shard frame densifies against: the replica just published.
             self._local_vec = rep.dev
-        self._serve(rep.payload(self.wire), clock, loss)
-        if self.config.recovery.enabled and self.config.recovery.min_param_norm_ratio > 0.0:
+        dense_bytes = 4 * rep.dev.numel()
+        if self._codec:
+            code, shard = self._codec_of(clock)
+            body = rep.encoded(lambda v: self.codec_body(v, clock)[0])
+            self._serve(body, clock, loss, dense_bytes, code, shard)
+        else:
+            self._serve(rep.payload(self.wire), clock, loss, dense_bytes)
+        if zero_energy:
             self._local_norm = rep.norm()
+
+    def _codec_of(self, clock: float) -> Tuple[int, Optional[int]]:
+        """The payload code of this wire's frames and the shard of
+        ``clock`` (None unsharded)."""
+        if self._shard_on:
+            return pc.PAYLOAD_SHARD, self._shard_index(int(clock), self._shard_k)
+        return (pc.PAYLOAD_TOPK_DELTA if self._wire_topk else pc.PAYLOAD_INT8_CHUNKED), None
+
+    def codec_body(self, vec: torch.Tensor, clock: float) -> Tuple[torch.Tensor, int]:
+        """The codec frame's body of the replica ``vec`` published at
+        ``clock``, encoded where ``vec`` lies (uint8), and its payload code:
+        int8-chunked, top-k (this node's encoder, whose error feedback it
+        moves) or, sharded, the slice of ``int(clock)``'s shard encoded as
+        the wire says (top-k with the shard's own encoder; int8 scale
+        tables restarting at the slice)."""
+        seed, proto = self.schedule.seed, self.config.protocol
+        code, shard = self._codec_of(clock)
+        if shard is None:
+            if self._wire_topk:
+                return self._topk_encoder.encode(vec, seed, clock, self.me), code
+            return encode_int8_payload(vec, seed, clock, self.me), code
+        d, k = vec.numel(), self._shard_k
+        lo, hi = shard_bounds(d, k, shard)
+        sl = vec[lo:hi]
+        if self._wire_topk:
+            enc = self._shard_topk_encoders.get(shard)
+            if enc is None:
+                enc = self._shard_topk_encoders[shard] = TopkEncoder(
+                    proto.topk_fraction, proto.topk_values)
+            inner, inner_code = enc.encode(sl, seed, clock, self.me), pc.PAYLOAD_TOPK_DELTA
+        elif self.wire == "int8":
+            inner, inner_code = encode_int8_payload(sl, seed, clock, self.me), pc.PAYLOAD_INT8_CHUNKED
+        elif self.wire == "bf16":
+            inner, inner_code = bf16_wire(sl), pc.PAYLOAD_BF16
+        else:
+            inner, inner_code = sl, pc.PAYLOAD_F32
+        return encode_shard_payload(inner, d, k, shard, inner_code), code
+
+    def _shard_index(self, step: int, k: int) -> int:
+        """The shard of publish clock ``step`` (``shard_draw``), one
+        permutation drawn per epoch of k rounds."""
+        epoch, pos = divmod(int(step), k)
+        memo = self._shard_perm
+        if memo is None or memo[0] != epoch:
+            memo = self._shard_perm = (epoch, shard_permutation(self.schedule.seed, epoch, k))
+        return int(memo[1][pos])
 
     # -- fetch ----------------------------------------------------------
     def fetch(self, peer_index: int, timeout_ms: Optional[int] = None,
-              step: Optional[int] = None, device=None):
+              step: Optional[int] = None, device=None, landed: bool = False):
         """Fetch, land, guard and screen ``peer_index``'s frame: ``(vector,
         clock, loss)`` with the vector on ``device`` (the CPU by default;
-        float32, or bf16 as the wire carried it), or None if the fetch
-        failed, the guard refused it (``poisoned``) or the trust screen
-        rejected it (``untrusted``).  Under flowctl the fetch runs on the
-        peer's adaptive deadline and may be hedged to a fallback
-        (:meth:`_hedged_fetch`); everything after the wire is charged to the
-        peer whose frame won.  The frame's digest is merged into the
-        membership view; a failure that would quarantine the peer first
-        asks relays to probe it.  :attr:`last_fetch` holds the outcome,
-        which the scoreboard and the estimator record against round
-        ``step``."""
+        float32, or bf16 as the wire carried it; a codec frame's vector is
+        the sender's estimate: dequantised, or densified against the replica
+        last published), or None if the fetch failed, the guard refused it
+        (``poisoned``) or the trust screen rejected it (``untrusted``).
+        Under flowctl the fetch runs on the peer's adaptive deadline and may
+        be hedged to a fallback (:meth:`_hedged_fetch`); everything after
+        the wire is charged to the peer whose frame won.  The frame's digest
+        is merged into the membership view; a failure that would quarantine
+        the peer first asks relays to probe it.  :attr:`last_fetch` holds
+        the outcome, which the scoreboard and the estimator record against
+        round ``step``.  With ``landed`` the first element is the landed
+        frame itself (what the round merges: a codec frame's payload)."""
+        got = self._fetch_landed(peer_index, timeout_ms, step, device)
+        if got is None or landed:
+            return got
+        return got[0].vector(), got[1], got[2]
+
+    def _land(self, remote, device) -> Optional["_Landed"]:
+        """A fetched frame on ``device``, with what the guard and the screen
+        judge (the consume leg of the reference's ``exchange``): None when a
+        top-k or shard frame cannot be read against the replica last
+        published (none, or another length: ``corrupt``)."""
+        if isinstance(remote, torch.Tensor):
+            if remote.dtype not in (torch.float32, torch.bfloat16):
+                remote = remote.to(torch.float32)  # an f64 or u16 frame: one copy
+            landed, event = to_device(remote, device)
+            if event is not None:
+                event.synchronize()
+            return _Landed(landed, landed)
+        lv = self._local_vec
+        if isinstance(remote, Int8Payload):
+            payload = remote.to(device)
+            # The guard and the screen judge the dense remote; the merge
+            # reads the codes and scales.
+            judged = self.config.recovery.enabled or self.trust is not None
+            return _Landed(payload, payload.dequantize() if judged else None)
+        if isinstance(remote, ShardPayload):
+            if lv is None or lv.numel() != remote.d:
+                return None
+            payload = remote.to(device)
+            lo, hi = payload.bounds
+            local_slice = lv[lo:hi]
+            est = payload.slice_estimate(local_slice)
+            dense = lv.clone()
+            dense[lo:hi] = est
+            inner = payload.inner
+            if isinstance(inner, TopkPayload):
+                trust_codec = "topk"
+                local_sel = local_slice[inner.indices]
+                sparse, trust_sparse = (inner.values, local_sel), (inner.indices, inner.values)
+            else:
+                # Zero energy on the slice shipped: the densified vector
+                # shares k−1 slices with the local replica.
+                trust_codec = INNER_NAMES[payload.inner_code]
+                sparse, trust_sparse = (est, local_slice), None
+            return _Landed(payload, dense, sparse=sparse, codec=f"shard+{trust_codec}",
+                           trust_codec=trust_codec, trust_local=local_slice, trust_remote=est,
+                           trust_sparse=trust_sparse, shard=payload.shard_idx)
+        if lv is None or lv.numel() != remote.n:
+            return None
+        payload = remote.to(device)
+        local_sel = lv[payload.indices]
+        return _Landed(payload, payload.densify(lv), sparse=(payload.values, local_sel),
+                       codec="topk", trust_sparse=(payload.indices, payload.values))
+
+    def _fetch_landed(self, peer_index: int, timeout_ms: Optional[int], step: Optional[int],
+                      device) -> Optional[tuple]:
+        """:meth:`fetch`'s round: ``(landed frame, clock, loss)`` or None."""
         if timeout_ms is None:
             timeout_ms = self.config.protocol.timeout_ms
         device = torch.device("cpu") if device is None else torch.device(device)
@@ -1145,29 +1359,35 @@ class TcpTransport:
         for lease in leases:
             # Back to the ring once no view of the payload is left.
             lease.recycle(got[0])
-        reason = trust_info = None
+        reason = trust_info = codec = None
         self._pending_trust_scale = 1.0
         if got is not None:
-            vec, rclock, rloss = got
+            remote, rclock, rloss = got
             got = None
-            if vec.dtype not in (torch.float32, torch.bfloat16):
-                vec = vec.to(torch.float32)  # an f64 or u16 frame: one copy
-            landed, event = to_device(vec, device)
-            if event is not None:
-                event.synchronize()
-            del vec
-            got = (landed, rclock, rloss)
-            reason, sums = self._judge(peer_index, landed, rloss)
+            landed = self._land(remote, device)
+            del remote
+            if landed is None:
+                outcome = Outcome.CORRUPT
+            else:
+                codec = landed.codec
+                got = (landed, rclock, rloss)
+                reason, sums = self._judge(peer_index, landed, rloss)
             if reason is not None:
                 got = None
                 outcome = Outcome.POISONED
-            elif self.trust is not None and self._local_vec is not None:
-                # The screen judges the landed vector, as it would merge;
-                # a rejection is the untrusted outcome, recorded as
-                # poisoned is (and, like it, never gated behind relays).
+            elif got is not None and self.trust is not None and self._local_vec is not None:
+                # The screen judges what would merge (a top-k frame on its
+                # support, a shard frame slice against slice); a rejection
+                # is the untrusted outcome, recorded as poisoned is (and,
+                # like it, never gated behind relays).
                 verdict, scale, tstats = self.trust.screen(
-                    peer_index, landed, rclock, self._local_vec, round=step,
-                    stats=None if sums is None else stats_from_sums(sums),
+                    peer_index,
+                    landed.trust_remote if landed.trust_remote is not None else landed.dense,
+                    rclock,
+                    landed.trust_local if landed.trust_local is not None else self._local_vec,
+                    round=step, stats=None if sums is None else stats_from_sums(sums),
+                    codec=landed.trust_codec or codec or "dense", sparse=landed.trust_sparse,
+                    shard=landed.shard,
                 )
                 trust_info = dict(tstats, verdict=verdict, alpha_scale=round(scale, 4))
                 with self._stats_lock:
@@ -1182,6 +1402,8 @@ class TcpTransport:
             "peer": peer_index, "outcome": outcome,
             "latency_s": latency_s, "nbytes": nbytes,
         }
+        if codec is not None:
+            self.last_fetch["codec"] = codec
         if hedged:
             self.last_fetch["hedged"] = True
             self.last_fetch["hedge_winner"] = hedge_winner
@@ -1305,28 +1527,36 @@ class TcpTransport:
             return False
         return self._chaos_engine.link_blocked(int(self._last_clock), self.me, peer)
 
-    def _judge(self, peer_index: int, landed: torch.Tensor, rloss: float):
+    def _judge(self, peer_index: int, landed: "_Landed", rloss: float):
         """The guard's verdict on a landed frame and the trust screen's five
         sums, read back together: ``(poison reason or None, sums or
-        None)``.  The sums are computed only when the screen will run on a
-        vector of the local replica's length (else it computes or rejects
-        on its own)."""
+        None)``.  The sums are computed only when the screen will run on
+        vectors of one length (else it rejects on its own): a top-k frame's
+        over its support, a shard frame's over its slice."""
         local = self._local_vec
         sums = None
-        if self.trust is not None and local is not None and landed.numel() == local.numel():
-            sums = payload_sums(
-                local, landed.to(local.device), self.trust.leaf_starts(local.numel())
-            )
+        if self.trust is not None and local is not None:
+            t_local = landed.trust_local if landed.trust_local is not None else local
+            t_remote = landed.trust_remote if landed.trust_remote is not None else landed.dense
+            if landed.trust_sparse is not None:
+                sums = payload_sums_sparse(t_local, *landed.trust_sparse)
+            elif t_remote.numel() == t_local.numel():
+                sums = payload_sums(t_local, t_remote.to(t_local.device),
+                                    self.trust.leaf_starts(t_local.numel()))
         if not self.config.recovery.enabled:
             return None, (None if sums is None else sums.tolist())
-        checks = payload_check_tensors(landed)
+        checks = payload_check_tensors(landed.dense)
+        if landed.sparse is not None:
+            checks = torch.cat([checks, sparse_norm_tensors(*landed.sparse).to(checks.device)])
+        n_guard = checks.numel()
         if sums is not None:
             checks = torch.cat([checks, sums.to(device=checks.device, dtype=torch.float64)])
         values = checks.tolist()
         reason = validate_payload(
-            landed, rloss, self.config.recovery, local_norm=self._local_norm, checks=values[:2]
+            landed.dense, rloss, self.config.recovery, local_norm=self._local_norm,
+            checks=values[:2], sparse=values[2:4] if landed.sparse is not None else None,
         )
-        return reason, (values[2:] if sums is not None else None)
+        return reason, (values[n_guard:] if sums is not None else None)
 
     def _indirect_probe(self, suspect: int, step: int) -> None:
         """Ask ``indirect_probes`` drawn healthy peers to header-probe
@@ -1486,7 +1716,48 @@ class TcpTransport:
                     {k: info[k] for k in ("deadline_ms", "hedges", "hedge_wins", "busy", "slow")}
                 )
             snap["flowctl"] = fsnap
+        if self._wire_topk or self._shard_on:
+            snap["wire"] = self.wire_snapshot()
         return snap
+
+    def wire_snapshot(self) -> dict:
+        """JSON-ready wire accounting, as the reference's: the codec
+        publishing (``shard+`` before it when sharded), the frames, their
+        bytes on the wire and as dense float32, their ratio, and the host
+        copies a received frame cost before its landing; the top-k settings
+        and the per-shard frames, bytes and coverage (distinct shards served
+        over k) when those are on.  The reference's receive-ring occupancy
+        and device-engine columns are its own and not reported."""
+        with self._stats_lock:
+            t = dict(self._wire_tally)
+            shard_tally = {i: dict(st) for i, st in self._shard_tally.items()}
+        proto = self.config.protocol
+        codec = "topk" if self._wire_topk else proto.wire_dtype
+        if self._shard_on:
+            codec = f"shard+{codec}"
+        out = {
+            "codec": codec,
+            "frames": t["frames"],
+            "wire_bytes": t["wire_bytes"],
+            "dense_bytes": t["dense_bytes"],
+            "compression_ratio": (
+                round(t["dense_bytes"] / t["wire_bytes"], 4) if t["wire_bytes"] else 0.0
+            ),
+            "copies_per_frame": round(ingest.rx_stats()["copies_per_frame"], 4),
+        }
+        if self._wire_topk:
+            out["topk_fraction"] = proto.topk_fraction
+            out["topk_values"] = proto.topk_values
+        if self._shard_on:
+            k = self._shard_k
+            out["shard"] = {
+                "k": k,
+                "frames_per_shard": [shard_tally.get(i, {}).get("frames", 0) for i in range(k)],
+                "wire_bytes_per_shard": [
+                    shard_tally.get(i, {}).get("wire_bytes", 0) for i in range(k)],
+                "coverage": round(len(shard_tally) / k, 4),
+            }
+        return out
 
     # -- the round ------------------------------------------------------
     def _weigh(self, got: tuple, clock: float, loss: float) -> float:
@@ -1517,17 +1788,19 @@ class TcpTransport:
             # moves only the fetch (to self when no healthy peer is left).
             if partner == self.me or not self.schedule.participates(step, self.me):
                 return None, 0.0, partner
-            got = self.fetch(partner, step=step, device=rep.dev.device)
+            got = self.fetch(partner, step=step, device=rep.dev.device, landed=True)
             self.last_round["outcome"] = self.last_fetch.get("outcome")
             if "trust" in self.last_fetch:
                 self.last_round["trust"] = self.last_fetch["trust"]
+            if "codec" in self.last_fetch:
+                self.last_round["codec"] = self.last_fetch["codec"]
             if self.last_fetch.get("hedged"):
                 self.last_round["hedged"] = True
                 self.last_round["hedge_winner"] = self.last_fetch.get("hedge_winner")
             if got is None:
                 return None, 0.0, partner
             self._round_clock = got[1]
-            return got[0], self._weigh(got, clock, loss), partner
+            return got[0].merge, self._weigh(got, clock, loss), partner
         finally:
             # Component and quorum state advance on skipped rounds too: a
             # partitioned node skips every round, which is when it must

@@ -40,6 +40,15 @@ def payload_check_tensors(vec) -> torch.Tensor:
     return torch.stack([finite, torch.linalg.vector_norm(v, dtype=torch.float64)])
 
 
+def sparse_norm_tensors(values: torch.Tensor, local_sel: torch.Tensor) -> torch.Tensor:
+    """``[‖values‖, ‖local_sel‖]`` in float64 where they lie, not read back:
+    the support's norms of a top-k or sharded frame (``sparse=``)."""
+    return torch.stack([
+        torch.linalg.vector_norm(values.reshape(-1), dtype=torch.float64),
+        torch.linalg.vector_norm(local_sel.reshape(-1), dtype=torch.float64),
+    ])
+
+
 def payload_checks(vec) -> tuple[bool, float]:
     """``(all finite, float64 L2 norm)`` of ``vec``, with one readback."""
     ok, value = payload_check_tensors(vec).tolist()
@@ -52,6 +61,7 @@ def validate_payload(
     config: RecoveryConfig,
     local_norm: Optional[float] = None,
     checks: Optional[tuple] = None,
+    sparse: Optional[tuple] = None,
 ) -> Optional[str]:
     """None if ``(vec, loss)`` is a sane replica, else the violation, one of
     the reference's strings: ``nonfinite_params`` | ``param_norm`` |
@@ -61,19 +71,32 @@ def validate_payload(
     ``local_norm`` the receiver's own replica norm, against which a remote
     below ``min_param_norm_ratio`` of it is ``zero_energy``.  ``checks``
     are ``vec``'s :func:`payload_check_tensors` when the caller read them
-    back already."""
+    back already.
+
+    ``sparse``: for a top-k or sharded frame, ``(values, local_selected)``
+    of what it ships (tensors, or their two float64 norms from
+    :func:`sparse_norm_tensors` already read back).  ``vec`` is then the
+    densified vector, mostly the receiver's own replica, so the zero-energy
+    ratio is taken on the support instead, ``‖values‖`` against
+    ``‖local_selected‖``; the finite and norm checks stay on ``vec``."""
     finite, norm = payload_checks(vec) if checks is None else (bool(checks[0]), float(checks[1]))
     if not finite:
         return "nonfinite_params"
     if norm > config.max_param_norm:
         return "param_norm"
-    if (
-        config.min_param_norm_ratio > 0.0
-        and local_norm is not None
-        and local_norm > 0.0
-        and norm < config.min_param_norm_ratio * local_norm
-    ):
-        return "zero_energy"
+    if config.min_param_norm_ratio > 0.0:
+        if sparse is not None:
+            if isinstance(sparse[0], torch.Tensor):
+                sparse = sparse_norm_tensors(*sparse).tolist()
+            rn, ln = float(sparse[0]), float(sparse[1])
+            if ln > 0.0 and rn < config.min_param_norm_ratio * ln:
+                return "zero_energy"
+        elif (
+            local_norm is not None
+            and local_norm > 0.0
+            and norm < config.min_param_norm_ratio * local_norm
+        ):
+            return "zero_energy"
     l = float(loss)
     if math.isnan(l) or math.isinf(l):
         return "nonfinite_loss"

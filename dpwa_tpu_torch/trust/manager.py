@@ -23,9 +23,12 @@ The acting half of the content-trust plane (sensing is
 
 Everything here is a function of the observed payload sequence: no wall
 clock, no RNG, so equal streams give equal verdicts, trust trajectories,
-α scales and events, in either package.  Not ported: the codecs' sparse
-and sharded screening (the port's wire is dense) and ``register_metrics``.
-One lock guards all mutable state.
+α scales and events, in either package.  A top-k frame is screened on its
+support, a sharded frame slice against slice, each against baseline windows
+of its own: per codec (``"topk"``, or a shard's inner ``"f32"``, ``"bf16"``,
+``"int8"``, ``"topk"``) and per ``f"{codec}:s{shard}"``; ``"dense"`` is the
+original set.  Not ported: ``register_metrics``.  One lock guards all
+mutable state.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from dpwa_tpu_torch.trust.screen import (
     RobustBaseline,
     leaf_starts_from_sizes,
     payload_stats,
+    payload_stats_sparse,
 )
 
 # Verdict strings (stable: they ride into metrics JSONL and /healthz).
@@ -75,6 +79,12 @@ class TrustManager:
         # time.
         self._baselines: Dict[str, RobustBaseline] = {
             s: RobustBaseline(self.config.window) for s in BASE_STATS
+        }
+        # Per-codec windows: support-space (top-k) and per-shard magnitudes
+        # differ from the dense ones, so each family keeps its own; "dense"
+        # is the original set, keeping the snapshot's layout.
+        self._codec_baselines: Dict[str, Dict[str, RobustBaseline]] = {
+            "dense": self._baselines
         }
         self._trust: Dict[int, float] = {}
         self._collapsed: Dict[int, bool] = {}
@@ -114,6 +124,15 @@ class TrustManager:
     # Screening
     # ------------------------------------------------------------------
 
+    def _baselines_for(self, codec: str) -> Dict[str, RobustBaseline]:
+        """The baseline windows of ``codec`` (made at its first use)."""
+        with self._lock:
+            b = self._codec_baselines.get(codec)
+            if b is None:
+                b = {s: RobustBaseline(self.config.window) for s in BASE_STATS}
+                self._codec_baselines[codec] = b
+            return b
+
     def screen(
         self,
         peer: int,
@@ -122,25 +141,40 @@ class TrustManager:
         local_vec: torch.Tensor,
         round: Optional[int] = None,
         stats: Optional[Dict[str, float]] = None,
+        codec: str = "dense",
+        sparse: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        shard: Optional[int] = None,
     ) -> Tuple[str, float, Dict[str, Any]]:
         """Classify one fetched payload: ``(verdict, alpha_scale, stats)``.
         ``alpha_scale`` is the trust damping the transport routes into the
         interpolation (0.0 on a rejection: rejected payloads never merge).
         ``stats`` are the payload's statistics when the caller computed
         them already (:func:`~dpwa_tpu_torch.trust.screen.stats_from_sums`
-        over :meth:`leaf_starts`), else they are computed here, where the
-        vectors lie."""
+        over :meth:`leaf_starts`, or over the support for ``sparse``), else
+        they are computed here, where the vectors lie.
+
+        ``sparse``: a top-k frame's ``(indices, values)``; the statistics are
+        then the support's and ``remote_vec`` (the densified vector) only
+        the shape check.  ``shard``: a sharded frame's shard index; the
+        caller passes the slices as the vectors.  Either screens against
+        ``codec``'s own windows (``f"{codec}:s{shard}"`` for a shard)."""
         cfg = self.config
         lenient = self._observe_contact(peer, round)
         if remote_vec.numel() != local_vec.numel():
             # A well-formed frame of the wrong model: nothing could merge
             # it.  Never amnestied.
             return self._finish(peer, REJECTED, ["shape_mismatch"], {}, round)
-        if stats is None:
-            stats = payload_stats(local_vec, remote_vec, self.leaf_starts(local_vec.numel()))
-        else:
+        if stats is not None:
             stats = dict(stats)
-        baselines = self._baselines
+        elif sparse is not None:
+            stats = payload_stats_sparse(local_vec, sparse[0], sparse[1])
+        else:
+            stats = payload_stats(local_vec, remote_vec, self.leaf_starts(local_vec.numel()))
+        if sparse is not None:
+            stats["codec"] = codec
+        if shard is not None:
+            stats["shard"] = int(shard)
+        baselines = self._baselines_for(codec if shard is None else f"{codec}:s{int(shard)}")
         with self._lock:
             armed = min(len(b) for b in baselines.values()) >= cfg.min_window
         reasons: List[str] = []
@@ -404,13 +438,21 @@ class TrustManager:
                     "trust_damped": c.get("suspect", 0),
                     "trust_rejected": c.get("rejected", 0),
                 }
-            return {
+            out = {
                 "enabled": True,
                 "armed": fill >= self.config.min_window,
                 "window_fill": fill,
                 "baselines": {s: b.snapshot() for s, b in sorted(self._baselines.items())},
                 "peers": peers,
             }
+            if len(self._codec_baselines) > 1:
+                # The codecs' windows ride a key of their own, so a dense
+                # run's snapshot stays as it was.
+                out["codec_baselines"] = {
+                    c: {s: b.snapshot() for s, b in sorted(bl.items())}
+                    for c, bl in sorted(self._codec_baselines.items()) if c != "dense"
+                }
+            return out
 
 
 def round_f(x: float, digits: int = 4) -> float:

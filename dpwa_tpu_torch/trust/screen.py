@@ -23,7 +23,8 @@ sums in one XLA program, in another order: ``norm_ratio`` and
 ``update_ratio`` agree within a relative 1e-5 and ``cosine`` within an
 absolute 1e-5 (``tests/test_torch_trust_screen.py`` states what it measured).
 ``leaf_ratio`` is maxima and one float32 division, ``ra / (la + 1e-12)``,
-so it is the reference's bit for bit.
+so it is the reference's bit for bit.  A top-k frame is screened on its
+support (:func:`payload_stats_sparse`).
 
 :class:`RobustBaseline` is the reference's median/MAD window, as it is.
 """
@@ -123,6 +124,23 @@ def payload_stats(
     """Screening statistics of a remote vector against the local one: one
     pass where they lie and one readback."""
     return stats_from_sums(payload_sums(local, remote, leaf_starts).tolist())
+
+
+def payload_sums_sparse(local: torch.Tensor, indices: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+    """:func:`payload_sums` of a top-k frame's support: the shipped values
+    against the same coordinates of the local replica (leaf segments
+    uniform), not read back."""
+    return payload_sums(local.reshape(-1)[indices.to(torch.int64)], values)
+
+
+def payload_stats_sparse(local: torch.Tensor, indices: torch.Tensor,
+                         values: torch.Tensor) -> Dict[str, float]:
+    """Screening statistics of a SPARSE (top-k) payload on its support.  Off
+    the support the densified vector is the local replica, so full-vector
+    statistics would sit near 1 whatever the k values hold; on the support a
+    sign-flip lands at cosine −1 and a scale attack above the norm bound."""
+    return stats_from_sums(payload_sums_sparse(local, indices, values).tolist())
 
 
 def leaf_starts_from_sizes(sizes: Sequence[int], total: int) -> Optional[np.ndarray]:

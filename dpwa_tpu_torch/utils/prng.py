@@ -43,8 +43,9 @@ Llama-3-8B width):
 - :func:`threefry_words` — the cipher on tensors, with the key's words
   tensors too where each element has its own key (the int8 wire's
   stochastic rounding, :mod:`dpwa_tpu_torch.ops.quantize`).
-
-``permutation`` is not ported yet.
+- :func:`permutation` — ``jax.random.permutation(k, n)`` for an integer
+  ``n``: jax's ``_shuffle`` of ``arange(n)``, rounds of a stable sort by
+  fresh 32-bit draws (the shard codec's per-epoch visit order).
 """
 
 from __future__ import annotations
@@ -308,3 +309,26 @@ def truncated_normal(k: Key, shape, device=None) -> torch.Tensor:
     erfinv(u)`` with ``u`` uniform between ``erf(∓√2)``, clipped to the
     open interval (−2, 2)."""
     return _chunked(k, shape, device, _truncated_from_bits)
+
+
+def shuffle_rounds(n: int) -> int:
+    """The sort rounds of jax's ``_shuffle`` for ``n`` elements."""
+    return int(np.ceil(3 * np.log(max(1, int(n))) / np.log(np.float64(_MASK))))
+
+
+def permutation(k: Key, n: int) -> np.ndarray:
+    """``jax.random.permutation(k, n)`` for an integer ``n``, as int32:
+    jax's ``_shuffle`` of ``arange(n)``.  It runs ``ceil(3·ln(max(1, n)) /
+    ln(2^32 − 1))`` rounds (one for n up to 1625, two from 1626, three from
+    about 2.6 million); each round splits the key, ``key, sub = split(key)``,
+    draws ``n`` 32-bit words from ``sub`` and sorts the array by them,
+    stably (``lax.sort_key_val``), so equal words keep their order."""
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"permutation of a negative length {n}")
+    x = torch.arange(n, dtype=torch.int64)
+    for _ in range(shuffle_rounds(n)):
+        k, sub = split(k)
+        order = torch.sort(random_bits_tensor(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x.numpy().astype(np.int32)

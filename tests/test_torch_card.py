@@ -1078,3 +1078,109 @@ def test_bootstrap_and_rollback_on_card(cuda_device):
         donor.close()
         if rejoiner is not None:
             rejoiner.close()
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4099, 25557032])
+def test_quantize_sr_byte_equal_to_plain(cuda_device, n):
+    """The int8 quantiser (``csrc/quantize.cu``) against its plain version
+    on a CPU copy, byte for byte: the whole code-4 body (length, scales,
+    codes) at the codec tests' sizes and at ResNet-50's d, with a zero
+    chunk, a chunk holding inf and NaN, and keys of fractional clocks."""
+    from dpwa_tpu_torch.ops import quantize
+
+    gen = torch.Generator().manual_seed(n)
+    x_cpu = torch.randn(n, generator=gen) * 3
+    if n > 700:
+        x_cpu[256:512] = 0.0
+        x_cpu[600:603] = torch.tensor([float("inf"), float("nan"), -0.0])
+    x = x_cpu.to(cuda_device)
+    for clock in (0.0, 2.5):
+        k0, k1 = quantize._np_key_words(7, clock, 3)
+        quantize.quantize_sr.launches = 0
+        got = quantize.quantize_sr(x, k0, k1).cpu()
+        assert quantize.quantize_sr.launches == 1
+        want = quantize.torch_quantize_sr(x_cpu, k0, k1)
+        assert torch.equal(got, want), int((got != want).sum())
+    empty = quantize.quantize_sr(torch.empty(0, device=cuda_device), 1, 2)
+    assert torch.equal(empty.cpu(), quantize.torch_quantize_sr(torch.empty(0), 1, 2))
+
+
+@pytest.mark.parametrize("lead", [0, 3])
+def test_codec_merge_forms_bit_equal_to_plain(cuda_device, lead):
+    """B2's int8-frame form and its support form against
+    their plain versions on a CPU copy, bit for bit, on rows that start on
+    and off a 16-byte boundary, inf and NaN among the values."""
+    from dpwa_tpu_torch.ops import quantize
+
+    d = (1 << 20) + 5
+    gen = torch.Generator().manual_seed(lead)
+    x_cpu = torch.randn(d, generator=gen)
+    x_cpu[:3] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    body = quantize.torch_quantize_sr(torch.randn(d, generator=gen), 3, 4)
+    payload = quantize.decode_int8_payload(body)
+    s_cpu, q_cpu = payload.views()
+    x = torch.zeros(lead + d, device=cuda_device)[lead:]
+    x.copy_(x_cpu)
+    s, q = s_cpu.to(cuda_device), q_cpu.to(cuda_device)
+    merge.reset_launch_counts()
+    got = merge.int8_frame_merge(x, q, s, 0.3).cpu()
+    want = merge.torch_int8_frame_merge(x_cpu, q_cpu, s_cpu, 0.3)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+    assert bool(same.all()) and merge.int8_frame_merge.launches == 1
+    idx_cpu = torch.sort(torch.randperm(d, generator=gen)[: d // 20]).values
+    v_cpu = torch.randn(idx_cpu.numel(), generator=gen)
+    out_cpu = x_cpu * 2
+    out = out_cpu.to(cuda_device)
+    merge.support_merge_(out, x, idx_cpu.to(torch.int32).to(cuda_device),
+                         v_cpu.to(cuda_device), 0.3)
+    want = merge.torch_support_merge_(out_cpu, x_cpu, idx_cpu, v_cpu, 0.3)
+    got = out.cpu()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+    assert bool(same.all()) and merge.support_merge_.launches == 1
+
+
+@pytest.mark.parametrize("codec", ["int8", "topk", "shard_topk", "shard_int8"])
+def test_codec_exchange_on_device_pair_on_card_equals_cpu_pair(cuda_device, codec):
+    """Two in-process TCP nodes on a codec wire with device-resident
+    replicas, lock-step 4 rounds at α ≠ 0.5: the frames they serve and the
+    replicas they end on are the same pair's on the CPU, bit for bit."""
+    import dataclasses
+
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    setting = {"int8": dict(wire_dtype="int8"), "topk": dict(wire_codec="topk"),
+               "shard_topk": dict(wire_codec="topk", shard={"k": 4}),
+               "shard_int8": dict(wire_dtype="int8", shard={"k": 4})}[codec]
+    cfg = make_local_config(2, interpolation="clock", factor=0.7, **setting)
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    gen = torch.Generator().manual_seed(6)
+    start = [torch.randn(300_001, generator=gen) for _ in range(2)]
+    finals, frames = {}, {}
+    for device in ("cpu", cuda_device):
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+        served = []
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            vecs = [v.to(device) for v in start]
+            merge.reset_launch_counts()
+            for r in range(4):
+                clocks = [r + 1.0, r + 3.0]
+                for t, v, c in zip(nodes, vecs, clocks):
+                    t.publish(v, c, 0.5)
+                    served.append(t.server._payload)
+                vecs = [t.exchange_on_device(v, c, 0.5, r)[0] for t, v, c in zip(nodes, vecs, clocks)]
+            assert [t.stats["merged"] for t in nodes] == [4, 4]
+            if device != "cpu":
+                b2 = merge.gather_merge.launches + merge.int8_frame_merge.launches
+                assert b2 == 8
+                assert merge.support_merge_.launches == (8 if "topk" in codec else 0)
+            finals[str(device)] = [v.cpu() for v in vecs]
+            frames[str(device)] = served
+        finally:
+            for t in nodes:
+                t.close()
+    assert frames[str(cuda_device)] == frames["cpu"]
+    for got, want in zip(finals[str(cuda_device)], finals["cpu"]):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -406,12 +406,14 @@ def test_poisoned_frame_is_not_merged():
 
 
 @pytest.mark.parametrize("setting", [
-    dict(wire_dtype="int8"), dict(wire_codec="topk"), dict(overlap_prefetch=True),
-    dict(rx_server="reactor"),
+    dict(overlap_prefetch=True, wire_dtype="int8"), dict(overlap_prefetch=True, wire_codec="topk"),
+    dict(membership={"view": {"enabled": True}}), dict(rx_server="reactor"),
 ])
 def test_unported_settings_raise(setting):
-    cfg = _ephemeral(make_local_config(2, **setting))
+    """What the port's transport does not have raises, a codec (which it
+    has) composed with it included."""
     with pytest.raises(NotImplementedError, match=next(iter(setting))):
+        cfg = _ephemeral(make_local_config(2, **setting))
         tcp.TcpTransport(cfg, "node0", device="cpu")
 
 
