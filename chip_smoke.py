@@ -104,7 +104,7 @@ ALL_PHASES = (
     "b1", "b2", "b5", "b3", "b4", "card_tests", "train", "train_pull", "profile",
     "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "slowpeer_tcp",
     "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
-    "codec_kernels", "wire_exchange", "codecs_tcp",
+    "codec_kernels", "wire_exchange", "codecs_tcp", "fold_kernels", "overlap_tcp", "async_tcp",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -179,6 +179,19 @@ CODEC_RUNS = {  # name: (protocol lines, top-level blocks)
     "shard4_int8": ("  wire_dtype: int8\n", "shard: {k: 4}\n"),
     "shard4_topk": ("  wire_codec: topk\n  topk_fraction: 0.05\n", "shard: {k: 4}\n"),
 }
+# The fan-in and barrier-free slice: B2's fold form at ResNet-50's d for
+# these run lengths k (its bound (k + 2)·4·d bytes), and the fan-in round of
+# FAN_IN_NODES nodes there; bench.py's overlap leg (bench_wire: 2 nodes, f32,
+# the prefetch pipeline under a compute stand-in the size of the lock-step
+# exchange) at that d, OVERLAP_ITERS rounds a leg; bench.py's bench_async at
+# its defaults (4 nodes, d 4096, the last trickled at 2048 B/s, 24 rounds,
+# a 400 ms timeout, 30 ms of compute a round); then the MNIST example over
+# TCP with the pipeline (2 processes) and with async rounds (4 processes).
+FOLD_KS, FAN_IN_NODES, OVERLAP_ITERS = (2, 4, 8), 4, 12
+ASYNC_NODES, ASYNC_D, ASYNC_ITERS, ASYNC_TIMEOUT_MS = 4, 4096, 24, 400
+ASYNC_TRICKLE, ASYNC_COMPUTE_MS = 2048.0, 30.0
+OVERLAP_PROTOCOL = "  overlap_prefetch: true\n"
+ASYNC_PROTOCOL = "  async_rounds: {enabled: true}\n"
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -1078,7 +1091,16 @@ def node_result(phase: str, name: str, rc: int, stdout: str, stderr: str, kind: 
         raise AssertionError(f"{phase}: {name} ran on {res['device']} for {res['steps']} steps")
     if not res["accuracy"] >= 0.9:
         raise AssertionError(f"{phase}: {name} test accuracy {res['accuracy']} < 0.9")
-    if res["merged_rounds"] < 1 or res["b2_launches"] != res["merged_rounds"]:
+    if res.get("async") is not None:
+        # Barrier-free rounds: a merge is a B2 launch or a frame of a fold.
+        a = res["async"]
+        if (a["merges"] < 1 or res["b2_launches"] + a["fold_frames"] != a["merges"]
+                or res["fold_launches"] != a["fold_dispatches"]):
+            raise AssertionError(
+                f"{phase}: {name} merged {a['merges']} frames ({a['fold_frames']} in "
+                f"{a['fold_dispatches']} folds) with {res['b2_launches']} B2 and "
+                f"{res['fold_launches']} fold launches")
+    elif res["merged_rounds"] < 1 or res["b2_launches"] != res["merged_rounds"]:
         raise AssertionError(
             f"{phase}: {name} merged {res['merged_rounds']} rounds with "
             f"{res['b2_launches']} B2 launches")
@@ -2017,10 +2039,11 @@ def wire_exchange(torch, merge, device) -> dict:
             "legs": legs}
 
 
-def codec_config(workdir: str, protocol: str, blocks: str) -> str:
-    """``tcp_config``'s copy of examples/mnist/nodes.yaml with ``protocol``
-    lines added to its ``protocol:`` block and ``blocks`` appended."""
-    config = tcp_config(workdir, extra=blocks)
+def codec_config(workdir: str, protocol: str, blocks: str, n: int = 2) -> str:
+    """``tcp_config``'s copy of examples/mnist/nodes.yaml (``n`` nodes) with
+    ``protocol`` lines added to its ``protocol:`` block and ``blocks``
+    appended."""
+    config = tcp_config(workdir, n=n, extra=blocks)
     with open(config) as f:
         text = f.read()
     if "  seed: 0\n" not in text:
@@ -2085,6 +2108,295 @@ def codecs_tcp(kind: str) -> dict:
     for name in (*CODEC_RUNS, "mnist_torch"):
         shutil.rmtree(os.path.join(HERE, "build", f"codecs_tcp_{name}"), ignore_errors=True)
     return res
+
+
+def fold_kernel_checks(torch, merge, device, flush) -> dict:
+    """B2's fold form at ResNet-50's d for each k of FOLD_KS: bit-equal to
+    its plain twin on a CPU copy (α ≠ 0.5), then timed with CUDA events, L2
+    flushed, beside its bound, its plain twin on the card and the k B2
+    launches one after the other that it replaces; and the fan-in round
+    (``exchange_on_device_fold``) of FAN_IN_NODES nodes in this process on
+    the card, the main path of the fold: its launch counts (set to 0 just
+    before it), its merge bit-equal to the sequential B2 launches, its host
+    time."""
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.device import engine
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    d = R50_D
+    gen = torch.Generator(device=device).manual_seed(43)
+    x = torch.randn(d, generator=gen, device=device)
+    rows_all = [torch.randn(d, generator=gen, device=device) for _ in range(max(FOLD_KS))]
+    x_cpu, rows_cpu = x.cpu(), [r.cpu() for r in rows_all]
+    out = {}
+    for k in FOLD_KS:
+        rows, alphas = rows_all[:k], [0.3 + 0.37 * i / k for i in range(k)]
+        got = merge.fold_merge(x, rows, alphas)
+        same, err = nan_equal(torch, got.cpu(), merge.torch_fold_merge(x_cpu, rows_cpu[:k], alphas))
+        if not same:
+            raise AssertionError(f"fold_merge k={k} differs from its plain twin: {err}")
+        res = torch.empty_like(x)
+
+        def sequential():
+            y = x
+            for r, a in zip(rows, alphas):
+                y = engine.merge_dense(y, r, a)
+            return y
+
+        if not torch.equal(sequential(), got):
+            raise AssertionError(f"fold_merge k={k} differs from {k} B2 launches")
+        n_bytes = (k + 2) * 4 * d
+        b_ms, b_by = bound_ms(n_bytes, 4 * k * d)
+        ms = time_ms(torch, lambda: merge.fold_merge(x, rows, alphas, out=res), 10, flush)
+        out[f"k{k}"] = {
+            "k": k, "shape": [1, d], "bytes": n_bytes, "max_abs_err": err, "ms": ms,
+            "plain_ms": time_ms(torch, lambda: merge.torch_fold_merge(x, rows, alphas), 3, flush),
+            "sequential_b2_ms": time_ms(torch, sequential, 10, flush),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+        }
+        del got, res
+    del x, rows_all, x_cpu, rows_cpu
+    torch.cuda.empty_cache()
+    cfg = make_local_config(FAN_IN_NODES, interpolation="clock", factor=0.7, timeout_ms=10000)
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(FAN_IN_NODES)]
+    try:
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        vecs = [torch.randn(d, generator=gen, device=device) for _ in nodes]
+        for i, (t, v) in enumerate(zip(nodes, vecs)):
+            t.publish(v, i + 1.0, 0.5)
+        peers = list(range(1, FAN_IN_NODES))
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        merged, merges = nodes[0].exchange_on_device_fold(vecs[0], 1.0, 0.5, 0, peers)
+        torch.cuda.synchronize(device)
+        round_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"fold_merge": merge.fold_merge.launches,
+                    "gather_merge": merge.gather_merge.launches}
+        if [p for p, _a in merges] != peers or launches != {"fold_merge": 1, "gather_merge": 0}:
+            raise AssertionError(f"fan-in round: merges {merges}, launches {launches}")
+        want = vecs[0]
+        for p, a in merges:
+            want = engine.merge_dense(want, vecs[p], a)
+        if not torch.equal(merged, want):
+            raise AssertionError("fan-in round differs from the sequential B2 launches")
+        out["fan_in"] = {"d": d, "frames": len(merges), "alphas": [a for _p, a in merges],
+                         "launches": launches, "round_ms": round_ms,
+                         "ring": nodes[0].ring.stats()}
+    finally:
+        for t in nodes:
+            t.close()
+    del vecs
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_nodes(phase: str, kind: str, n: int, protocol: str, steps: int = MNIST_STEPS) -> list:
+    """``n`` OS processes of the MNIST example over TCP on a copy of
+    examples/mnist/nodes.yaml widened to ``n`` nodes with ``protocol`` lines,
+    held at a start and an end barrier; their checked summaries."""
+    workdir = os.path.join(HERE, "build", phase)
+    config = codec_config(workdir, protocol, "", n=n)
+    barrier = os.path.join(workdir, "barrier")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for i in range(n):
+            procs.append(mnist_node(config, f"node{i}", steps, ("--barrier", barrier), env=env))
+        outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nodes = [node_result(phase, f"node{i}", p.returncode, *out, kind, steps)
+             for i, (p, out) in enumerate(zip(procs, outs))]
+    shutil.rmtree(workdir, ignore_errors=True)
+    for node in nodes:
+        node.pop("losses", None)
+    return nodes
+
+
+def overlap_tcp(torch, merge, device, kind: str) -> dict:
+    """bench.py's overlap leg (``bench_wire``) on the card: 2 nodes in this
+    process, each with a device-resident replica of ResNet-50's d on the f32
+    wire, driven in turn (both publish, then node0 and node1 exchange);
+    OVERLAP_ITERS lock-step rounds, then as many with ``overlap_prefetch``
+    and, after each round, a compute stand-in of the lock-step exchange's
+    median (a node's exchange: half the pair's wall).  Each leg's exchange
+    ms, B2 launches (one a merged round), and the pipeline's ``overlap``
+    tally; then the MNIST example over TCP with the pipeline, 2 processes."""
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    gen = torch.Generator(device=device).manual_seed(47)
+    base = [torch.randn(R50_D, generator=gen, device=device) for _ in range(2)]
+
+    def leg(sleep_s: float, **kw) -> dict:
+        cfg = make_local_config(2, schedule="ring", timeout_ms=10000, **kw)
+        cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            vecs = [b.clone() for b in base]
+            merge.reset_launch_counts()
+            durs = []
+            for it in range(OVERLAP_ITERS):
+                for i, t in enumerate(nodes):
+                    t.publish(vecs[i], it, 0.0)
+                t0 = time.perf_counter()
+                for i, t in enumerate(nodes):
+                    merged, alpha, _ = t.exchange_on_device(vecs[i], it, 0.0, it)
+                    if alpha != 0.0:
+                        vecs[i] = merged
+                torch.cuda.synchronize(device)
+                durs.append(time.perf_counter() - t0)
+                if sleep_s:
+                    time.sleep(sleep_s)
+            merged_rounds = sum(t.stats["merged"] for t in nodes)
+            if merge.gather_merge.launches != merged_rounds or merged_rounds < OVERLAP_ITERS:
+                raise AssertionError(f"overlap_tcp: {merged_rounds} merged rounds, "
+                                     f"{merge.gather_merge.launches} B2 launches")
+            if not all(bool(torch.isfinite(v).all()) for v in vecs):
+                raise AssertionError("overlap_tcp: a replica went non-finite")
+            return {
+                "exchange_ms": float(np.median(durs)) * 1e3 / 2,
+                "warm_exchange_ms": float(np.median(durs[1:])) * 1e3 / 2,
+                "round_ms": [x * 1e3 for x in durs], "merged_rounds": merged_rounds,
+                "b2_launches": merge.gather_merge.launches,
+                "overlap": nodes[0].wire_snapshot().get("overlap"),
+                "outcomes": [t.stats["outcomes"] for t in nodes],
+                "ring": nodes[0].ring.stats(),
+            }
+        finally:
+            for t in nodes:
+                t.close()
+
+    lock = leg(0.0)
+    compute_s = max(lock["exchange_ms"] / 1e3, 0.002)
+    pipe = leg(compute_s, overlap_prefetch=True)
+    ov = pipe["overlap"]
+    if ov["rounds"] != OVERLAP_ITERS or ov["prefetched"] < OVERLAP_ITERS - 2:
+        raise AssertionError(f"overlap_tcp: the pipeline's tally {ov}")
+    del base
+    torch.cuda.empty_cache()
+    return {"d": R50_D, "iters": OVERLAP_ITERS, "compute_stand_in_ms": compute_s * 1e3,
+            "lockstep": lock, "prefetch": pipe, "hidden_frac": ov["hidden_frac"],
+            "occupancy": ov["occupancy"], "prefetched": ov["prefetched"],
+            "straddled": ov["straddled"],
+            "mnist": run_nodes("overlap_tcp", kind, 2, OVERLAP_PROTOCOL)}
+
+
+def async_tcp(torch, merge, device, kind: str) -> dict:
+    """bench.py's ``bench_async`` at its defaults on the card: ASYNC_NODES
+    nodes in this process on the ring with device-resident replicas of
+    ASYNC_D floats, the last trickled at ASYNC_TRICKLE B/s by the chaos
+    harness for the whole run, each node on its own thread publishing,
+    computing ASYNC_COMPUTE_MS (a sleep) and exchanging ASYNC_ITERS times; a
+    lock-step leg and an async leg (``async_rounds``), each with the honest
+    nodes' round p50 and p99 (the exchange alone, its merges done on the
+    card), and the async leg's merges, stale drops, shed frames, fold
+    launches and frames (every merge a B2 launch or a fold's frame); then
+    the MNIST example over TCP with async rounds, ASYNC_NODES processes."""
+    import threading
+
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    straggler = ASYNC_NODES - 1
+    chaos = {"enabled": True, "trickle_windows": ((straggler, 0, ASYNC_ITERS),),
+             "trickle_bytes_per_s": ASYNC_TRICKLE}
+    gen = torch.Generator(device=device).manual_seed(0)
+    base = [torch.randn(ASYNC_D, generator=gen, device=device) for _ in range(ASYNC_NODES)]
+
+    def leg(**kw) -> dict:
+        cfg = make_local_config(ASYNC_NODES, schedule="ring", timeout_ms=ASYNC_TIMEOUT_MS,
+                                chaos=chaos, **kw)
+        cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(ASYNC_NODES)]
+        walls = [[] for _ in nodes]
+        vecs = [b.clone() for b in base]
+        errors = []
+
+        def run_node(i, t):
+            try:
+                for it in range(ASYNC_ITERS):
+                    t.publish(vecs[i], float(it), 0.0)
+                    time.sleep(ASYNC_COMPUTE_MS / 1e3)
+                    t0 = time.perf_counter()
+                    merged, alpha, _ = t.exchange_on_device(vecs[i], float(it), 0.0, it)
+                    torch.cuda.synchronize(device)
+                    walls[i].append(time.perf_counter() - t0)
+                    if alpha != 0.0:
+                        vecs[i] = merged
+            except BaseException as e:  # re-raised on the calling thread
+                errors.append(e)
+
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            merge.reset_launch_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run_node, args=(i, t), daemon=True)
+                       for i, t in enumerate(nodes)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            if errors or any(th.is_alive() for th in threads):
+                raise AssertionError(f"async_tcp: a node failed: {errors}")
+            total_s = time.perf_counter() - t0
+            honest = [w for i, ws in enumerate(walls) if i != straggler for w in ws]
+            stack = torch.stack(vecs).cpu().numpy()
+            mean = stack.mean(axis=0)
+            out = {
+                "p50_ms": float(np.percentile(honest, 50)) * 1e3,
+                "p99_ms": float(np.percentile(honest, 99)) * 1e3,
+                "total_s": total_s,
+                "final_rel_rms": float(np.sqrt(np.mean((stack - mean) ** 2))
+                                       / (np.sqrt(np.mean(mean ** 2)) + 1e-12)),
+                "launches": {"gather_merge": merge.gather_merge.launches,
+                             "fold_merge": merge.fold_merge.launches},
+                "outcomes": [t.stats["outcomes"] for t in nodes],
+            }
+            if nodes[0].async_engine is not None:
+                for t in nodes:
+                    t.async_engine.join_inflight(timeout_s=2.0)
+                snaps = [t.async_engine.snapshot() for t in nodes]
+                for key in ("merges", "stale_drops", "dup_drops", "shed", "fold_dispatches",
+                            "fold_frames"):
+                    out[key] = sum(sn[key] for sn in snaps)
+                out["peak_held_bytes"] = [sn["peak_held_bytes"] for sn in snaps]
+                if (merge.gather_merge.launches + out["fold_frames"] != out["merges"]
+                        or merge.fold_merge.launches != out["fold_dispatches"]):
+                    raise AssertionError(f"async_tcp: merges and launches disagree: {out}")
+            if not np.isfinite(stack).all():
+                raise AssertionError("async_tcp: a replica went non-finite")
+            return out
+        finally:
+            for t in nodes:
+                t.close()
+
+    lock = leg()
+    asy = leg(async_rounds={"enabled": True})
+    del base
+    return {"d": ASYNC_D, "iters": ASYNC_ITERS, "peers": ASYNC_NODES,
+            "timeout_ms": ASYNC_TIMEOUT_MS, "straggler": straggler,
+            "trickle_bytes_per_s": ASYNC_TRICKLE, "compute_ms": ASYNC_COMPUTE_MS,
+            "lockstep": lock, "async": asy,
+            "straggler_speedup": lock["p99_ms"] / max(asy["p99_ms"], 1e-6),
+            "mnist": run_nodes("async_tcp", kind, ASYNC_NODES, ASYNC_PROTOCOL)}
 
 
 def cuda_event_ms(torch, fn, iters: int) -> float:
@@ -2228,6 +2540,13 @@ def main(argv=None) -> int:
         results["codec_kernels"] = codec_kernel_checks(torch, merge, device, flush)
         emit({"phase": "codec_kernels", "seconds": time.perf_counter() - t0,
               "nvidia_smi": name_limit, **results["codec_kernels"]})
+    if "fold_kernels" in phases:
+        # B2's fold form at ResNet-50's d, and the fan-in round there (the
+        # fold's main path: its launches counted from 0).
+        t0 = time.perf_counter()
+        results["fold_kernels"] = fold_kernel_checks(torch, merge, device, flush)
+        emit({"phase": "fold_kernels", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **results["fold_kernels"]})
     if "b5" in phases:
         t0 = time.perf_counter()
         results["b5"] = flash_checks(torch, fa, device, flush, ptxas)
@@ -2434,6 +2753,23 @@ def main(argv=None) -> int:
             "quantize_sr": sum(n["quantize_launches"] for n in runs)}
         emit({"phase": "codecs_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
               "steps": MNIST_STEPS, **res})
+
+    if "overlap_tcp" in phases:
+        t0 = time.perf_counter()
+        res = overlap_tcp(torch, merge, device, kind)
+        main_launches["overlap_tcp"] = {"gather_merge": res["prefetch"]["b2_launches"]}
+        emit({"phase": "overlap_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+        torch.cuda.empty_cache()
+
+    if "async_tcp" in phases:
+        t0 = time.perf_counter()
+        res = async_tcp(torch, merge, device, kind)
+        main_launches["async_tcp"] = {
+            **res["async"]["launches"],
+            "fold_merge_mnist": sum(n["fold_launches"] for n in res["mnist"])}
+        emit({"phase": "async_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
 
     if "slowpeer_tcp" in phases:
         t0 = time.perf_counter()
@@ -2893,6 +3229,29 @@ def main(argv=None) -> int:
                           ("quantize_sr", "quantize_sr")):
             if "wire_exchange" in main_launches and not main_launches["wire_exchange"].get(name):
                 raise AssertionError(f"wire_exchange launched {name} no time")
+    if "fold_kernels" in results:
+        # B2's fold form: its launches on the fan-in round (counted from 0
+        # just before it), in the async leg of async_tcp and in its MNIST
+        # processes; its times at ResNet-50's d for each k.
+        at = results["fold_kernels"]
+        main = at[f"k{FOLD_KS[0]}"]
+        launches = at["fan_in"]["launches"]["fold_merge"]
+        if not launches:
+            raise AssertionError("the fan-in round launched fold_merge no time")
+        kernels.append({
+            "name": "fold_merge", "route": "cuda", "source": "dpwa_tpu_torch/ops/csrc/merge.cu",
+            "replaces": "dpwa_tpu/device/kernels.py::build_fold (:236, no Pallas kernel; "
+                        "B2 dpwa_tpu/ops/merge.py:103 run k times)",
+            "launches": launches, "launches_phase": "fold_kernels (the fan-in round)",
+            "launches_async_tcp": main_launches.get("async_tcp", {}).get("fold_merge"),
+            "launches_async_mnist": main_launches.get("async_tcp", {}).get("fold_merge_mnist"),
+            "max_abs_err": max(at[f"k{k}"]["max_abs_err"] for k in FOLD_KS),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "at_shape": main["shape"],
+            "k": main["k"], "sequential_b2_ms": main["sequential_b2_ms"],
+            "at_k": {f"k{k}": {key: at[f"k{k}"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "sequential_b2_ms")} for k in FOLD_KS},
+        })
     if "b5" in results:
         for kind_name, name in (("fwd", "flash_attn_fwd"), ("bwd", "flash_attn_bwd")):
             at_main = results["b5"]["timings"][kind_name]

@@ -46,15 +46,53 @@ class NodeSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class AsyncRoundsConfig:
+    """``protocol.async_rounds`` block: barrier-free gossip rounds on the
+    TCP transport (:class:`~dpwa_tpu_torch.parallel.async_loop.
+    AsyncExchangeEngine`), as in :class:`dpwa_tpu.config.AsyncRoundsConfig`.
+
+    Off (the default, and an absent block) keeps the lock-step round.  On,
+    partner frames stream on background slots into bounded per-peer
+    queues and merge whenever ready, each at ``α · staleness_damping **
+    lag`` (lag: the local clock less the frame's publish clock); a frame
+    whose lag exceeds ``max_staleness`` is dropped as the soft ``stale``
+    outcome.  ``queue_depth`` frames a peer are kept (the oldest publish
+    clock is shed first); ``fold`` batches consecutive dense frames into
+    one launch of B2's fold form."""
+
+    enabled: bool = False
+    max_staleness: int = 4
+    staleness_damping: float = 0.5
+    queue_depth: int = 4
+    fold: bool = True
+
+    def __post_init__(self) -> None:
+        if self.max_staleness < 1:
+            raise ValueError(
+                f"async_rounds.max_staleness must be >= 1, got {self.max_staleness}"
+            )
+        if not 0.0 < self.staleness_damping <= 1.0:
+            raise ValueError(
+                f"async_rounds.staleness_damping must be in (0, 1], "
+                f"got {self.staleness_damping}"
+            )
+        if self.queue_depth < 1:
+            raise ValueError(
+                f"async_rounds.queue_depth must be >= 1, got {self.queue_depth}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
 class ProtocolConfig:
     """``protocol:`` block.  The TCP-only knobs (``timeout_ms``,
     ``min_wire_mb_per_s``, ``wire_codec``, ``topk_*``,
-    ``overlap_prefetch``, ``rx_server``) are validated as in the reference
-    and unused by the stacked transport, as there; the TCP transport reads
-    them all (``wire_dtype`` f32, bf16 or int8, ``wire_codec`` dense or
-    topk) and raises for the values that ask for what it does not have yet
-    (``overlap_prefetch: true``, ``rx_server: reactor``); ``async_rounds``
-    is a TCP plane the port does not have (see :func:`config_from_dict`)."""
+    ``overlap_prefetch``, ``rx_server``, ``async_rounds``) are validated as
+    in the reference and unused by the stacked transport, as there; the TCP
+    transport reads them all (``wire_dtype`` f32, bf16 or int8,
+    ``wire_codec`` dense or topk, the prefetch pipeline, barrier-free
+    rounds) and raises only for ``rx_server: reactor``, the Rx server it
+    does not have yet.  ``async_rounds`` takes an :class:`AsyncRoundsConfig`
+    or its YAML mapping."""
 
     schedule: str = "ring"
     mode: str = "pairwise"  # pairwise (mutual merge) | pull (one-sided)
@@ -72,8 +110,13 @@ class ProtocolConfig:
     topk_values: str = "int8"
     overlap_prefetch: bool = False
     rx_server: str = "threaded"
+    async_rounds: "AsyncRoundsConfig | Mapping[str, Any]" = dataclasses.field(
+        default_factory=AsyncRoundsConfig
+    )
 
     def __post_init__(self) -> None:
+        if isinstance(self.async_rounds, Mapping):
+            object.__setattr__(self, "async_rounds", AsyncRoundsConfig(**self.async_rounds))
         if not 0.0 <= self.fetch_probability <= 1.0:
             raise ValueError(
                 f"fetch_probability must be in [0, 1], got {self.fetch_probability}"
@@ -644,11 +687,6 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         if key not in PORTED_BLOCKS:
             raise NotImplementedError(f"config block {key!r} is not ported to dpwa_tpu_torch yet")
     proto = dict(raw.get("protocol") or {})
-    if "async_rounds" in proto:
-        raise NotImplementedError(
-            "config block 'protocol.async_rounds' is not ported to "
-            "dpwa_tpu_torch yet"
-        )
     chaos = dict(raw.get("chaos") or {})
     for key in (*_CHAOS_PEER_WINDOWS, "partition_windows", "link_windows", "byzantine_peers"):
         if chaos.get(key) is not None:

@@ -24,7 +24,13 @@ versions, which is the host path of ``TcpTransport.exchange``.
   in the last bit at α ≠ 0.5; the port follows ``exchange``;
 - shard (:func:`merge_shard`, :func:`merge_shard_topk`,
   :func:`merge_shard_int8`): the same forms over the slice ``[lo, hi)`` of a
-  copy of the row, so the other k−1 slices reach the output bit-identical.
+  copy of the row, so the other k−1 slices reach the output bit-identical;
+- fold (:func:`fold`): a run of k landed float32 frames (an int8 frame
+  dequantised) merged in arrival order by one launch of B2's fold form
+  (:func:`~dpwa_tpu_torch.ops.merge.fold_merge`), bit-equal to k
+  :func:`merge_dense` calls one after the other.  :func:`stats` counts the
+  fold launches and the frames they merged, as the reference's engine
+  counts ``fold_frames``.
 
 The arithmetic is the reference's TCP merge: ``native.merge_out``'s
 ``(1-α)·x + α·y`` as g++ contracts it and the device engine's XLA lerp, one
@@ -39,11 +45,12 @@ the merges, one a merge; ``support_merge_.launches`` the top-k ones.
 
 from __future__ import annotations
 
-from typing import Union
+import threading
+from typing import Sequence, Union
 
 import torch
 
-from dpwa_tpu_torch.ops.merge import gather_merge, int8_frame_merge, support_merge_
+from dpwa_tpu_torch.ops.merge import fold_merge, gather_merge, int8_frame_merge, support_merge_
 from dpwa_tpu_torch.ops.quantize import Int8Payload, TopkPayload
 from dpwa_tpu_torch.ops.shard import ShardPayload
 
@@ -153,3 +160,36 @@ def merge(local: torch.Tensor, remote: Remote, alpha: float) -> torch.Tensor:
             return merge_shard_int8(local, remote, alpha)
         return merge_shard(local, remote, alpha)
     return merge_dense(local, remote, alpha)
+
+
+_STATS_LOCK = threading.Lock()
+_STATS = {"fold_dispatches": 0, "fold_frames": 0}
+
+
+def fold(local: torch.Tensor, remotes: Sequence[torch.Tensor], alphas: Sequence[float]) -> torch.Tensor:
+    """Batched multi-peer fold: ``local`` merged with the landed float32
+    frames ``remotes`` (each the replica's length, on its device) at
+    ``alphas`` in order, by one launch of B2's fold form, as a new flat
+    tensor; ``local`` itself for no frames.  Raises on a length mismatch."""
+    if len(remotes) != len(alphas):
+        raise ValueError(f"fold got {len(remotes)} frames but {len(alphas)} alphas")
+    if not remotes:
+        return local
+    for r in remotes:
+        _check_row(local, r.numel(), r.device)
+    with _STATS_LOCK:
+        _STATS["fold_dispatches"] += 1
+        _STATS["fold_frames"] += len(remotes)
+    return fold_merge(local, [r.reshape(-1) for r in remotes], alphas)
+
+
+def stats() -> dict:
+    """The fold launches and the frames they merged, process-wide."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def reset_stats() -> None:
+    with _STATS_LOCK:
+        for key in _STATS:
+            _STATS[key] = 0

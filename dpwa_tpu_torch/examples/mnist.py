@@ -338,7 +338,7 @@ def run_tcp(args) -> dict:
 
     launches0 = b2_launches()
     support0, quantize0 = merge.support_merge_.launches, quantize.quantize_sr.launches
-    int8_form0 = merge.int8_frame_merge.launches
+    int8_form0, fold0 = merge.int8_frame_merge.launches, merge.fold_merge.launches
     losses = []
     t0 = None
     try:
@@ -421,6 +421,9 @@ def run_tcp(args) -> dict:
             "int8_frame_launches": merge.int8_frame_merge.launches - int8_form0,
             "support_launches": merge.support_merge_.launches - support0,
             "quantize_launches": quantize.quantize_sr.launches - quantize0,
+            # B2's fold form: one a drained run of two or more dense frames
+            # under protocol.async_rounds
+            "fold_launches": merge.fold_merge.launches - fold0,
             "wire": adapter.transport.wire_snapshot(),
             "peak_memory_bytes": (
                 torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
@@ -438,6 +441,11 @@ def run_tcp(args) -> dict:
             "events": list(adapter.events),
             "hedged_rounds": hedged,
             "shed_rounds": shed,
+            # protocol.async_rounds: merges, drops, folds, and the receive-ring
+            # bytes the queues held at their peak
+            "async": (None if adapter.transport.async_engine is None else {
+                k: v for k, v in adapter.transport.async_engine.snapshot().items()
+                if k != "peers"}),
             "flowctl": None if fsnap is None else {
                 "hedges": fsnap["hedges"], "hedge_wins": fsnap["hedge_wins"],
                 **{key: {str(p): v[key] for p, v in fsnap["peers"].items()}

@@ -32,7 +32,7 @@ class Outcome:
     UNTRUSTED = "untrusted"  # rejected by the trust screen
     BUSY = "busy"  # the peer shed the request with a BUSY frame
     SLOW = "slow"  # the deadline lapsed while bytes were still flowing
-    STALE = "stale"  # an async round's frame too old to merge (not ported yet)
+    STALE = "stale"  # an async round's frame too old to merge, or a publish clock merged already
 
     FAILURES = (
         TIMEOUT, REFUSED, SHORT_READ, CORRUPT, POISONED, UNTRUSTED,

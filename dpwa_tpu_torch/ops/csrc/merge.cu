@@ -52,7 +52,17 @@
 //       the row (y = x) has written the off-support values.  It rounds as
 //       the reference's host merge of the densified frame (native.merge_out)
 //       rounds, the path the transport follows.
-// Both are grid-stride loops of scalar loads and stores: the int8 form moves
+//   dpwa_fold_merge         out = x, then out <- lerp(t_i, out, r_i) for the k
+//       landed float32 rows r_0 ... r_{k-1} in arrival order (the fan-in
+//       round's and the async drain's runs of dense frames,
+//       dpwa_tpu/device/kernels.py::build_fold), bit-equal to k launches of
+//       B2 one after the other: each product t_i * r_i rounded on its own,
+//       1 - t_i in float32.  One pass: x and every row read once, out
+//       written once, (k + 2) * 4 bytes an element; the k row pointers and
+//       alphas are device arrays, so one compiled kernel serves every k.  It
+//       moves float4 words where every row shares x's and out's phase within
+//       16 bytes (the card's allocations all do), else scalars.
+// The int8-frame and support forms are grid-stride loops of scalar loads and stores: the int8 form moves
 // 9 bytes an element (x, q and out; the scales are 1/64 of a byte), the
 // support form 16 bytes a support element (its index, value, x and out, 4
 // bytes each).  Each of the support form's scattered 4-byte reads and writes
@@ -298,6 +308,46 @@ support_merge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
+// B2's fold form (see the top of the file): rows[i] and alphas[i] are read
+// from device arrays; head scalars, then float4 words, then the tail.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fold_merge_kernel(const float* __restrict__ x, const float* const* __restrict__ rows,
+                  const float* __restrict__ alphas, int k, float* __restrict__ out, int64_t d,
+                  int64_t head) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const int64_t n4 = (d - head) >> 2;
+    const float4* vx = reinterpret_cast<const float4*>(x + head);
+    float4* vo = reinterpret_cast<float4*>(out + head);
+    for (int64_t q = t0; q < n4; q += stride) {
+      float4 acc = __ldg(vx + q);
+      for (int i = 0; i < k; ++i) {
+        const float a = __ldg(alphas + i);
+        const float4 v = __ldg(reinterpret_cast<const float4*>(rows[i] + head) + q);
+        acc.x = lerp<kInt8>(a, acc.x, v.x);
+        acc.y = lerp<kInt8>(a, acc.y, v.y);
+        acc.z = lerp<kInt8>(a, acc.z, v.z);
+        acc.w = lerp<kInt8>(a, acc.w, v.w);
+      }
+      vo[q] = acc;
+    }
+    int64_t j;
+    if (edge_index(t0, head, head + (n4 << 2), d, &j)) {
+      float acc = x[j];
+      for (int i = 0; i < k; ++i) acc = lerp<kInt8>(__ldg(alphas + i), acc, rows[i][j]);
+      out[j] = acc;
+    }
+  } else {
+    for (int64_t j = t0; j < d; j += stride) {
+      float acc = x[j];
+      for (int i = 0; i < k; ++i) acc = lerp<kInt8>(__ldg(alphas + i), acc, rows[i][j]);
+      out[j] = acc;
+    }
+  }
+}
+
 bool same_phase(const void* a, const void* b) {
   return (reinterpret_cast<uintptr_t>(a) & 15) == (reinterpret_cast<uintptr_t>(b) & 15);
 }
@@ -383,6 +433,24 @@ int dpwa_support_merge(const float* x, const int* idx, const float* v, float* ou
   const dim3 grid = grid_for(k, 1);
   support_merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, idx, v, out, k, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's fold form.  x, out: float32[d], not overlapping; rows: a device array
+// of k pointers to float32[d] rows; alphas: float32[k] on the device; vec:
+// whether x, out and every row share one phase within 16 bytes (the caller
+// knows the rows' addresses, this side does not read them).  Returns the
+// launch's cudaError_t.
+int dpwa_fold_merge(const float* x, const float* const* rows, const float* alphas, int k,
+                    float* out, int64_t d, int vec, void* stream) {
+  if (d <= 0 || k <= 0) return 0;
+  const int64_t head = vec ? head_of(x, d) : 0;
+  const dim3 grid = grid_for(vec ? (d - head) / 4 + 1 : d, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    fold_merge_kernel<true><<<grid, kThreads, 0, s>>>(x, rows, alphas, k, out, d, head);
+  else
+    fold_merge_kernel<false><<<grid, kThreads, 0, s>>>(x, rows, alphas, k, out, d, head);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,9 @@ for Hopper (``csrc/merge.cu``), each beside its plain PyTorch version:
   TCP transport's codec frames take two more forms of it over one row:
   :func:`int8_frame_merge` (the partner's value dequantised from a landed
   int8-chunked frame in registers) and :func:`support_merge_` (a top-k
-  frame's support, scattered over B2's self-lerp of the row).
+  frame's support, scattered over B2's self-lerp of the row), and the
+  fan-in rounds' runs of dense frames take its fold form
+  (:func:`fold_merge`: k landed rows merged in one pass, in order).
 
 ``y`` is the partner's row as it arrived over the wire: ``x`` itself, or
 in the wire form a second buffer ``w`` laid out like ``x`` — the int8
@@ -187,6 +189,8 @@ def _lib() -> ctypes.CDLL:
     lib.dpwa_int8_frame_merge.restype = _INT
     lib.dpwa_support_merge.argtypes = [_VOID, _VOID, _VOID, _VOID, _I64, ctypes.c_float, _VOID]
     lib.dpwa_support_merge.restype = _INT
+    lib.dpwa_fold_merge.argtypes = [_VOID, _VOID, _VOID, _INT, _VOID, _I64, _INT, _VOID]
+    lib.dpwa_fold_merge.restype = _INT
     lib.dpwa_cuda_error_string.argtypes = [_INT]
     lib.dpwa_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -468,10 +472,63 @@ def support_merge_(out: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, values
     return out
 
 
+def torch_fold_merge(x: torch.Tensor, rows, alphas) -> torch.Tensor:
+    """Plain version of :func:`fold_merge`: the k merges in a row, each B2's
+    plain f32-frame form (``fma(1−α, x, α·y)``)."""
+    out = x
+    for r, a in zip(rows, alphas):
+        out = _lerp(_scalar(a, x.device), out, r, "int8")
+    return out.clone() if out is x else out
+
+
+def fold_merge(x: torch.Tensor, rows, alphas, out: torch.Tensor | None = None) -> torch.Tensor:
+    """B2's fold form: ``out = x``, then ``out ← fma(1−α_i, out, α_i·r_i)``
+    for the float32 rows ``rows[0] … rows[k−1]`` (each ``[d]`` like ``x``)
+    and the floats ``alphas`` in order, in one pass; bit-equal to k merges
+    of B2's f32-frame form one after the other (``1 − α_i`` in float32, each
+    ``α_i·r_i`` rounded on its own).  ``out`` (float32 ``[d]``, sharing no
+    storage with ``x`` or a row) is allocated when not given.  Returns
+    ``out``."""
+    rows, alphas = list(rows), [float(a) for a in alphas]
+    if len(rows) != len(alphas):
+        raise ValueError(f"fold_merge got {len(rows)} rows but {len(alphas)} alphas")
+    if x.device.type == "cpu":
+        merged = torch_fold_merge(x, rows, alphas)
+        return merged if out is None else out.copy_(merged)
+    if x.device.type != "cuda":
+        raise ValueError(f"fold_merge: unsupported device {x.device}")
+    d = x.numel()
+    _check_flat(x, "x", torch.float32, x.device)
+    for r in rows:
+        _check_flat(r, "a fold row", torch.float32, x.device, d)
+    if out is None:
+        out = torch.empty_like(x)
+    _check_flat(out, "out", torch.float32, x.device, d)
+    for src in (x, *rows):
+        if out.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+            raise ValueError("fold_merge: out must not share x's or a row's storage")
+    if not rows or d == 0:
+        return out.copy_(x)
+    ptrs = torch.tensor([r.data_ptr() for r in rows], dtype=torch.int64).to(x.device)
+    a = torch.tensor(alphas, dtype=torch.float32).to(x.device)
+    phase = x.data_ptr() % 16
+    vec = all(t.data_ptr() % 16 == phase for t in (out, *rows))
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_fold_merge(
+            x.data_ptr(), ptrs.data_ptr(), a.data_ptr(), len(rows), out.data_ptr(), d,
+            int(vec), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "fold_merge", err)
+    fold_merge.launches += 1
+    return out
+
+
 pair_merge_.launches = 0
 gather_merge.launches = 0
 int8_frame_merge.launches = 0
 support_merge_.launches = 0
+fold_merge.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -483,6 +540,7 @@ def reset_launch_counts() -> None:
     gather_merge.launches = 0
     int8_frame_merge.launches = 0
     support_merge_.launches = 0
+    fold_merge.launches = 0
     quantize.quantize_sr.launches = 0
 
 

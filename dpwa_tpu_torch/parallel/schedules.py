@@ -104,6 +104,14 @@ def degrade_shed_draw(seed: int, step: int, me: int) -> float:
     return float(prng.uniform_scalar(_pair_key(seed, step, me, _tags.TAG_DEGRADE_SHED)))
 
 
+def async_drain_draw(seed: int, step: int, peer: int) -> float:
+    """Uniform [0, 1) breaking ties of equal lag in the async drain order
+    (tag 33): :class:`~dpwa_tpu_torch.parallel.async_loop.
+    AsyncExchangeEngine` drains pending frames sorted by ``(lag, draw,
+    peer)``; keyed on ``(seed, step, peer)``."""
+    return float(prng.uniform_scalar(_pair_key(seed, step, peer, _tags.TAG_ASYNC_DRAIN)))
+
+
 def shard_permutation(seed: int, epoch: int, k: int) -> np.ndarray:
     """The shard-visit order of one k-round epoch (tag 32): a permutation of
     ``range(k)`` keyed on ``(seed, epoch)`` only, so both sides of a pair

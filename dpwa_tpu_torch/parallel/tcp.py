@@ -81,9 +81,29 @@ and the support form for top-k, the slice alone for a shard
 (:mod:`dpwa_tpu_torch.device.engine`).  :meth:`TcpTransport.wire_snapshot`
 tallies the wire.
 
-Not ported yet: the prefetch pipeline, the reactor and native Rx servers,
-and ``/metrics``; the transport raises :class:`NotImplementedError` for the
-settings that ask for them.
+Beside the lock-step round, the reference's other exchanges, each making
+the reference's decisions with its merges on the card; their fetch threads
+move bytes only (:meth:`TcpTransport._wire_fetch` into the receive ring),
+and landing, the guard, the screen and the merge run on the calling thread
+(:meth:`TcpTransport._consume_fetch`, judged against the replica published
+in the consuming round).  :meth:`TcpTransport.exchange_overlapped_start`
+fetches while the caller computes and merges the pre-step replica in
+``finish``.  ``protocol.overlap_prefetch`` runs the double-buffered prefetch
+pipeline: round t+1's partner is resolved and its frame streamed while
+round t consumes and the caller computes (``wire_snapshot()["overlap"]``
+tallies it).  The reference pipelines only its ``exchange``, whose
+decisions the port follows (its ``exchange_on_device`` runs the sequential
+round even with the flag on); here ``exchange_on_device``, which
+``exchange`` and the adapters call, runs the pipeline.
+:meth:`TcpTransport.exchange_on_device_fold` is the fan-in round: a frame
+from each listed peer, runs of dense frames merged by one launch of B2's
+fold form.  ``protocol.async_rounds`` makes the rounds barrier-free
+(:mod:`dpwa_tpu_torch.parallel.async_loop`): frames queue per peer and
+merge staleness-damped whenever ready, a publish clock at most once
+(the ``_async_guard`` dedup).
+
+Not ported yet: the reactor and native Rx servers, and ``/metrics``; the
+transport raises :class:`NotImplementedError` for ``rx_server: reactor``.
 """
 
 from __future__ import annotations
@@ -93,7 +113,7 @@ import socket
 import threading
 import time
 import zlib
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,7 +131,7 @@ from dpwa_tpu_torch.membership import digest as _digest
 from dpwa_tpu_torch.membership.manager import MembershipManager
 from dpwa_tpu_torch.ops.quantize import (
     Int8Payload, TopkEncoder, TopkPayload, decode_int8_payload, decode_topk_payload,
-    encode_int8_payload,
+    encode_int8_payload, int8_nbytes, topk_k, topk_nbytes,
 )
 from dpwa_tpu_torch.ops.shard import (
     INNER_NAMES, ShardPayload, decode_shard_payload, encode_shard_payload, shard_bounds,
@@ -1002,10 +1022,64 @@ class _Leg:
                 hedged, hedge_winner)
 
 
+def _recycle_raw(raw: tuple) -> None:
+    """Give a wire fetch's receive-ring leases back: once the frame's host
+    vector (or decoded payload) is collected.  Idempotent."""
+    got, leases = raw[1], raw[5]
+    while leases:
+        lease = leases.pop()
+        lease.recycle(got[0]) if got is not None else lease.release()
+
+
+class _Slot:
+    """One background wire fetch (a prefetch slot, the overlapped
+    exchange's fetch): its thread only moves bytes
+    (:meth:`TcpTransport._wire_fetch`, into the receive ring), and the
+    training thread :meth:`take`-s the raw result and consumes it.  A
+    result nobody takes (a lapsed join, a discontinued pipeline, a close)
+    gives its leases back once the thread is done with them."""
+
+    def __init__(self, transport: "TcpTransport", peer: int, step: int):
+        self.peer, self.step = peer, step
+        self.raw: Optional[tuple] = None
+        self.t_start = time.monotonic()
+        self.t_end = 0.0  # when the fetch finished (0.0: still streaming)
+        self._abandoned = False
+        self._lock = threading.Lock()
+        self.thread = threading.Thread(target=self._run, args=(transport,),
+                                       name=f"dpwa-torch-prefetch:{transport.port}", daemon=True)
+        self.thread.start()
+
+    def _run(self, transport: "TcpTransport") -> None:
+        raw = transport._wire_fetch(self.peer, None, self.step)
+        with self._lock:
+            self.t_end = time.monotonic()
+            if self._abandoned:
+                _recycle_raw(raw)
+            else:
+                self.raw = raw
+
+    def take(self, timeout_s: float) -> Optional[tuple]:
+        """The raw fetch once the thread is done (waiting at most
+        ``timeout_s``), or None when the wait lapsed (the slot is then
+        abandoned)."""
+        self.thread.join(timeout_s)
+        with self._lock:
+            raw, self.raw = self.raw, None
+            if raw is None:
+                self._abandoned = True
+            return raw
+
+    def abandon(self) -> None:
+        with self._lock:
+            self._abandoned = True
+            raw, self.raw = self.raw, None
+        if raw is not None:
+            _recycle_raw(raw)
+
+
 def _unsupported(config: DpwaConfig) -> Optional[str]:
     proto = config.protocol
-    if proto.overlap_prefetch:
-        return "protocol.overlap_prefetch: true (the prefetch pipeline)"
     if proto.rx_server != "threaded":
         return f"protocol.rx_server: {proto.rx_server} (the reactor Rx server)"
     return None
@@ -1043,6 +1117,66 @@ def _flat(vec: torch.Tensor) -> torch.Tensor:
     """``vec`` itself when it is flat (the replica is recognised by
     identity), else its flat view."""
     return vec if vec.dim() == 1 else vec.reshape(-1)
+
+
+class _OverlappedExchange:
+    """An overlapped gossip round in flight (:meth:`TcpTransport.
+    exchange_overlapped_start`): the partner's frame streams on a background
+    slot while the caller computes its local step.
+
+    ``finish(pre, update)`` joins the fetch, consumes the frame on the
+    calling thread and returns ``(merge(pre, remote) + update, α,
+    partner)``, or ``(pre + update, 0.0, partner)`` on a skipped round (a
+    self-pair, a round the schedule masks, a failed or lapsed fetch): the
+    algebra of the stacked step's ``overlap=True`` (merge the pre-update
+    replicas, land the local update on the merged result).  The membership
+    round ends in ``finish``."""
+
+    def __init__(self, transport: "TcpTransport", clock: float, loss: float, step: int,
+                 expected_nbytes: int = 0):
+        self._t = transport
+        self._clock, self._loss, self._step = clock, loss, step
+        # The partner's frame is the size of ours on the wire: it sizes the
+        # join backstop as the fetch's own deadline grows with the bytes.
+        self._expected_nbytes = expected_nbytes
+        self.sched_partner, self.partner, self.remapped = transport._resolve_partner(step)
+        # Participation stays keyed on the scheduled pairing (a remap moves
+        # only the fetch).
+        self._participates = (
+            self.partner != transport.me and transport.schedule.participates(step, transport.me)
+        )
+        self._slot: Optional[_Slot] = None
+
+    def start(self) -> None:
+        if self._participates:
+            self._slot = _Slot(self._t, self.partner, self._step)
+
+    def finish(self, pre_vec, update=None):
+        t = self._t
+        as_numpy = isinstance(pre_vec, np.ndarray)
+        pre = _flat(torch.from_numpy(np.ascontiguousarray(pre_vec, dtype=np.float32))
+                    if as_numpy else pre_vec)
+        got = None
+        try:
+            if self._slot is not None:
+                raw = self._slot.take(t._join_backstop_s(self._expected_nbytes))
+                if raw is not None:
+                    got = t._consume_fetch(raw, self._step, pre.device)
+                    del raw
+        finally:
+            t._membership_end_round(self._step)
+        if got is None:
+            merged, alpha = pre_vec, 0.0
+            t._count_round(())
+        else:
+            alpha = t._weigh(got, self._clock, self._loss)
+            merged = engine.merge(pre, got[0].merge, alpha)
+            t._count_round(((t.last_fetch["peer"], got[1]),))
+            if as_numpy:
+                merged = merged.numpy()
+        if update is not None:
+            merged = merged + update
+        return merged, alpha, self.partner
 
 
 class TcpTransport:
@@ -1158,12 +1292,32 @@ class TcpTransport:
         self._round_clock: Optional[float] = None
         self.last_fetch: dict = {}
         self.last_round: dict = {}
+        # The double-buffered prefetch pipeline (protocol.overlap_prefetch):
+        # round t+1's slot, {step, sched, partner, remapped, expected_nbytes,
+        # slot (None when that round does not fetch)}, and the overlap tally.
+        self._prefetch_on = proto.overlap_prefetch
+        self._prefetch_slot: Optional[dict] = None
+        self._pipe_last_entry: Optional[float] = None
+        self._overlap = {
+            "rounds": 0, "prefetched": 0, "straddled": 0,
+            "fetch_s": 0.0, "join_wait_s": 0.0, "inflight_s": 0.0, "round_s": 0.0,
+        }
+        # Barrier-free rounds (protocol.async_rounds): the engine wraps this
+        # transport and arms _async_guard, the highest publish clock merged
+        # per peer, which _consume_fetch holds every delivery to.  Both stay
+        # None with the block off: the lock-step paths take no async branch.
+        self.async_engine = None
+        self._async_guard: Optional[dict] = None
         self.healthz = None
         if config.health.enabled and config.health.healthz_port is not None:
             from dpwa_tpu_torch.health.endpoint import HealthzServer
 
             self.healthz = HealthzServer(self.health_snapshot, spec.host,
                                          config.health.healthz_port)
+        if proto.async_rounds.enabled:
+            from dpwa_tpu_torch.parallel.async_loop import AsyncExchangeEngine
+
+            AsyncExchangeEngine(self)
 
     @property
     def port(self) -> int:
@@ -1351,14 +1505,35 @@ class TcpTransport:
     def _fetch_landed(self, peer_index: int, timeout_ms: Optional[int], step: Optional[int],
                       device) -> Optional[tuple]:
         """:meth:`fetch`'s round: ``(landed frame, clock, loss)`` or None."""
-        if timeout_ms is None:
-            timeout_ms = self.config.protocol.timeout_ms
         device = torch.device("cpu") if device is None else torch.device(device)
-        (peer_index, got, outcome, latency_s, nbytes, leases, digest,
-         hedged, hedge_winner) = self._wire_fetch(peer_index, timeout_ms, step)
-        for lease in leases:
-            # Back to the ring once no view of the payload is left.
-            lease.recycle(got[0])
+        return self._consume_fetch(self._wire_fetch(peer_index, timeout_ms, step), step, device)
+
+    def _consume_fetch(self, raw: tuple, step: Optional[int], device) -> Optional[tuple]:
+        """The consume half of a fetch, on the training thread: land the
+        frame of :meth:`_wire_fetch`'s ``raw`` on ``device``, guard it,
+        screen it and record it against round ``step``, judged against the
+        replica published in this round (a prefetched frame whose fetch
+        straddled a publish is judged against the newer replica): ``(landed
+        frame, clock, loss)`` or None.  Under barrier-free rounds a publish
+        clock at or below the peer's last merged one is dropped first as
+        ``stale``, and a frame's clock is latched only once every screen has
+        passed.  The receive-ring leases go back on every exit."""
+        try:
+            return self._consume(raw, step, torch.device(device))
+        finally:
+            _recycle_raw(raw)
+
+    def _consume(self, raw: tuple, step: Optional[int], device) -> Optional[tuple]:
+        (peer_index, got, outcome, latency_s, nbytes, _leases, digest,
+         hedged, hedge_winner) = raw
+        guard = self._async_guard
+        if guard is not None and got is not None and float(got[1]) <= guard.get(
+                peer_index, float("-inf")):
+            # This peer's publish clock (or a newer one) already merged: a
+            # second delivery (a prefetch slot, the async queue, a hedge leg)
+            # is dropped before any landing work.
+            got = None
+            outcome = Outcome.STALE
         reason = trust_info = codec = None
         self._pending_trust_scale = 1.0
         if got is not None:
@@ -1435,12 +1610,20 @@ class TcpTransport:
             # The final outcome, after the guard and the screen: a poisoned
             # success must not teach the deadline that the peer is fast.
             self._estimator.observe(peer_index, outcome, latency_s=latency_s, nbytes=nbytes)
+        if guard is not None and got is not None and got[1] > guard.get(peer_index, float("-inf")):
+            guard[peer_index] = float(got[1])
         return got
 
-    def _wire_fetch(self, peer: int, timeout_ms: int, step: Optional[int]) -> tuple:
-        """The wire half of a fetch: ``(winner, got, outcome, latency_s,
-        nbytes, leases, digest, hedged, hedge_winner)``.  A link the chaos
-        harness blocks is refused without a socket."""
+    def _wire_fetch(self, peer: int, timeout_ms: Optional[int] = None,
+                    step: Optional[int] = None) -> tuple:
+        """The wire half of a fetch, which moves bytes only (a prefetch or
+        async slot runs it on its own thread): ``(winner, got, outcome,
+        latency_s, nbytes, leases, digest, hedged, hedge_winner)``, the
+        frame's host vector (or decoded payload) viewing the ``leases`` of
+        the receive ring until :meth:`_consume_fetch` gives them back.  A
+        link the chaos harness blocks is refused without a socket."""
+        if timeout_ms is None:
+            timeout_ms = self.config.protocol.timeout_ms
         if self._link_blocked(peer):
             return peer, None, Outcome.REFUSED, 0.0, 0, [], None, False, None
         if self._estimator is not None:
@@ -1716,8 +1899,10 @@ class TcpTransport:
                     {k: info[k] for k in ("deadline_ms", "hedges", "hedge_wins", "busy", "slow")}
                 )
             snap["flowctl"] = fsnap
-        if self._wire_topk or self._shard_on:
+        if self._wire_topk or self._shard_on or self._prefetch_on:
             snap["wire"] = self.wire_snapshot()
+        if self.async_engine is not None:
+            snap["async"] = self.async_engine.snapshot()
         return snap
 
     def wire_snapshot(self) -> dict:
@@ -1726,7 +1911,11 @@ class TcpTransport:
         bytes on the wire and as dense float32, their ratio, and the host
         copies a received frame cost before its landing; the top-k settings
         and the per-shard frames, bytes and coverage (distinct shards served
-        over k) when those are on.  The reference's receive-ring occupancy
+        over k) when those are on; the prefetch pipeline's ``overlap``
+        (rounds, rounds consumed from a slot, slots still streaming at the
+        consuming publish, the fetches' and the joins' seconds, the share of
+        the rounds' wall time a fetch was in flight, and the share of the
+        fetch time hidden) when it runs.  The reference's receive-ring occupancy
         and device-engine columns are its own and not reported."""
         with self._stats_lock:
             t = dict(self._wire_tally)
@@ -1757,6 +1946,19 @@ class TcpTransport:
                     shard_tally.get(i, {}).get("wire_bytes", 0) for i in range(k)],
                 "coverage": round(len(shard_tally) / k, 4),
             }
+        if self._prefetch_on:
+            with self._stats_lock:
+                o = dict(self._overlap)
+            out["overlap"] = {
+                "rounds": o["rounds"],
+                "prefetched": o["prefetched"],
+                "straddled": o["straddled"],
+                "fetch_s": round(o["fetch_s"], 6),
+                "join_wait_s": round(o["join_wait_s"], 6),
+                "occupancy": round(o["inflight_s"] / o["round_s"], 4) if o["round_s"] > 0 else 0.0,
+                "hidden_frac": (round(max(1.0 - o["join_wait_s"] / o["fetch_s"], 0.0), 4)
+                                if o["fetch_s"] > 0 else 0.0),
+            }
         return out
 
     # -- the round ------------------------------------------------------
@@ -1773,6 +1975,34 @@ class TcpTransport:
             alpha *= self.membership.alpha_scale()
         return alpha
 
+    def _membership_end_round(self, step: int) -> None:
+        # Component and quorum state advance on skipped rounds too: a
+        # partitioned node skips every round, which is when it must notice.
+        if self.membership is not None:
+            self.membership.end_round(step)
+
+    def _start_round(self, step: int, sched: int, partner: int, remapped: bool) -> None:
+        self.last_round = {
+            "step": step, "sched_partner": sched, "partner": partner,
+            "remapped": remapped, "outcome": None,
+        }
+
+    def _weighed(self, got: Optional[tuple], clock: float, loss: float, partner: int):
+        """The round's fetch outcome into :attr:`last_round`, and ``(what
+        merges or None, α, partner)``."""
+        self.last_round["outcome"] = self.last_fetch.get("outcome")
+        if "trust" in self.last_fetch:
+            self.last_round["trust"] = self.last_fetch["trust"]
+        if "codec" in self.last_fetch:
+            self.last_round["codec"] = self.last_fetch["codec"]
+        if self.last_fetch.get("hedged"):
+            self.last_round["hedged"] = True
+            self.last_round["hedge_winner"] = self.last_fetch.get("hedge_winner")
+        if got is None:
+            return None, 0.0, partner
+        self._round_clock = got[1]
+        return got[0].merge, self._weigh(got, clock, loss), partner
+
     def _round(self, rep: DeviceReplica, clock: float, loss: float, step: int):
         """Publish, resolve the partner, check participation, fetch, guard,
         screen, weigh: ``(remote or None, α, partner)``; None skips the
@@ -1780,55 +2010,269 @@ class TcpTransport:
         try:
             self._publish_replica(rep, clock, loss)
             sched, partner, remapped = self._resolve_partner(step)
-            self.last_round = {
-                "step": step, "sched_partner": sched, "partner": partner,
-                "remapped": remapped, "outcome": None,
-            }
+            self._start_round(step, sched, partner, remapped)
             # Participation stays keyed on the scheduled pairing; a remap
             # moves only the fetch (to self when no healthy peer is left).
             if partner == self.me or not self.schedule.participates(step, self.me):
                 return None, 0.0, partner
             got = self.fetch(partner, step=step, device=rep.dev.device, landed=True)
-            self.last_round["outcome"] = self.last_fetch.get("outcome")
-            if "trust" in self.last_fetch:
-                self.last_round["trust"] = self.last_fetch["trust"]
-            if "codec" in self.last_fetch:
-                self.last_round["codec"] = self.last_fetch["codec"]
-            if self.last_fetch.get("hedged"):
-                self.last_round["hedged"] = True
-                self.last_round["hedge_winner"] = self.last_fetch.get("hedge_winner")
-            if got is None:
-                return None, 0.0, partner
-            self._round_clock = got[1]
-            return got[0].merge, self._weigh(got, clock, loss), partner
+            return self._weighed(got, clock, loss, partner)
         finally:
-            # Component and quorum state advance on skipped rounds too: a
-            # partitioned node skips every round, which is when it must
-            # notice.
-            if self.membership is not None:
-                self.membership.end_round(step)
+            self._membership_end_round(step)
+
+    # -- the prefetch pipeline ------------------------------------------
+    def _round_pipelined(self, rep: DeviceReplica, clock: float, loss: float, step: int):
+        """:meth:`_round` through the double-buffered prefetch slot: publish,
+        take the slot that has streamed this round's frame since the last
+        round (the caller's compute hid it), launch round ``step + 1``'s
+        slot, then land, guard, screen and weigh this round's frame against
+        the replica just published.  Failures are charged to the consuming
+        round's step; a chaos partition that opened after the launch still
+        refuses the frame (:meth:`_prefetch_take`)."""
+        t_entry = time.monotonic()
+        with self._stats_lock:
+            o = self._overlap
+            if self._pipe_last_entry is not None:
+                # Entry to entry: compute and exchange, the occupancy's denominator.
+                o["round_s"] += t_entry - self._pipe_last_entry
+            self._pipe_last_entry = t_entry
+            o["rounds"] += 1
+        try:
+            self._publish_replica(rep, clock, loss)
+            raw, sched, partner, remapped = self._prefetch_take(step)
+            self._start_round(step, sched, partner, remapped)
+            # Round t+1's wire leg streams while this round is consumed.
+            self._prefetch_launch(step + 1, self._wire_nbytes(rep.dev.numel()))
+            if raw is None:
+                return None, 0.0, partner
+            got = self._consume_fetch(raw, step, rep.dev.device)
+            del raw
+            return self._weighed(got, clock, loss, partner)
+        finally:
+            self._membership_end_round(step)
+
+    def _prefetch_launch(self, step: int, expected_nbytes: int) -> None:
+        """Arm the slot for round ``step``: its partner resolved now, one
+        scoreboard round early, and its frame streamed on a background
+        thread (none when that round does not fetch)."""
+        sched, partner, remapped = self._resolve_partner(step)
+        slot = None
+        if partner != self.me and self.schedule.participates(step, self.me):
+            slot = _Slot(self, partner, step)
+        old, self._prefetch_slot = self._prefetch_slot, {
+            "step": step, "sched": sched, "partner": partner, "remapped": remapped,
+            "expected_nbytes": int(expected_nbytes), "slot": slot,
+        }
+        if old is not None and old["slot"] is not None:
+            old["slot"].abandon()
+
+    def _prefetch_take(self, step: int) -> tuple:
+        """Claim round ``step``'s slot: ``(raw or None, sched, partner,
+        remapped)``.  A cold pipeline or a step that does not follow the
+        last resolves and fetches here, synchronously (all of it join
+        wait).  The join waits as long as the fetch's own deadline can run
+        (:meth:`_join_backstop_s`); a lapsed join skips the merge."""
+        entry, self._prefetch_slot = self._prefetch_slot, None
+        if entry is None or entry["step"] != step:
+            if entry is not None and entry["slot"] is not None:
+                entry["slot"].abandon()
+            sched, partner, remapped = self._resolve_partner(step)
+            if partner == self.me or not self.schedule.participates(step, self.me):
+                return None, sched, partner, remapped
+            t0 = time.monotonic()
+            raw = self._wire_fetch(partner, None, step)
+            dt = time.monotonic() - t0
+            with self._stats_lock:
+                o = self._overlap
+                o["fetch_s"] += dt
+                o["join_wait_s"] += dt
+                o["inflight_s"] += dt
+            return raw, sched, partner, remapped
+        sched, partner, remapped = entry["sched"], entry["partner"], entry["remapped"]
+        slot = entry["slot"]
+        if slot is None:
+            return None, sched, partner, remapped
+        # Still streaming as this round's publish landed: the frame straddled
+        # a publish, and the consume-time screen is what judges it.
+        straddled = slot.t_end == 0.0
+        with self._stats_lock:
+            self._overlap["prefetched"] += 1
+            self._overlap["straddled"] += straddled
+        t_join = time.monotonic()
+        raw = slot.take(self._join_backstop_s(entry["expected_nbytes"]))
+        join_dt = time.monotonic() - t_join
+        span = max((slot.t_end or time.monotonic()) - slot.t_start, 0.0)
+        with self._stats_lock:
+            o = self._overlap
+            o["join_wait_s"] += join_dt
+            o["fetch_s"] += span
+            o["inflight_s"] += span
+        if raw is None:
+            return None, sched, partner, remapped
+        if self._link_blocked(partner):
+            # A partition keyed on the consuming round's publish clock refuses
+            # the frame the launch (one clock earlier) let through.
+            _recycle_raw(raw)
+            raw = (partner, None, Outcome.REFUSED, 0.0, 0, [], None, False, None)
+        return raw, sched, partner, remapped
+
+    def _join_backstop_s(self, expected_nbytes: int) -> float:
+        """How long a join waits for a background fetch: 1 s of slack, the
+        fetch's deadline (doubled under flowctl, whose hedge may run a
+        second leg, from the larger of ``timeout_ms`` and ``flowctl.max_ms``)
+        and the per-byte allowance for ``expected_nbytes`` on the wire."""
+        proto, fc = self.config.protocol, self.config.flowctl
+        base_s = proto.timeout_ms / 1000.0
+        if fc.enabled:
+            base_s = 2.0 * max(base_s, fc.max_ms / 1000.0)
+        return 1.0 + base_s + expected_nbytes / (proto.min_wire_mb_per_s * 1e6)
+
+    def _wire_nbytes(self, n: int) -> int:
+        """The payload bytes this node's frame of a replica of ``n`` floats
+        takes on the wire, as published: a partner's frame is as large, so
+        it sizes a join's backstop (int8, top-k and shard aware; a shard
+        frame sized by the longest slice)."""
+        proto = self.config.protocol
+
+        def body(m: int) -> int:
+            if self._wire_topk:
+                return topk_nbytes(m, topk_k(m, proto.topk_fraction), proto.topk_values)
+            if self.wire == "int8":
+                return int8_nbytes(m)
+            return 2 * m if self.wire == "bf16" else 4 * m
+
+        if self._shard_on:
+            return pc.SHARD_HDR.size + body(-(-n // self._shard_k))
+        return body(n)
+
+    # -- the exchanges --------------------------------------------------
+    def _count_round(self, merged: Sequence[Tuple[int, float]]) -> None:
+        """Tally a round and the ``(peer, publish clock)`` of each frame it
+        merged (a hedge's winner may be the fallback)."""
+        with self._stats_lock:
+            self.stats["rounds"] += 1
+            self.stats["merged"] += bool(merged)
+            for peer, clock in merged:
+                seen = self.stats["merged_from"].setdefault(peer, [0, clock])
+                seen[0] += 1
+                seen[1] = max(seen[1], clock)
 
     def exchange_on_device(self, vec_dev: torch.Tensor, clock: float, loss: float, step: int):
         """One gossip round for a flat float32 replica on the card (or any
         device): ``(merged, α, partner)``, the merged replica a new tensor
         on the same device, or ``vec_dev`` itself when the round was
-        skipped (α = 0)."""
+        skipped (α = 0).  With ``overlap_prefetch`` the round goes through
+        the prefetch pipeline (:meth:`_round_pipelined`).  With
+        ``async_rounds`` it is the async engine's barrier-free round, and α
+        is the damped α of this round's partner when its frame merged, else
+        of the last frame merged (0.0 when none did)."""
+        if self.async_engine is not None:
+            merged, merges = self.async_engine.exchange_on_device(vec_dev, clock, loss, step)
+            partner = self.last_round.get("partner", self.me)
+            alpha = merges[-1][1] if merges else 0.0
+            for peer, damped, _lag in merges:
+                if peer == partner:
+                    alpha = damped
+            return merged, alpha, partner
         rep = self._replica(_flat(vec_dev))
-        remote, alpha, partner = self._round(rep, clock, loss, step)
-        with self._stats_lock:
-            self.stats["rounds"] += 1
-            self.stats["merged"] += remote is not None
-            if remote is not None:
-                # The peer whose frame merged: a hedge's winner may be the fallback.
-                seen = self.stats["merged_from"].setdefault(
-                    self.last_fetch["peer"], [0, self._round_clock])
-                seen[0] += 1
-                seen[1] = max(seen[1], self._round_clock)
+        round_fn = self._round_pipelined if self._prefetch_on else self._round
+        remote, alpha, partner = round_fn(rep, clock, loss, step)
+        self._count_round(() if remote is None else ((self.last_fetch["peer"], self._round_clock),))
         if remote is None:
             return rep.dev, alpha, partner
         merged = engine.merge(rep.dev, remote, alpha)
         rep.swap(merged)
         return merged, alpha, partner
+
+    def exchange_overlapped_start(self, vec, clock: float, loss: float, step: int
+                                  ) -> _OverlappedExchange:
+        """Begin a round that overlaps the partner's fetch with the
+        caller's compute: publish ``vec`` (the pre-step replica), resolve
+        the partner and start the fetch on a background thread; the caller
+        runs its local step, then calls :meth:`_OverlappedExchange.finish`
+        with the pre-step vector and the step's update."""
+        self.publish(vec, clock, loss)
+        n = vec.size if isinstance(vec, np.ndarray) else vec.numel()
+        ex = _OverlappedExchange(self, clock, loss, step, expected_nbytes=self._wire_nbytes(n))
+        ex.start()
+        return ex
+
+    def exchange_on_device_fold(self, vec_dev: torch.Tensor, clock: float, loss: float,
+                                step: int, peers: Sequence[int]):
+        """The fan-in round: publish, fetch a frame from each of ``peers``
+        (this node skipped), each landed, guarded, screened and recorded as
+        a pairwise round's, then merge the accepted ones in arrival order:
+        runs of two or more dense frames (float32, an int8 frame
+        dequantised) by one launch of B2's fold form, a bf16, top-k or shard
+        frame by its own form of B2; bit-equal to the merges one after the
+        other.  Returns ``(merged, merges)``, ``merges`` the ``(peer, α)``
+        applied, in order."""
+        rep = self._replica(_flat(vec_dev))
+        self._publish_replica(rep, clock, loss)
+        frames, clocks = [], []
+        try:
+            for peer in peers:
+                if peer == self.me:
+                    continue
+                got = self._fetch_landed(peer, None, step, rep.dev.device)
+                if got is None:
+                    continue
+                frames.append(self._classify_device_frame(got[0], peer,
+                                                          self._weigh(got, clock, loss)))
+                clocks.append((self.last_fetch["peer"], got[1]))
+        finally:
+            self._membership_end_round(step)
+        merged = self._apply_device_frames(rep.dev, frames)
+        self._count_round(clocks)
+        if merged is not rep.dev:
+            rep.swap(merged)
+        return merged, [(peer, alpha) for _kind, _landed, peer, alpha in frames]
+
+    @staticmethod
+    def _classify_device_frame(landed: "_Landed", peer: int, alpha: float) -> tuple:
+        """``(kind, landed, peer, α)``: ``dense`` for a float32 frame or an
+        int8 one (decoded to float32, as the reference decodes it), else
+        ``bf16``, ``topk`` or ``shard``."""
+        m = landed.merge
+        if isinstance(m, TopkPayload):
+            kind = "topk"
+        elif isinstance(m, ShardPayload):
+            kind = "shard"
+        elif isinstance(m, torch.Tensor) and m.dtype == torch.bfloat16:
+            kind = "bf16"
+        else:
+            kind = "dense"
+        return kind, landed, peer, alpha
+
+    @staticmethod
+    def _apply_device_frames(start: torch.Tensor, frames: Sequence[tuple],
+                             fold: bool = True) -> torch.Tensor:
+        """Merge ``frames`` (:meth:`_classify_device_frame`'s) onto
+        ``start`` in order: runs of two or more dense frames by one fold
+        launch (with ``fold``), any other frame by its own form of B2 (a
+        lone int8 frame by B2's int8-frame form, which is bit-equal).
+        Returns the merged replica (``start`` itself for no frames)."""
+        merged = start
+        run: List[tuple] = []
+
+        def flush() -> None:
+            nonlocal merged
+            if len(run) >= 2 and fold:
+                merged = engine.fold(merged, [landed.vector() for landed, _a in run],
+                                     [a for _landed, a in run])
+            else:
+                for landed, a in run:
+                    merged = engine.merge(merged, landed.merge, a)
+            run.clear()
+
+        for kind, landed, _peer, alpha in frames:
+            if kind == "dense":
+                run.append((landed, alpha))
+                continue
+            flush()
+            merged = engine.merge(merged, landed.merge, alpha)
+        flush()
+        return merged
 
     def exchange(self, vec, clock: float, loss: float, step: int):
         """One gossip round for a host replica (a float32 numpy array or
@@ -1843,6 +2287,14 @@ class TcpTransport:
         return (merged.numpy() if as_numpy else merged), alpha, partner
 
     def close(self) -> None:
+        """Stop serving; a prefetch slot is abandoned and the async engine's
+        in-flight fetches are joined, every frame they hold given back to
+        the receive ring."""
+        entry, self._prefetch_slot = self._prefetch_slot, None
+        if entry is not None and entry["slot"] is not None:
+            entry["slot"].abandon()
+        if self.async_engine is not None:
+            self.async_engine.release()
         if self.healthz is not None:
             self.healthz.close()
         self.server.close()

@@ -1184,3 +1184,70 @@ def test_codec_exchange_on_device_pair_on_card_equals_cpu_pair(cuda_device, code
     assert frames[str(cuda_device)] == frames["cpu"]
     for got, want in zip(finals[str(cuda_device)], finals["cpu"]):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [4099, 25557032])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_fold_merge_bit_equal_to_plain(cuda_device, k, d):
+    """B2's fold form against its plain twin on a CPU copy, bit for bit, at
+    α ≠ 0.5, with x and the rows at an offset that is not 16-byte aligned
+    (the scalar path) and aligned (float4 words)."""
+    gen = torch.Generator().manual_seed(7 + k)
+    x = torch.randn(d + 1, generator=gen)
+    rows = [torch.randn(d + 1, generator=gen) * (i + 1) for i in range(k)]
+    alphas = [0.3 + 0.4 * i / k for i in range(k)]
+    alphas = [a if a != 0.5 else 0.7 for a in alphas]
+    for lead in (0, 1):
+        xs = x[lead:lead + d]
+        rs = [r[lead:lead + d] for r in rows]
+        want = merge.torch_fold_merge(xs, rs, alphas)
+        dev = [t.to(cuda_device) for t in (x, *rows)]
+        got = merge.fold_merge(dev[0][lead:lead + d], [r[lead:lead + d] for r in dev[1:]], alphas)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (k, d, lead)
+    del dev, got
+    torch.cuda.empty_cache()
+
+
+def test_fold_merge_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError):
+        merge.fold_merge(x, [torch.zeros(7, device=cuda_device)], [0.3])
+    with pytest.raises(ValueError):
+        merge.fold_merge(x, [torch.zeros(8, device=cuda_device)], [0.3, 0.4])
+    with pytest.raises(ValueError):
+        merge.fold_merge(x, [torch.zeros(8)], [0.3])
+    with pytest.raises(ValueError):
+        merge.fold_merge(x, [x], [0.3], out=x)
+
+
+def test_fan_in_round_on_card_equals_sequential_b2(cuda_device):
+    """The fan-in round of 4 in-process TCP nodes on the card: node0 folds
+    the three dense frames in one launch of B2's fold form, bit-equal to
+    three B2 launches one after the other."""
+    import dataclasses
+
+    from dpwa_tpu_torch.device import engine
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    cfg = make_local_config(4, interpolation="clock", factor=0.7)
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
+    gen = torch.Generator().manual_seed(8)
+    vecs = [torch.randn(300_001, generator=gen).to(cuda_device) for _ in range(4)]
+    nodes = [TcpTransport(cfg, f"node{i}", device=cuda_device) for i in range(4)]
+    try:
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        for i, (t, v) in enumerate(zip(nodes, vecs)):
+            t.publish(v, i + 1.0, 0.5)
+        merge.reset_launch_counts()
+        merged, merges = nodes[0].exchange_on_device_fold(vecs[0], 1.0, 0.5, 0, [1, 2, 3])
+        assert [p for p, _a in merges] == [1, 2, 3]
+        assert merge.fold_merge.launches == 1 and merge.gather_merge.launches == 0
+        want = vecs[0]
+        for (p, a) in merges:
+            want = engine.merge_dense(want, vecs[p], a)
+        assert torch.equal(merged.view(torch.int32), want.view(torch.int32))
+    finally:
+        for t in nodes:
+            t.close()

@@ -29,7 +29,10 @@ YAMLS = ["examples/cifar10/nodes.yaml", "examples/mnist/nodes.yaml"]
 
 
 def _fields(obj):
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    """A config dataclass's fields, a nested block (``async_rounds``) as its
+    own fields."""
+    values = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    return {k: _fields(v) if dataclasses.is_dataclass(v) else v for k, v in values.items()}
 
 
 @pytest.mark.parametrize("path", YAMLS)
@@ -118,8 +121,20 @@ def test_health_validation_matches_reference(kw):
 
 
 def test_async_rounds_and_unknown_blocks_raise():
-    with pytest.raises(NotImplementedError, match="async_rounds"):
-        config.config_from_dict({"nodes": ["a"], "protocol": {"async_rounds": {}}})
+    """``protocol.async_rounds`` loads as the reference's block and raises
+    where the reference's validation does; an unknown block raises."""
+    got = config.config_from_dict(
+        {"nodes": ["a"], "protocol": {"async_rounds": {"enabled": True, "queue_depth": 3}}})
+    want = ref_config.config_from_dict(
+        {"nodes": ["a"], "protocol": {"async_rounds": {"enabled": True, "queue_depth": 3}}})
+    assert dataclasses.asdict(got.protocol.async_rounds) == dataclasses.asdict(
+        want.protocol.async_rounds)
+    assert not config.config_from_dict({"nodes": ["a"]}).protocol.async_rounds.enabled
+    for bad in ({"max_staleness": 0}, {"staleness_damping": 0.0}, {"queue_depth": 0}):
+        with pytest.raises(ValueError, match="async_rounds"):
+            config.config_from_dict({"nodes": ["a"], "protocol": {"async_rounds": bad}})
+        with pytest.raises(ValueError, match="async_rounds"):
+            ref_config.config_from_dict({"nodes": ["a"], "protocol": {"async_rounds": bad}})
     with pytest.raises(NotImplementedError, match="bogus"):
         config.config_from_dict({"nodes": ["a"], "bogus": {}})
     with pytest.raises(ValueError, match="nodes"):

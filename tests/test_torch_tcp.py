@@ -406,7 +406,7 @@ def test_poisoned_frame_is_not_merged():
 
 
 @pytest.mark.parametrize("setting", [
-    dict(overlap_prefetch=True, wire_dtype="int8"), dict(overlap_prefetch=True, wire_codec="topk"),
+    dict(rx_server="reactor", wire_dtype="int8"), dict(rx_server="reactor", wire_codec="topk"),
     dict(membership={"view": {"enabled": True}}), dict(rx_server="reactor"),
 ])
 def test_unported_settings_raise(setting):
