@@ -173,6 +173,9 @@ WIRE_LEGS = (
                        "trust": {"enabled": False}}),
 )
 WIRE_WARMUPS, WIRE_PASSES, WIRE_ITERS = 2, 2, 5
+# B2's top-k form in codec_kernels: (name, topk fraction, shard count; the
+# last shard's slice when more than 1), at ResNet-50's d.
+TOPK_MERGE_CASES = (("topk_0.05", 0.05, 1), ("topk_0.1", 0.1, 1), ("shard4_topk_0.05", 0.05, 4))
 CODEC_RUNS = {  # name: (protocol lines, top-level blocks)
     "int8": ("  wire_dtype: int8\n", ""),
     "topk": ("  wire_codec: topk\n  topk_fraction: 0.05\n", ""),
@@ -1840,9 +1843,9 @@ def codec_kernel_checks(torch, merge, device, flush) -> dict:
     among the values), B2's int8-frame form and its support form at topk
     0.05's k (both bit for bit, NaN for NaN); then each timed with CUDA
     events, L2 flushed, beside its bound and its plain version, and beside
-    what it replaces on the card: the dequantise-then-B2 route, and the
-    whole top-k merge (the self-lerp and the support) and the row copy a
-    shard merge pays."""
+    what it replaces on the card: the dequantise-then-B2 route, and the row
+    copy a dense or int8 shard merge pays; and B2's top-k form
+    (:func:`topk_merge_checks`)."""
     from dpwa_tpu_torch.device import engine
     from dpwa_tpu_torch.ops import quantize as q
 
@@ -1896,21 +1899,78 @@ def codec_kernel_checks(torch, merge, device, flush) -> dict:
     n_bytes = 16 * k
     b_ms, b_by = bound_ms(n_bytes, 3 * k)
     ms = time_ms(torch, lambda: merge.support_merge_(base, x, idx, vals, 0.3), 10, flush)
-    topk = q.TopkPayload(d, idx.long(), vals)
-    whole = time_ms(torch, lambda: engine.merge_topk(x, topk, 0.3), 10, flush)
-    whole_bound = bound_ms(8 * d + n_bytes, 3 * d + 3 * k)[0]
     out["b2_support"] = {
         "shape": [1, d], "k": k, "bytes": n_bytes, "max_abs_err": err, "ms": ms,
         "plain_ms": time_ms(torch, lambda: merge.torch_support_merge_(base, x, idx, vals, 0.3),
                             3, flush),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
-        "topk_merge_ms": whole, "topk_merge_bound_ms": whole_bound,
         "row_copy_ms": time_ms(torch, lambda: x.clone(), 10, flush),
         "row_copy_bound_ms": bound_ms(8 * d, 0)[0],
     }
+    out["topk_merge"] = topk_merge_checks(torch, merge, device, flush, x, gen)
     del x, y, body, plain, payload, got, res, base
     torch.cuda.empty_cache()
     return out
+
+
+def topk_merge_checks(torch, merge, device, flush, x, gen) -> dict:
+    """B2's top-k form at ResNet-50's d for each of TOPK_MERGE_CASES: bit-equal
+    to its plain version on the card (NaN for NaN, inf and NaN among x and
+    the values), and to the route it replaced (B2's self-lerp of the row,
+    then the support form; for a shard frame a row copy, the slice's
+    self-lerp, then the support), then each timed with CUDA events, L2
+    flushed, beside its 8·d + 8·k bound, its plain version and that route,
+    in this call; and the engine's whole merge from a landed frame's int64
+    indices (their int32 copy included)."""
+    from dpwa_tpu_torch.device import engine
+    from dpwa_tpu_torch.ops import quantize as q
+    from dpwa_tpu_torch.ops import shard
+    from dpwa_tpu_torch.parallel import protocol_constants as pc
+
+    d = x.numel()
+    x = x.clone()
+    x[[5, d // 2, d - 3]] = torch.tensor([float("inf"), float("nan"), float("-inf")], device=device)
+    partner = torch.zeros(1, dtype=torch.int32, device=device)
+    alpha = torch.full((1,), 0.3, dtype=torch.float32, device=device)
+
+    def replaced(idx, vals, lo, hi):
+        dst = x.clone() if (lo, hi) != (0, d) else torch.empty_like(x)
+        merge.gather_merge(x[None, lo:hi], partner, alpha, wire="int8", lerp_self=True,
+                           out=dst[None, lo:hi])
+        merge.support_merge_(dst[lo:hi], x[lo:hi], idx, vals, 0.3)
+        return dst
+
+    res = {}
+    for name, fraction, shards in TOPK_MERGE_CASES:
+        lo, hi = shard.shard_bounds(d, shards, shards - 1) if shards > 1 else (0, d)
+        k = q.topk_k(hi - lo, fraction)
+        idx = torch.sort(torch.randperm(hi - lo, generator=gen, device=device)[:k]).values
+        idx = idx.to(torch.int32)
+        vals = torch.randn(k, generator=gen, device=device)
+        vals[:2] = torch.tensor([float("nan"), float("inf")], device=device)
+        got = merge.topk_merge(x, idx, vals, 0.3, lo, hi)
+        same, err = nan_equal(torch, got, merge.torch_topk_merge(x, idx, vals, 0.3, lo, hi))
+        if not same:
+            raise AssertionError(f"topk_merge {name} differs from its plain version: {err}")
+        if not nan_equal(torch, got, replaced(idx, vals, lo, hi))[0]:
+            raise AssertionError(f"topk_merge {name} differs from the route it replaced")
+        n_bytes = 8 * d + 8 * k
+        b_ms, b_by = bound_ms(n_bytes, 3 * (hi - lo) + 3 * k)
+        ms = time_ms(torch, lambda: merge.topk_merge(x, idx, vals, 0.3, lo, hi), 10, flush)
+        frame = q.TopkPayload(hi - lo, idx.long(), vals)
+        if shards > 1:
+            frame = shard.ShardPayload(d, shards, shards - 1, pc.PAYLOAD_TOPK_DELTA, frame)
+        whole = engine.merge_shard_topk if shards > 1 else engine.merge_topk
+        res[name] = {
+            "shape": [d], "slice": [lo, hi], "k": k, "bytes": n_bytes, "max_abs_err": err,
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "plain_ms": time_ms(torch, lambda: merge.torch_topk_merge(x, idx, vals, 0.3, lo, hi),
+                                3, flush),
+            "library_ms": None,
+            "replaced_route_ms": time_ms(torch, lambda: replaced(idx, vals, lo, hi), 10, flush),
+            "engine_ms": time_ms(torch, lambda: whole(x, frame, 0.3), 10, flush),
+        }
+    return res
 
 
 def wire_frame_bytes(q, d: int, kw: dict) -> int:
@@ -2002,11 +2062,16 @@ def wire_exchange(torch, merge, device) -> dict:
                                      f"says {layout}")
             launches = {"gather_merge": merge.gather_merge.launches,
                         "int8_frame_merge": merge.int8_frame_merge.launches,
+                        "topk_merge": merge.topk_merge.launches,
                         "support_merge_": merge.support_merge_.launches,
                         "quantize_sr": q.quantize_sr.launches}
+            # One merge launch a merged round: the top-k form on a top-k
+            # wire, B2 or its int8-frame form on the others.
+            topk = 2 * rounds if kw.get("wire_codec") == "topk" else 0
             b2 = launches["gather_merge"] + launches["int8_frame_merge"]
-            if device.type == "cuda" and b2 != 2 * rounds:
-                raise AssertionError(f"wire_exchange {name}: {rounds} rounds on 2 nodes, B2 {launches}")
+            if device.type == "cuda" and (b2 != 2 * rounds - topk or launches["topk_merge"] != topk
+                                          or launches["support_merge_"]):
+                raise AssertionError(f"wire_exchange {name}: {rounds} rounds on 2 nodes, {launches}")
             # One frame's legs alone: encode on the card, read back, land.
             node, vec = nodes[0], vecs[0]
             if node._codec:
@@ -2059,8 +2124,8 @@ def codecs_tcp(kind: str) -> dict:
     end barrier) under each of CODEC_RUNS, and two processes of ``examples/mnist_torch.py`` (the
     reference's PyTorch surface) on the int8 wire, all at once: every node
     at accuracy >= 0.9, its B2 launches equal to its merged rounds; the
-    quantiser launched under int8, B2's support form once a merged top-k
-    round."""
+    quantiser launched under int8; on a top-k wire (whole-row or shard) B2's
+    top-k form once a merged round and no other merge launch."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = {}
     try:
@@ -2088,10 +2153,12 @@ def codecs_tcp(kind: str) -> dict:
         nodes = [node_result(f"codecs_tcp {name}", f"node{i}", p.returncode, *out, kind, MNIST_STEPS)
                  for i, (p, out) in enumerate(zip(procs[name], outs[name]))]
         for n in nodes:
-            topk = "topk" in name
-            if topk and n["support_launches"] != n["merged_rounds"]:
+            topk = n["merged_rounds"] if "topk" in name else 0
+            if n["topk_launches"] != topk or n["b2_launches"] - n["topk_launches"] != (
+                    n["merged_rounds"] - topk):
                 raise AssertionError(f"codecs_tcp {name}: {n['merged_rounds']} merged rounds, "
-                                     f"{n['support_launches']} support launches")
+                                     f"{n['topk_launches']} top-k and {n['b2_launches']} B2 "
+                                     f"launches in all")
             if "int8" in name and n["quantize_launches"] < n["steps"]:
                 raise AssertionError(f"codecs_tcp {name}: {n['quantize_launches']} quantiser launches")
             n.pop("losses", None)
@@ -2747,9 +2814,10 @@ def main(argv=None) -> int:
         res = codecs_tcp(kind)
         runs = [n for name in CODEC_RUNS for n in res[name]]
         main_launches["codecs_tcp"] = {
-            "gather_merge": sum(n["b2_launches"] - n["int8_frame_launches"] for n in runs),
+            "gather_merge": sum(n["b2_launches"] - n["int8_frame_launches"] - n["topk_launches"]
+                                for n in runs),
             "int8_frame_merge": sum(n["int8_frame_launches"] for n in runs),
-            "support_merge_": sum(n["support_launches"] for n in runs),
+            "topk_merge": sum(n["topk_launches"] for n in runs),
             "quantize_sr": sum(n["quantize_launches"] for n in runs)}
         emit({"phase": "codecs_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
               "steps": MNIST_STEPS, **res})
@@ -3206,27 +3274,32 @@ def main(argv=None) -> int:
     if "codec_kernels" in results:
         # The TCP codecs' kernels: their launches in the wire sweep (two
         # nodes in this process) and in the MNIST codec runs (per process).
-        for key, name, source, replaces in (
-            ("quantize_sr", "quantize_sr", "dpwa_tpu_torch/ops/csrc/quantize.cu",
+        # B2's support form is off every path since the top-k form replaced
+        # its route (0 launches); it stays in the line with its times.
+        codec = results["codec_kernels"]
+        for at, name, source, replaces in (
+            (codec["quantize_sr"], "quantize_sr", "dpwa_tpu_torch/ops/csrc/quantize.cu",
              "dpwa_tpu/native/dpwa_native.cpp:56 (dpwa_quantize_sr; no Pallas kernel)"),
-            ("b2_int8_frame", "int8_frame_merge", "dpwa_tpu_torch/ops/csrc/merge.cu",
+            (codec["b2_int8_frame"], "int8_frame_merge", "dpwa_tpu_torch/ops/csrc/merge.cu",
              "dpwa_tpu/ops/merge.py:103 (B2), dpwa_tpu/device/kernels.py:156 (build_int8)"),
-            ("b2_support", "support_merge_", "dpwa_tpu_torch/ops/csrc/merge.cu",
+            (codec["topk_merge"][TOPK_MERGE_CASES[0][0]], "topk_merge",
+             "dpwa_tpu_torch/ops/csrc/merge.cu",
+             "dpwa_tpu/ops/merge.py:103 (B2), dpwa_tpu/device/kernels.py:176 (build_topk), "
+             ":216 (build_shard_topk)"),
+            (codec["b2_support"], "support_merge_", "dpwa_tpu_torch/ops/csrc/merge.cu",
              "dpwa_tpu/ops/merge.py:103 (B2), dpwa_tpu/device/kernels.py:176 (build_topk)"),
         ):
-            at = results["codec_kernels"][key]
-            wire_n = main_launches.get("wire_exchange", {}).get(name)
-            tcp_n = main_launches.get("codecs_tcp", {}).get(name)
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": wire_n, "launches_phase": "wire_exchange",
-                "launches_codecs_tcp": tcp_n,
+                "launches": main_launches.get("wire_exchange", {}).get(name),
+                "launches_phase": "wire_exchange",
+                "launches_codecs_tcp": main_launches.get("codecs_tcp", {}).get(name),
                 "max_abs_err": at["max_abs_err"], "ms": at["ms"], "plain_ms": at["plain_ms"],
                 "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
                 "library_ms": at["library_ms"], "at_shape": at["shape"],
             })
-        for key, name in (("b2_int8_frame", "int8_frame_merge"), ("b2_support", "support_merge_"),
-                          ("quantize_sr", "quantize_sr")):
+        kernels[-2]["at_cases"] = codec["topk_merge"]
+        for name in ("int8_frame_merge", "topk_merge", "quantize_sr"):
             if "wire_exchange" in main_launches and not main_launches["wire_exchange"].get(name):
                 raise AssertionError(f"wire_exchange launched {name} no time")
     if "fold_kernels" in results:

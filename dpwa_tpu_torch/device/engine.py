@@ -13,18 +13,21 @@ versions, which is the host path of ``TcpTransport.exchange``.
 - int8 (:func:`merge_int8`): B2's int8-frame form
   (:func:`~dpwa_tpu_torch.ops.merge.int8_frame_merge`) from the landed
   frame's codes and scales, so the dense frame is never written;
-- top-k (:func:`merge_topk`): B2's self-lerp of the row (``y = x``), then
-  its support form (:func:`~dpwa_tpu_torch.ops.merge.support_merge_`) over
-  the k shipped coordinates.  Off the support the reference merges its
-  densified estimate, which equals ``x`` there, so the self-lerp is the
-  reference's value (not ``x``).  On the support it is the reference's
-  host merge (``exchange``, ``native.merge_out``), ``fma(1-α, x, α·v)``.
-  The reference's device engine's scatter (``build_topk``) is XLA's choice
-  of product to fuse, which on some hosts is the other one and then differs
-  in the last bit at α ≠ 0.5; the port follows ``exchange``;
-- shard (:func:`merge_shard`, :func:`merge_shard_topk`,
-  :func:`merge_shard_int8`): the same forms over the slice ``[lo, hi)`` of a
-  copy of the row, so the other k−1 slices reach the output bit-identical;
+- top-k (:func:`merge_topk`): one launch of B2's top-k form
+  (:func:`~dpwa_tpu_torch.ops.merge.topk_merge`), which writes B2's
+  self-lerp of the row (``y = x``) and the k shipped coordinates in one
+  pass.  Off the support the reference merges its densified estimate,
+  which equals ``x`` there, so the self-lerp is the reference's value (not
+  ``x``).  On the support it is the reference's host merge (``exchange``,
+  ``native.merge_out``), ``fma(1-α, x, α·v)``.  The reference's device
+  engine's scatter (``build_topk``) is XLA's choice of product to fuse,
+  which on some hosts is the other one and then differs in the last bit at
+  α ≠ 0.5; the port follows ``exchange``;
+- shard (:func:`merge_shard`, :func:`merge_shard_int8`): B2's dense or
+  int8-frame form over the slice ``[lo, hi)`` of a copy of the row, so the
+  other k−1 slices reach the output bit-identical; a top-k inner
+  (:func:`merge_shard_topk`) is one launch of the top-k form over the
+  slice, which copies the other slices itself;
 - fold (:func:`fold`): a run of k landed float32 frames (an int8 frame
   dequantised) merged in arrival order by one launch of B2's fold form
   (:func:`~dpwa_tpu_torch.ops.merge.fold_merge`), bit-equal to k
@@ -39,8 +42,9 @@ fused multiply-add of the local product, ``fma(1-α, x, α·y)``
 frame's ``y`` is ``q · scale`` rounded on its own, as the reference's decode
 rounds it.  That is B2's int8-wire form; a bf16 frame takes its bf16 form,
 whose rounding of ``y`` to bf16 is exact on a bf16 frame.  B2's launch
-counts (``gather_merge.launches`` and ``int8_frame_merge.launches``) count
-the merges, one a merge; ``support_merge_.launches`` the top-k ones.
+counts (``gather_merge.launches``, ``int8_frame_merge.launches`` and
+``topk_merge.launches``) count the merges, one a merge; :func:`stats`
+counts the top-k merges (whole-row and shard) on every device.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from typing import Sequence, Union
 
 import torch
 
-from dpwa_tpu_torch.ops.merge import fold_merge, gather_merge, int8_frame_merge, support_merge_
+from dpwa_tpu_torch.ops.merge import fold_merge, gather_merge, int8_frame_merge, topk_merge
 from dpwa_tpu_torch.ops.quantize import Int8Payload, TopkPayload
 from dpwa_tpu_torch.ops.shard import ShardPayload
 
@@ -97,27 +101,31 @@ def merge_int8(local: torch.Tensor, payload: Int8Payload, alpha: float,
     return int8_frame_merge(local, q, scales, alpha, out=out)
 
 
-def _support(local: torch.Tensor, out: torch.Tensor, payload: TopkPayload,
-             alpha: float) -> None:
+def _topk(local: torch.Tensor, payload: TopkPayload, alpha: float, lo: int = 0,
+          hi: int | None = None) -> torch.Tensor:
     idx = payload.indices
     if idx.device.type == "cuda":
         idx = idx.to(torch.int32)
-    _b2(local, alpha, out=out)
-    support_merge_(out, local, idx, payload.values, alpha)
+    with _STATS_LOCK:
+        _STATS["topk_merges"] += 1
+    return topk_merge(local, idx, payload.values, alpha, lo, hi)
 
 
 def merge_topk(local: torch.Tensor, payload: TopkPayload, alpha: float) -> torch.Tensor:
-    """A landed top-k frame: the self-lerp of the row, then its support."""
+    """A landed top-k frame: the self-lerp of the row and its support, one
+    launch."""
     _check_row(local, payload.n, payload.values.device)
-    out = torch.empty_like(local)
-    _support(local, out, payload, alpha)
-    return out
+    return _topk(local, payload, alpha)
+
+
+def _bounds(local: torch.Tensor, payload: ShardPayload) -> tuple:
+    if local.numel() != payload.d:
+        raise ValueError(f"shard frame of d={payload.d} does not match the replica {local.numel()}")
+    return payload.bounds
 
 
 def _sliced(local: torch.Tensor, payload: ShardPayload):
-    lo, hi = payload.bounds
-    if local.numel() != payload.d:
-        raise ValueError(f"shard frame of d={payload.d} does not match the replica {local.numel()}")
+    lo, hi = _bounds(local, payload)
     out = local.clone()  # the k−1 unshipped slices, bit-identical
     return local[lo:hi], out, out[lo:hi]
 
@@ -140,10 +148,10 @@ def merge_shard_int8(local: torch.Tensor, payload: ShardPayload, alpha: float) -
 
 def merge_shard_topk(local: torch.Tensor, payload: ShardPayload, alpha: float) -> torch.Tensor:
     """A landed shard frame with a top-k inner (indices into the slice):
-    the self-lerp of the slice, then its support."""
-    x, out, dst = _sliced(local, payload)
-    _support(x, dst, payload.inner, alpha)
-    return out
+    the copy of the other slices, the self-lerp of the slice and its
+    support, one launch."""
+    lo, hi = _bounds(local, payload)
+    return _topk(local, payload.inner, alpha, lo, hi)
 
 
 def merge(local: torch.Tensor, remote: Remote, alpha: float) -> torch.Tensor:
@@ -163,7 +171,7 @@ def merge(local: torch.Tensor, remote: Remote, alpha: float) -> torch.Tensor:
 
 
 _STATS_LOCK = threading.Lock()
-_STATS = {"fold_dispatches": 0, "fold_frames": 0}
+_STATS = {"fold_dispatches": 0, "fold_frames": 0, "topk_merges": 0}
 
 
 def fold(local: torch.Tensor, remotes: Sequence[torch.Tensor], alphas: Sequence[float]) -> torch.Tensor:
@@ -184,7 +192,8 @@ def fold(local: torch.Tensor, remotes: Sequence[torch.Tensor], alphas: Sequence[
 
 
 def stats() -> dict:
-    """The fold launches and the frames they merged, process-wide."""
+    """The fold launches and the frames they merged, and the top-k merges
+    (one :func:`~dpwa_tpu_torch.ops.merge.topk_merge` each), process-wide."""
     with _STATS_LOCK:
         return dict(_STATS)
 

@@ -334,10 +334,11 @@ def run_tcp(args) -> dict:
     from dpwa_tpu_torch.ops import quantize
 
     def b2_launches() -> int:  # B2's forms that merge a row: one a merged round
-        return merge.gather_merge.launches + merge.int8_frame_merge.launches
+        return (merge.gather_merge.launches + merge.int8_frame_merge.launches
+                + merge.topk_merge.launches)
 
     launches0 = b2_launches()
-    support0, quantize0 = merge.support_merge_.launches, quantize.quantize_sr.launches
+    topk0, quantize0 = merge.topk_merge.launches, quantize.quantize_sr.launches
     int8_form0, fold0 = merge.int8_frame_merge.launches, merge.fold_merge.launches
     losses = []
     t0 = None
@@ -415,11 +416,11 @@ def run_tcp(args) -> dict:
             # (0: the frame crossed from the receive buffer it landed in)
             "rx_copies_per_frame": ingest.rx_stats()["copies_per_frame"],
             "b2_launches": b2_launches() - launches0,
-            # of them B2's int8-frame form (one a merged int8 round); then
-            # B2's support form (one a merged top-k round) and the int8
-            # quantiser (one an int8 publish, a top-k one with int8 values)
+            # of them B2's int8-frame form (one a merged int8 round) and its
+            # top-k form (one a merged top-k or shard-top-k round); then the
+            # int8 quantiser (one an int8 publish, a top-k one with int8 values)
             "int8_frame_launches": merge.int8_frame_merge.launches - int8_form0,
-            "support_launches": merge.support_merge_.launches - support0,
+            "topk_launches": merge.topk_merge.launches - topk0,
             "quantize_launches": quantize.quantize_sr.launches - quantize0,
             # B2's fold form: one a drained run of two or more dense frames
             # under protocol.async_rounds

@@ -41,17 +41,24 @@
 //     reference's device engine bitcasts and upcasts in-graph), so no f32
 //     copy of the frame is ever written.
 //
-// B2 has two more forms for the TCP transport's codec frames, each one row
+// B2 has more forms for the TCP transport's codec frames, each one row
 // and the int8 arithmetic fma(1 - a, x, a * y) with a the host's alpha:
 //   dpwa_int8_frame_merge   y = q[j] * s[j / 256], the landed int8-chunked
 //       frame's codes and scales (dpwa_tpu/device/kernels.py::build_int8),
 //       the dequantisation rounded on its own as the reference's decode
 //       rounds it, so the dense float32 frame is never written;
-//   dpwa_support_merge      out[idx[j]] = lerp(a, x[idx[j]], v[j]) over the k
-//       sorted, unique indices of a top-k frame, after B2's self-lerp of
-//       the row (y = x) has written the off-support values.  It rounds as
-//       the reference's host merge of the densified frame (native.merge_out)
-//       rounds, the path the transport follows.
+//   dpwa_topk_merge         a top-k frame's whole merge in one pass
+//       (dpwa_tpu/device/kernels.py::build_topk and ::build_shard_topk):
+//       out[i] = x[i] outside the slice [lo, hi) (the other shards of a
+//       shard frame, bit-identical), lerp(a, x[i], x[i]) inside it (B2's
+//       self-lerp: the densified frame equals x off the support), and
+//       lerp(a, x[i], v[j]) at i = lo + idx[j] over the k sorted, unique
+//       slice positions idx.  It rounds as the reference's host merge of the
+//       densified frame (native.merge_out) rounds, the path the transport
+//       follows.
+//   dpwa_support_merge      out[idx[j]] = lerp(a, x[idx[j]], v[j]) alone,
+//       after B2's self-lerp of the row has written the rest: the two-launch
+//       route dpwa_topk_merge replaced, kept to be timed against it.
 //   dpwa_fold_merge         out = x, then out <- lerp(t_i, out, r_i) for the k
 //       landed float32 rows r_0 ... r_{k-1} in arrival order (the fan-in
 //       round's and the async drain's runs of dense frames,
@@ -67,6 +74,20 @@
 // support form 16 bytes a support element (its index, value, x and out, 4
 // bytes each).  Each of the support form's scattered 4-byte reads and writes
 // touches a whole 32-byte sector, so it moves several times its bound.
+//
+// The top-k form moves 8 bytes an element of the row (x read, out written)
+// and 8 a support element (idx and v read once), its floor.  A CTA owns a
+// tile of kTile floats: it loads the tile's x as float4 words, and while
+// those loads are in flight two warps find the tile's run [j0, j1) of the
+// sorted support by a 32-ary search each (one probe a lane, a ballot keeps
+// the stretch that holds the bound; log32(k) rounds, in L2).  x and its
+// self-lerp (or copy, outside the slice) are staged in shared memory, the
+// run's idx and v are read coalesced and each entry overwrites its slot
+// from the staged x, and the tile leaves as float4 words.  So every
+// scattered write lands in shared memory, not in a 32-byte sector of device
+// memory.  The scalar head and tail of a row that does not start on a
+// 16-byte boundary sit in the first and last tiles; out is allocated at x's
+// phase within 16 bytes, so the tiles always move float4 words.
 //
 // What bounds them on the card: device-memory bytes.  B1 moves 2*rows*d*4
 // bytes (each touched row read once and written once, the floor for any
@@ -308,6 +329,113 @@ support_merge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
+// B2's top-k form (see the top of the file).  Tile t holds the row's
+// elements from base = head + t * kTile on at shared slots kPad + (i - base),
+// so its float4 words sit on 16-byte slots; tile 0 also holds the head's
+// scalars (slots below kPad) and the last tile the tail's.
+constexpr int kTile = 4096;
+constexpr int kTileWords = kTile / 4;
+constexpr int kWordsPerThread = kTileWords / kThreads;
+constexpr int kPad = 4;
+
+// First j in [0, k) with idx[j] >= key, or k; by a whole warp.  Each round
+// lane l probes position lo + n * l / 32 of the n left; the first lane whose
+// probe is >= key (a ballot) bounds the answer from above, the lane before
+// it from below.
+__device__ int64_t warp_lower_bound(const int* __restrict__ idx, int64_t k, int64_t key) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = k;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int64_t p = lo + ((hi - lo) * lane) / 32;
+    const unsigned ge = __ballot_sync(0xffffffffu, __ldg(idx + p) >= key);
+    const int f = ge ? __ffs(ge) - 1 : 32;
+    const long long below = __shfl_sync(0xffffffffu, static_cast<long long>(p), f > 0 ? f - 1 : 0);
+    const long long at = __shfl_sync(0xffffffffu, static_cast<long long>(p), f < 32 ? f : 31);
+    if (f == 0) {
+      hi = lo;
+    } else {
+      lo = below + 1;
+      if (f < 32) hi = at;
+    }
+  }
+  return lo;
+}
+
+// x's value at row position i in the top-k form: its self-lerp inside the
+// slice, itself outside.
+__device__ __forceinline__ float slice_lerp(float a, float xi, int64_t i, int64_t lo, int64_t hi) {
+  return i >= lo && i < hi ? lerp<kInt8>(a, xi, xi) : xi;
+}
+
+__global__ void __launch_bounds__(kThreads)
+topk_merge_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                  const float* __restrict__ v, int64_t k, float* __restrict__ out, int64_t d,
+                  int64_t head, int64_t lo, int64_t hi, float a) {
+  __shared__ float4 staged4[kTileWords + 2];  // x
+  __shared__ float4 merged4[kTileWords + 2];  // out
+  __shared__ int64_t run[2];
+  float* staged = reinterpret_cast<float*>(staged4);
+  float* merged = reinterpret_cast<float*>(merged4);
+  const int tid = threadIdx.x;
+  const int64_t base = head + static_cast<int64_t>(blockIdx.x) * kTile;
+  const bool first = blockIdx.x == 0;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  const int64_t body = (d - head) >> 2;  // float4 words of the row
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTileWords;
+  const int nw = static_cast<int>(body - w0 < kTileWords ? body - w0 : kTileWords);
+  // The head's scalars (tile 0, threads 0-2) and the tail's (the last
+  // tile, threads 4-6): element ei.
+  const int64_t ei = tid < 4 ? tid : head + 4 * body + tid - 4;
+  const bool edge = tid < 4 ? first && tid < head : last && tid < 8 && ei < d;
+  // The tile's words, loaded before the search.
+  const float4* vx = reinterpret_cast<const float4*>(x + head) + w0;
+  float4 r[kWordsPerThread];
+#pragma unroll
+  for (int u = 0; u < kWordsPerThread; ++u) {
+    const int w = tid + u * kThreads;
+    if (w < nw) r[u] = __ldg(vx + w);
+  }
+  // The tile's run of the support: its slice positions [s0, s1).
+  if (tid < 64) {
+    const int64_t begin = first ? 0 : base;
+    const int64_t end = last ? d : base + kTile;
+    const int64_t s0 = (begin > lo ? begin : lo) - lo;
+    const int64_t s1 = (end < hi ? end : hi) - lo;
+    const int64_t j = s0 < s1 ? warp_lower_bound(idx, k, tid < 32 ? s0 : s1) : 0;
+    if ((tid & 31) == 0) run[tid >> 5] = j;
+  }
+#pragma unroll
+  for (int u = 0; u < kWordsPerThread; ++u) {
+    const int w = tid + u * kThreads;
+    if (w < nw) {
+      const int64_t i = head + 4 * (w0 + w);
+      staged4[1 + w] = r[u];
+      merged4[1 + w] = make_float4(slice_lerp(a, r[u].x, i, lo, hi), slice_lerp(a, r[u].y, i + 1, lo, hi),
+                                   slice_lerp(a, r[u].z, i + 2, lo, hi), slice_lerp(a, r[u].w, i + 3, lo, hi));
+    }
+  }
+  if (edge) {
+    const int slot = static_cast<int>(kPad + ei - base);
+    staged[slot] = x[ei];
+    merged[slot] = slice_lerp(a, staged[slot], ei, lo, hi);
+  }
+  __syncthreads();
+  // Each support entry of the tile overwrites its slot from the staged x.
+  const int64_t j1 = run[1];
+  for (int64_t j = run[0] + tid; j < j1; j += kThreads) {
+    const int slot = static_cast<int>(lo + __ldg(idx + j) - base) + kPad;
+    merged[slot] = lerp<kInt8>(a, staged[slot], __ldg(v + j));
+  }
+  __syncthreads();
+  float4* vo = reinterpret_cast<float4*>(out + head) + w0;
+#pragma unroll
+  for (int u = 0; u < kWordsPerThread; ++u) {
+    const int w = tid + u * kThreads;
+    if (w < nw) vo[w] = merged4[1 + w];
+  }
+  if (edge) out[ei] = merged[kPad + ei - base];
+}
+
 // B2's fold form (see the top of the file): rows[i] and alphas[i] are read
 // from device arrays; head scalars, then float4 words, then the tail.
 template <bool kVec>
@@ -433,6 +561,24 @@ int dpwa_support_merge(const float* x, const int* idx, const float* v, float* ou
   const dim3 grid = grid_for(k, 1);
   support_merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, idx, v, out, k, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2's top-k form.  x, out: float32[d], not overlapping, at one phase within
+// 16 bytes (the wrapper allocates out so); [lo, hi): the slice of the row the
+// frame covers ([0, d) for a whole-row frame); idx: int32[k], sorted, unique
+// positions in [0, hi - lo) (not checked here: the frame's decoder checks
+// them); v: float32[k].  Returns the launch's cudaError_t.
+int dpwa_topk_merge(const float* x, const int* idx, const float* v, int64_t k, float* out,
+                    int64_t d, int64_t lo, int64_t hi, float alpha, void* stream) {
+  if (d <= 0) return 0;
+  if (lo < 0 || hi < lo || hi > d || k < 0 || k > hi - lo || !same_phase(x, out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t head = head_of(x, d);
+  const int64_t words = (d - head) / 4;
+  const int64_t tiles = words > kTileWords ? (words + kTileWords - 1) / kTileWords : 1;
+  topk_merge_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, v, k, out, d, head, lo, hi, alpha);
   return static_cast<int>(cudaGetLastError());
 }
 

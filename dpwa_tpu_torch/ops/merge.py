@@ -11,10 +11,14 @@ for Hopper (``csrc/merge.cu``), each beside its plain PyTorch version:
   out-of-place gather form, for pull maps that are not involutions.  The
   TCP transport's codec frames take two more forms of it over one row:
   :func:`int8_frame_merge` (the partner's value dequantised from a landed
-  int8-chunked frame in registers) and :func:`support_merge_` (a top-k
-  frame's support, scattered over B2's self-lerp of the row), and the
-  fan-in rounds' runs of dense frames take its fold form
-  (:func:`fold_merge`: k landed rows merged in one pass, in order).
+  int8-chunked frame in registers) and :func:`topk_merge` (a top-k
+  frame's whole merge in one pass: the self-lerp of the row or of a shard
+  frame's slice, the copy of the rest, and the support), and the fan-in
+  rounds' runs of dense frames take its fold form (:func:`fold_merge`: k
+  landed rows merged in one pass, in order).  :func:`support_merge_` (the
+  support alone, over B2's self-lerp) is the two-launch route
+  :func:`topk_merge` replaced, which no path launches; it stays to be
+  timed against it.
 
 ``y`` is the partner's row as it arrived over the wire: ``x`` itself, or
 in the wire form a second buffer ``w`` laid out like ``x`` — the int8
@@ -189,6 +193,10 @@ def _lib() -> ctypes.CDLL:
     lib.dpwa_int8_frame_merge.restype = _INT
     lib.dpwa_support_merge.argtypes = [_VOID, _VOID, _VOID, _VOID, _I64, ctypes.c_float, _VOID]
     lib.dpwa_support_merge.restype = _INT
+    lib.dpwa_topk_merge.argtypes = [
+        _VOID, _VOID, _VOID, _I64, _VOID, _I64, _I64, _I64, ctypes.c_float, _VOID,
+    ]
+    lib.dpwa_topk_merge.restype = _INT
     lib.dpwa_fold_merge.argtypes = [_VOID, _VOID, _VOID, _INT, _VOID, _I64, _INT, _VOID]
     lib.dpwa_fold_merge.restype = _INT
     lib.dpwa_cuda_error_string.argtypes = [_INT]
@@ -449,7 +457,9 @@ def support_merge_(out: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, values
     ``x`` and ``out`` of one length (not the same tensor), the reference's
     host merge of a densified top-k frame (B2's int8-wire arithmetic).
     Other elements of ``out`` are left as they are (B2's self-lerp of ``x``
-    writes them first: a top-k merge).  Returns ``out``."""
+    writes them first).  That two-launch route is what :func:`topk_merge`
+    replaced; no path launches this form, which stays to be timed against
+    it.  Returns ``out``."""
     if x.device.type == "cpu":
         return torch_support_merge_(out, x, idx, values, alpha)
     if x.device.type != "cuda":
@@ -469,6 +479,57 @@ def support_merge_(out: torch.Tensor, x: torch.Tensor, idx: torch.Tensor, values
         )
     _check_launch(lib, "support_merge_", err)
     support_merge_.launches += 1
+    return out
+
+
+def torch_topk_merge(x: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, alpha: float,
+                     lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`topk_merge`: a copy of ``x``, B2's self-lerp
+    of its slice ``[lo, hi)``, then :func:`torch_support_merge_` there."""
+    hi = x.numel() if hi is None else hi
+    out = x.clone()
+    sl = x[lo:hi]
+    out[lo:hi] = _lerp(_scalar(alpha, x.device), sl, sl, "int8")
+    torch_support_merge_(out[lo:hi], sl, idx, values, alpha)
+    return out
+
+
+def topk_merge(x: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, alpha: float,
+               lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """B2's top-k form: a landed top-k frame's whole merge into a new row, in
+    one pass.  ``x`` is the float32 row ``[d]``; the frame covers its slice
+    ``[lo, hi)`` (the whole row by default; a shard frame's bounds), and
+    ships ``values`` (float32 ``[k]``) at the slice positions ``idx``
+    (int32 on the card, sorted and unique, as the frame's decoder checks
+    them; not checked again here).  ``out[i] = x[i]`` outside the slice,
+    bit for bit; inside it B2's self-lerp ``fma(1−α, x, α·x)``; at ``lo +
+    idx[j]`` the reference's host merge ``fma(1−α, x, α·values[j])``.
+    Bit-equal to B2's self-lerp of the slice followed by
+    :func:`support_merge_`, on a copy of the row for a slice.  Returns the
+    new row, laid out in 16 bytes as ``x`` is."""
+    hi = x.numel() if hi is None else int(hi)
+    lo = int(lo)
+    if x.device.type == "cpu":
+        return torch_topk_merge(x, idx, values, alpha, lo, hi)
+    if x.device.type != "cuda":
+        raise ValueError(f"topk_merge: unsupported device {x.device}")
+    d, k = x.numel(), idx.numel()
+    _check_flat(x, "x", torch.float32, x.device)
+    _check_flat(idx, "idx", torch.int32, x.device)
+    _check_flat(values, "values", torch.float32, x.device, k)
+    if not 0 <= lo <= hi <= d or k > hi - lo:
+        raise ValueError(f"topk_merge: {k} entries do not fit the slice [{lo}, {hi}) of {d}")
+    out = empty_rows_like(x[None])[0]
+    if d == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.dpwa_topk_merge(
+            x.data_ptr(), idx.data_ptr(), values.data_ptr(), k, out.data_ptr(), d, lo, hi,
+            float(alpha), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _check_launch(lib, "topk_merge", err)
+    topk_merge.launches += 1
     return out
 
 
@@ -528,6 +589,7 @@ pair_merge_.launches = 0
 gather_merge.launches = 0
 int8_frame_merge.launches = 0
 support_merge_.launches = 0
+topk_merge.launches = 0
 fold_merge.launches = 0
 
 
@@ -540,6 +602,7 @@ def reset_launch_counts() -> None:
     gather_merge.launches = 0
     int8_frame_merge.launches = 0
     support_merge_.launches = 0
+    topk_merge.launches = 0
     fold_merge.launches = 0
     quantize.quantize_sr.launches = 0
 

@@ -1107,9 +1107,12 @@ def test_quantize_sr_byte_equal_to_plain(cuda_device, n):
 
 @pytest.mark.parametrize("lead", [0, 3])
 def test_codec_merge_forms_bit_equal_to_plain(cuda_device, lead):
-    """B2's int8-frame form and its support form against
-    their plain versions on a CPU copy, bit for bit, on rows that start on
-    and off a 16-byte boundary, inf and NaN among the values."""
+    """B2's int8-frame, support and top-k forms against their plain versions
+    on a CPU copy, bit for bit, on rows that start on and off a 16-byte
+    boundary, inf and NaN among the values; the top-k form over the whole
+    row (a twentieth of it shipped, and all of it) and over the first and
+    last slices of a 4-way shard partition (d % 4 = 1), each a new row at
+    x's phase within 16 bytes."""
     from dpwa_tpu_torch.ops import quantize
 
     d = (1 << 20) + 5
@@ -1137,6 +1140,23 @@ def test_codec_merge_forms_bit_equal_to_plain(cuda_device, lead):
     got = out.cpu()
     same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
     assert bool(same.all()) and merge.support_merge_.launches == 1
+    from dpwa_tpu_torch.ops import shard
+
+    v_cpu[:3] = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    cases = [(0, d, idx_cpu, v_cpu), (0, d, torch.arange(d), torch.randn(d, generator=gen))]
+    for i in (0, 3):
+        lo, hi = shard.shard_bounds(d, 4, i)
+        sidx = torch.sort(torch.randperm(hi - lo, generator=gen)[: (hi - lo) // 20]).values
+        cases.append((lo, hi, sidx, torch.randn(sidx.numel(), generator=gen)))
+    for n, (lo, hi, i_cpu, vals) in enumerate(cases):
+        got = merge.topk_merge(x, i_cpu.to(torch.int32).to(cuda_device), vals.to(cuda_device),
+                               0.3, lo, hi)
+        assert merge.topk_merge.launches == n + 1
+        assert got.data_ptr() % 16 == x.data_ptr() % 16
+        got = got.cpu()
+        want = merge.torch_topk_merge(x_cpu, i_cpu, vals, 0.3, lo, hi)
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+        assert bool(same.all()), (lo, hi, int((~same).sum()))
 
 
 @pytest.mark.parametrize("codec", ["int8", "topk", "shard_topk", "shard_int8"])
@@ -1173,9 +1193,12 @@ def test_codec_exchange_on_device_pair_on_card_equals_cpu_pair(cuda_device, code
                 vecs = [t.exchange_on_device(v, c, 0.5, r)[0] for t, v, c in zip(nodes, vecs, clocks)]
             assert [t.stats["merged"] for t in nodes] == [4, 4]
             if device != "cpu":
-                b2 = merge.gather_merge.launches + merge.int8_frame_merge.launches
-                assert b2 == 8
-                assert merge.support_merge_.launches == (8 if "topk" in codec else 0)
+                # One merge launch a merged round: the top-k form for a
+                # top-k inner, else B2 or its int8-frame form.
+                topk = 8 if "topk" in codec else 0
+                assert merge.topk_merge.launches == topk
+                assert merge.gather_merge.launches + merge.int8_frame_merge.launches == 8 - topk
+                assert merge.support_merge_.launches == 0
             finals[str(device)] = [v.cpu() for v in vecs]
             frames[str(device)] = served
         finally:

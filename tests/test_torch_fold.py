@@ -74,7 +74,7 @@ def test_fold_engine_contract():
     engine.reset_stats()
     assert engine.fold(xt, [], []) is xt
     engine.fold(xt, rt, [0.3, 0.4, 0.6])
-    assert engine.stats() == {"fold_dispatches": 1, "fold_frames": 3}
+    assert engine.stats() == {"fold_dispatches": 1, "fold_frames": 3, "topk_merges": 0}
     assert merge.fold_merge(xt, [], []).data_ptr() != xt.data_ptr()
 
 
