@@ -47,8 +47,15 @@ that they went through the kernels:
   published step, clock and replica; the TCP exchange itself as
   ``bench.py`` times it (2 nodes in one process, lock-step) with
   device-resident replicas of ResNet-50's 25,557,032 parameters on the f32
-  and bf16 wires; and the recovery plane's pieces at that size (the state's
-  pack, transfer, unpack and landing, the ring, the guard);
+  and bf16 wires, and the f32 round under the threaded and the reactor Rx
+  server in turns, split into the fetch and what follows it; the recovery
+  plane's pieces at that size (the state's pack, transfer, unpack and
+  landing, the ring, the guard); 16 nodes in this process on the reactor,
+  each a SmallNet replica on the card, under a bounded partial view with
+  one node closed early (its neighbours remap over their active views,
+  evict it and promote a passive peer; digests, caps and fetches checked),
+  and the same run view-off and at the identity view, whose frames must be
+  equal; and the MNIST pair and the byzantine group again on the reactor;
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -105,6 +112,7 @@ ALL_PHASES = (
     "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "slowpeer_tcp",
     "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
     "codec_kernels", "wire_exchange", "codecs_tcp", "fold_kernels", "overlap_tcp", "async_tcp",
+    "view_tcp", "reactor_tcp", "reactor_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -195,6 +203,27 @@ ASYNC_NODES, ASYNC_D, ASYNC_ITERS, ASYNC_TIMEOUT_MS = 4, 4096, 24, 400
 ASYNC_TRICKLE, ASYNC_COMPUTE_MS = 2048.0, 30.0
 OVERLAP_PROTOCOL = "  overlap_prefetch: true\n"
 ASYNC_PROTOCOL = "  async_rounds: {enabled: true}\n"
+# The partial view and the reactor: view_tcp runs VIEW_NODES TcpTransports
+# in this process on the reactor, each a SmallNet replica on the card drawn
+# from --seed, the ring schedule and the default planes under VIEW; node
+# VIEW_CLOSED closes at round VIEW_CLOSE_AT (its ring neighbours remap over
+# their active views, then evict it as dead, which promotes a passive peer);
+# VIEW_ROUNDS lock-step rounds (set from a CPU rehearsal: the dead
+# evictions land at rounds 39-46 there and on the card); the same run
+# view-off and at VIEW_IDENTITY must publish the same frames.  reactor_tcp
+# reruns train_tcp and byzantine_tcp at once with REACTOR_PROTOCOL (the
+# byzantine rerun with a chaos block that draws no fault, so every node
+# serves from the chaos reactor); reactor_exchange times tcp_exchange's f32
+# round under each Rx server in turns (REACTOR_ORDER), each leg
+# REACTOR_WARMUPS rounds and REACTOR_PASSES passes of REACTOR_ITERS.
+VIEW_NODES, VIEW_CLOSED, VIEW_CLOSE_AT, VIEW_ROUNDS = 16, 7, 5, 54
+VIEW = {"active_size": 4, "passive_size": 4, "digest_sample": 4, "state_cap": 8,
+        "shuffle_every": 8}
+VIEW_IDENTITY = dict(VIEW, active_size=15, digest_sample=16, state_cap=16)
+REACTOR_PROTOCOL = "  rx_server: reactor\n"
+REACTOR_CHAOS = "chaos: {enabled: true, seed: 0}\n"
+REACTOR_ORDER = ("threaded", "reactor", "reactor", "threaded", "threaded", "reactor")
+REACTOR_WARMUPS, REACTOR_PASSES, REACTOR_ITERS = 2, 2, 5
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -1048,10 +1077,11 @@ def free_ports(n: int) -> list:
             sk.close()
 
 
-def tcp_config(workdir: str, n: int = 2, extra: str = "") -> str:
+def tcp_config(workdir: str, n: int = 2, extra: str = "", protocol: str = "") -> str:
     """A copy of ``examples/mnist/nodes.yaml`` under ``workdir`` with free
-    ports, its two nodes followed by ``n - 2`` more, and ``extra`` (YAML
-    blocks) appended; its path."""
+    ports, its two nodes followed by ``n - 2`` more, ``protocol`` lines
+    added to its ``protocol:`` block and ``extra`` (YAML blocks) appended;
+    its path."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(HERE, "examples/mnist/nodes.yaml")) as f:
         text = f.read()
@@ -1064,6 +1094,9 @@ def tcp_config(workdir: str, n: int = 2, extra: str = "") -> str:
         text = text.replace(f"port: {45000 + i}}}", f"port: PORT{i}}}")
     for i, new in enumerate(free_ports(n)):
         text = text.replace(f"port: PORT{i}}}", f"port: {new}}}")
+    if "  seed: 0\n" not in text:
+        raise AssertionError("examples/mnist/nodes.yaml has no '  seed: 0' protocol line")
+    text = text.replace("  seed: 0\n", "  seed: 0\n" + protocol, 1)
     config = os.path.join(workdir, "nodes.yaml")
     with open(config, "w") as f:
         f.write(text + extra)
@@ -1110,11 +1143,12 @@ def node_result(phase: str, name: str, rc: int, stdout: str, stderr: str, kind: 
     return res
 
 
-def run_pair(phase: str, kind: str, steps: int, extras=((), ()), blocks: str = "") -> list:
-    """Two TCP nodes of the MNIST example (``blocks`` appended to their
-    config) run to their end; their checked summaries."""
+def run_pair(phase: str, kind: str, steps: int, extras=((), ()), blocks: str = "",
+             protocol: str = "") -> list:
+    """Two TCP nodes of the MNIST example (``protocol`` lines and ``blocks``
+    added to their config) run to their end; their checked summaries."""
     workdir = os.path.join(HERE, "build", phase)
-    config = tcp_config(workdir, extra=blocks)
+    config = tcp_config(workdir, extra=blocks, protocol=protocol)
     procs = []
     try:
         for i, extra in enumerate(extras):
@@ -1410,22 +1444,25 @@ def byzantine_node(torch, config: str, device, stop, out: dict) -> None:
             stop.wait(BYZ_ROUND_S)
     finally:
         out.update(flip_clock=flip_clock, clock=clock, rounds=step,
-                   digest_bytes=t.last_digest_nbytes)
+                   digest_bytes=t.last_digest_nbytes, rx_server=type(t.server).__name__,
+                   reactor=t.health_snapshot().get("reactor"))
         adapter.close()
 
 
-def byzantine_tcp(torch, kind: str, device) -> dict:
+def byzantine_tcp(torch, kind: str, device, phase: str = "byzantine_tcp", protocol: str = "",
+                  blocks: str = "") -> dict:
     """Three OS processes of the MNIST example (node0-2 of
-    ``examples/mnist/nodes.yaml`` widened to 4 nodes, at the default planes)
-    and a byzantine node3 (:func:`byzantine_node`).  Passes only if every
-    honest node reaches accuracy 0.9 and merges no frame of node3 from its
-    flip on (each node's newest merged clock of node3 is below the flip's),
-    and node3's ring partners (node0 and node2) record ``untrusted``
-    fetches and quarantine it."""
+    ``examples/mnist/nodes.yaml`` widened to 4 nodes, at the default planes,
+    ``protocol`` lines and ``blocks`` added) and a byzantine node3
+    (:func:`byzantine_node`).  Passes only if every honest node reaches
+    accuracy 0.9 and merges no frame of node3 from its flip on (each node's
+    newest merged clock of node3 is below the flip's), and node3's ring
+    partners (node0 and node2) record ``untrusted`` fetches and quarantine
+    it."""
     import threading
 
-    workdir = os.path.join(HERE, "build", "byzantine_tcp")
-    config = tcp_config(workdir, BYZ_NODES)
+    workdir = os.path.join(HERE, "build", phase)
+    config = tcp_config(workdir, BYZ_NODES, extra=blocks, protocol=protocol)
     stop, byz = threading.Event(), {}
     thread = threading.Thread(target=byzantine_node, args=(torch, config, device, stop, byz))
     thread.start()
@@ -1440,24 +1477,24 @@ def byzantine_tcp(torch, kind: str, device) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    nodes = [node_result("byzantine_tcp", f"node{i}", p.returncode, *out, kind, BYZ_STEPS)
+    nodes = [node_result(phase, f"node{i}", p.returncode, *out, kind, BYZ_STEPS)
              for i, (p, out) in enumerate(zip(procs, outs))]
     shutil.rmtree(workdir, ignore_errors=True)
     flip = byz.get("flip_clock")
     if flip is None:
-        raise AssertionError(f"byzantine_tcp: node3 never flipped ({byz})")
+        raise AssertionError(f"{phase}: node3 never flipped ({byz})")
     quarantined = {}
     for i, res in enumerate(nodes):
         merged = res["merged_from"].get("3")
         if merged is not None and merged[1] >= flip:
-            raise AssertionError(f"byzantine_tcp: node{i} merged node3's clock {merged[1]} "
+            raise AssertionError(f"{phase}: node{i} merged node3's clock {merged[1]} "
                                  f"at or after its flip at clock {flip}")
         steps = [e["step"] for e in res["health_events"]
                  if e["peer"] == 3 and e["state"] == "quarantined"]
         quarantined[f"node{i}"] = steps[0] if steps else None
     for i in (0, 2):
         if not nodes[i]["outcomes"].get("untrusted") or quarantined[f"node{i}"] is None:
-            raise AssertionError(f"byzantine_tcp: node{i} did not reject and quarantine node3: "
+            raise AssertionError(f"{phase}: node{i} did not reject and quarantine node3: "
                                  f"{nodes[i]['outcomes']}, {nodes[i]['health_events']}")
     return {
         "flip_clock": flip, "byzantine_rounds": byz["rounds"],
@@ -1471,6 +1508,9 @@ def byzantine_tcp(torch, kind: str, device) -> dict:
         "accuracy": {f"node{i}": n["accuracy"] for i, n in enumerate(nodes)},
         "steps_per_sec": {f"node{i}": n["steps_per_sec"] for i, n in enumerate(nodes)},
         "b2_launches": {f"node{i}": n["b2_launches"] for i, n in enumerate(nodes)},
+        "rx_server": {"node3": byz["rx_server"],
+                      **{f"node{i}": n["rx_server"] for i, n in enumerate(nodes)}},
+        "reactor": {"node3": byz["reactor"], **{f"node{i}": n["reactor"] for i, n in enumerate(nodes)}},
     }
 
 
@@ -1721,14 +1761,18 @@ def state_exchange(torch, device) -> dict:
     }
 
 
-def tcp_exchange(torch, merge, device, wire: str) -> dict:
+def tcp_exchange(torch, merge, device, wire: str, rx: str = "threaded",
+                 rounds=(TCP_WARMUPS, TCP_PASSES, TCP_ITERS)) -> dict:
     """``bench.py``'s TCP leg on the card: two nodes in this process on
-    port 0, each with a device-resident replica of ResNet-50's d; 3 warm-up
-    rounds, then 3 passes of 10 lock-step rounds (both publish, then both
-    exchange on their own threads); a round's clock starts after the
-    publishes, as bench's, and stops when both merges are done on the card;
-    GB/s per peer as bench counts it (2·d·4 bytes a round) from the median
-    of the pass medians.  Each exchange republishes its node's published
+    port 0 serving from the ``rx`` Rx server, each with a device-resident
+    replica of ResNet-50's d; ``rounds`` = (warm-up rounds, passes, rounds
+    a pass), by default 3 warm-up rounds, then 3 passes of 10 lock-step
+    rounds (both publish, then both exchange on their own threads); a round's clock starts after the publishes, as bench's, and
+    stops when both merges are done on the card; GB/s per peer as bench
+    counts it (2·d·4 bytes a round) from the median of the pass medians,
+    and the median of the rounds' slower fetch (``last_fetch``'s
+    ``latency_s``: connect to the payload and trailer read) and of what is
+    left of the round after it (landing, guard, screen, B2).  Each exchange republishes its node's published
     replica from the host mirror: one readback a node a round.  The last
     round's merge is held bit for bit against the plain version on a CPU
     copy; the readback to publish, the landing copy and B2 are timed
@@ -1744,7 +1788,7 @@ def tcp_exchange(torch, merge, device, wire: str) -> dict:
     from dpwa_tpu_torch.parallel.tcp import TcpTransport
 
     cfg = make_local_config(2, schedule="ring", interpolation="constant", factor=0.3,
-                            timeout_ms=10000, wire_dtype=wire)
+                            timeout_ms=10000, wire_dtype=wire, rx_server=rx)
     cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0) for n in cfg.nodes))
     nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
     try:
@@ -1778,18 +1822,21 @@ def tcp_exchange(torch, merge, device, wire: str) -> dict:
             if any(th.is_alive() for th in threads) or any(r is None or r[1] == 0.0 for r in results):
                 raise AssertionError(f"tcp_exchange: round {step} did not merge: "
                                      f"{[t.last_fetch for t in nodes]}")
-            return results, elapsed
+            return results, elapsed, max(t.last_fetch["latency_s"] for t in nodes)
 
-        for w in range(TCP_WARMUPS):
+        warmups, passes, iters = rounds
+        for w in range(warmups):
             one_round(w)
-        medians = []
-        for rep in range(TCP_PASSES):
+        medians, fetches, rests = [], [], []
+        for rep in range(passes):
             durations = []
-            for it in range(TCP_ITERS):
-                last, elapsed = one_round(TCP_WARMUPS + rep * TCP_ITERS + it)
+            for it in range(iters):
+                last, elapsed, fetch_s = one_round(warmups + rep * iters + it)
                 durations.append(elapsed)
+                fetches.append(fetch_s)
+                rests.append(elapsed - fetch_s)
             medians.append(float(np.median(durations)))
-        rounds = TCP_WARMUPS + TCP_PASSES * TCP_ITERS
+        rounds = warmups + passes * iters
         launches = merge.gather_merge.launches
         stats = handoff.handoff_stats()
         if launches != 2 * rounds or merge.pair_merge_.launches != 0:
@@ -1820,11 +1867,14 @@ def tcp_exchange(torch, merge, device, wire: str) -> dict:
                                                              wire=form, w=w), 10)
         median_s = float(np.median(medians))
         return {
-            "wire": wire, "d": R50_D, "frame_bytes": R50_D * (2 if wire == "bf16" else 4),
+            "wire": wire, "rx_server": type(nodes[0].server).__name__, "d": R50_D,
+            "frame_bytes": R50_D * (2 if wire == "bf16" else 4),
             "gbps": 2 * R50_D * 4 / median_s / 1e9,
             "rep_gbps": [2 * R50_D * 4 / m / 1e9 for m in medians],
             "round_ms": median_s * 1e3, "pass_median_ms": [m * 1e3 for m in medians],
-            "warmups": TCP_WARMUPS, "passes": TCP_PASSES, "iters": TCP_ITERS,
+            "fetch_ms": float(np.median(fetches)) * 1e3,
+            "after_fetch_ms": float(np.median(rests)) * 1e3,
+            "warmups": warmups, "passes": passes, "iters": iters,
             "b2_launches": launches, "max_abs_err": err, "alpha": last[0][1],
             "readback_ms": readback, "landing_ms": landing, "b2_ms": b2,
             "frame_pinned": host.is_pinned(),
@@ -2104,20 +2154,6 @@ def wire_exchange(torch, merge, device) -> dict:
             "legs": legs}
 
 
-def codec_config(workdir: str, protocol: str, blocks: str, n: int = 2) -> str:
-    """``tcp_config``'s copy of examples/mnist/nodes.yaml (``n`` nodes) with
-    ``protocol`` lines added to its ``protocol:`` block and ``blocks``
-    appended."""
-    config = tcp_config(workdir, n=n, extra=blocks)
-    with open(config) as f:
-        text = f.read()
-    if "  seed: 0\n" not in text:
-        raise AssertionError("examples/mnist/nodes.yaml has no '  seed: 0' protocol line")
-    with open(config, "w") as f:
-        f.write(text.replace("  seed: 0\n", "  seed: 0\n" + protocol, 1))
-    return config
-
-
 def codecs_tcp(kind: str) -> dict:
     """The MNIST example over TCP (two OS processes on a copy of
     examples/mnist/nodes.yaml, 300 steps, the default planes, a start and an
@@ -2130,12 +2166,13 @@ def codecs_tcp(kind: str) -> dict:
     procs = {}
     try:
         for name, (protocol, blocks) in CODEC_RUNS.items():
-            config = codec_config(os.path.join(HERE, "build", f"codecs_tcp_{name}"), protocol, blocks)
+            config = tcp_config(os.path.join(HERE, "build", f"codecs_tcp_{name}"), extra=blocks,
+                                protocol=protocol)
             barrier = os.path.join(HERE, "build", f"codecs_tcp_{name}", "barrier")
             procs[name] = [mnist_node(config, f"node{i}", MNIST_STEPS, ("--barrier", barrier), env=env)
                            for i in range(2)]
-        config = codec_config(os.path.join(HERE, "build", "codecs_tcp_mnist_torch"),
-                              CODEC_RUNS["int8"][0], "")
+        config = tcp_config(os.path.join(HERE, "build", "codecs_tcp_mnist_torch"),
+                            protocol=CODEC_RUNS["int8"][0])
         procs["mnist_torch"] = [subprocess.Popen(
             [sys.executable, "-m", "dpwa_tpu_torch.examples.mnist_torch", "--name", f"node{i}",
              "--config", config, "--steps", str(MNIST_STEPS)],
@@ -2267,7 +2304,7 @@ def run_nodes(phase: str, kind: str, n: int, protocol: str, steps: int = MNIST_S
     examples/mnist/nodes.yaml widened to ``n`` nodes with ``protocol`` lines,
     held at a start and an end barrier; their checked summaries."""
     workdir = os.path.join(HERE, "build", phase)
-    config = codec_config(workdir, protocol, "", n=n)
+    config = tcp_config(workdir, n=n, protocol=protocol)
     barrier = os.path.join(workdir, "barrier")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = []
@@ -2466,6 +2503,218 @@ def async_tcp(torch, merge, device, kind: str) -> dict:
             "mnist": run_nodes("async_tcp", kind, ASYNC_NODES, ASYNC_PROTOCOL)}
 
 
+def view_run(torch, merge, device, seed: int, view) -> dict:
+    """One seeded run of ``view_tcp``: VIEW_NODES port ``TcpTransport``s in
+    this process on port 0 (reactor Rx servers, the ring schedule, the
+    default planes, ``membership.view`` at ``view``, or off for None), each
+    a SmallNet replica on the card from ``fold_in(key(seed), i)``, driven in
+    lock-step as ``tcp_exchange`` drives two but one node after another
+    (every live node publishes, then each exchanges on the card in turn: a
+    fixed order, so a rerun publishes the same frames).  Node VIEW_CLOSED
+    closes at round VIEW_CLOSE_AT.  It records each frame's SHA-256, the
+    peers in each digest, each plane's residency after each round (held to
+    the cap plus the scoreboard's tombstones here), every fetch's partner,
+    the round each node evicted the closed node, the merged rounds and the
+    merge kernels' launches, and the live replicas' spread."""
+    import hashlib
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.membership import digest as digest_mod
+    from dpwa_tpu_torch.models import mnist
+    from dpwa_tpu_torch.parallel import protocol_constants as pc
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+    from dpwa_tpu_torch.utils import prng
+
+    n, closed = VIEW_NODES, VIEW_CLOSED
+    cfg = make_local_config(n, schedule="ring", seed=seed, rx_server="reactor",
+                            membership={} if view is None else {"view": dict(view, enabled=True)})
+    cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(x, port=0) for x in cfg.nodes))
+    nodes = []
+    try:
+        for i in range(n):
+            nodes.append(TcpTransport(cfg, f"node{i}", device=device))
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        model = mnist.build_model((8, 8, 1))
+        vecs = [torch.cat([v.reshape(-1) for v in mnist.init(
+            model, prng.fold_in(prng.key(seed), i), device).values()]) for i in range(n)]
+        if vecs[0].numel() != MNIST_D:
+            raise AssertionError(f"view_tcp: SmallNet has {vecs[0].numel()} floats, not {MNIST_D}")
+
+        def spread(live):
+            x = torch.stack([vecs[i] for i in live])
+            return float((x - x.mean(0)).norm(dim=1).max())
+
+        shas, fetched, evicted_at, residency = [], [], {}, {}
+        max_entries = 0
+        merge.reset_launch_counts()  # count the run's launches only
+        t0 = time.perf_counter()
+        for r in range(VIEW_ROUNDS):
+            if r == VIEW_CLOSE_AT:
+                nodes[closed].close()
+                spread0 = spread([i for i in range(n) if i != closed])
+            live = [i for i in range(n) if r < VIEW_CLOSE_AT or i != closed]
+            for i in live:
+                nodes[i].publish(vecs[i], float(r), 0.5)
+            row = []
+            for i in live:
+                t = nodes[i]
+                merged, alpha, _partner = t.exchange_on_device(vecs[i], float(r), 0.5, r)
+                if alpha:
+                    vecs[i] = merged
+                frame = t.server._payload
+                row.append(hashlib.sha256(frame).hexdigest())
+                nbytes = pc.BLOB_HDR.unpack_from(frame, 0)[5]
+                dg = digest_mod.decode_digest(frame[pc.BLOB_HDR.size + nbytes:])
+                max_entries = max(max_entries, len(dg.entries) - 1)  # less the node itself
+                if t.last_round["outcome"] is not None:
+                    fetched.append((r, i, t.last_fetch["peer"]))
+                for e in t.pop_membership_events():
+                    if e["event"] == "peer_dead" and e["peer"] == closed:
+                        evicted_at.setdefault(i, r)
+                if view is not None:
+                    m, tombstones = t.membership, len(t.scoreboard.evicted_peers())
+                    with m._lock:
+                        resident = (set(m._view) | set(m.partial._last_touch)) - m._evicted - m._capped
+                    sizes = {"membership": len(resident - {t.me}),
+                             "scoreboard": len(t.scoreboard.tracked_peers()),
+                             "trust": len(t.trust.tracked_peers()),
+                             "estimator": len(t._estimator.tracked_peers())}
+                    for plane, size in sizes.items():
+                        if size > view["state_cap"] + tombstones:
+                            raise AssertionError(
+                                f"view_tcp: node{i}'s {plane} holds {size} peers at round {r} "
+                                f"(cap {view['state_cap']}, {tombstones} tombstones)")
+                        residency[plane] = max(residency.get(plane, 0), size)
+            shas.append(row)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        live = [i for i in range(n) if i != closed]
+        out = {
+            "shas": shas, "fetched": fetched, "evicted_at": evicted_at,
+            "max_digest_peers": max_entries, "seconds": seconds,
+            "merged_rounds": sum(t.stats["merged"] for t in nodes),  # the closed node's too
+            "launches": {"gather_merge": merge.gather_merge.launches,
+                         "pair_merge_": merge.pair_merge_.launches,
+                         "other_merges": (merge.int8_frame_merge.launches
+                                          + merge.topk_merge.launches + merge.fold_merge.launches)},
+            "spread_at_close": spread0, "spread_end": spread(live), "peak_residency": residency,
+            "digest_bytes": sorted({nodes[i].last_digest_nbytes for i in live}),
+            "reactor_frames": sum(nodes[i].health_snapshot()["reactor"]["frames"] for i in live),
+            "rx_server": type(nodes[0].server).__name__,
+        }
+        if view is not None:
+            out["view"] = {i: nodes[i].wire_snapshot()["view"] for i in live}
+        return out
+    finally:
+        for t in nodes:
+            t.close()
+
+
+def view_tcp(torch, merge, device, seed: int) -> dict:
+    """The partial view on the card: :func:`view_run` under VIEW, then the
+    same run view-off and at VIEW_IDENTITY.  Passes only if every merged
+    round launched B2 once and no other merge, no digest carried more than
+    ``digest_sample`` peers, no plane held more than ``state_cap`` peers
+    beyond the tombstones after any round, both ring neighbours of the
+    closed node evicted it as dead and one of them promoted a passive peer,
+    no node fetched the closed node after evicting it, the live replicas'
+    spread fell, and the identity run published the view-off run's frames,
+    SHA-256 for SHA-256."""
+    closed = VIEW_CLOSED
+    runs = {name: view_run(torch, merge, device, seed, view)
+            for name, view in (("view", VIEW), ("off", None), ("identity", VIEW_IDENTITY))}
+    for name, run in runs.items():
+        launches = run["launches"]
+        if (run["merged_rounds"] < 1 or launches["gather_merge"] != run["merged_rounds"]
+                or launches["pair_merge_"] or launches["other_merges"]):
+            raise AssertionError(f"view_tcp {name}: {run['merged_rounds']} merged rounds "
+                                 f"launched {launches}")
+        if not run["spread_end"] < run["spread_at_close"]:
+            raise AssertionError(f"view_tcp {name}: the spread went from {run['spread_at_close']} "
+                                 f"to {run['spread_end']}")
+        late = [(r, i) for r, i, peer in run["fetched"]
+                if peer == closed and i in run["evicted_at"] and r > run["evicted_at"][i]]
+        if late:
+            raise AssertionError(f"view_tcp {name}: fetched node{closed} after evicting it: {late}")
+    view = runs["view"]
+    if view["max_digest_peers"] > VIEW["digest_sample"]:
+        raise AssertionError(f"view_tcp: a digest carried {view['max_digest_peers']} peers")
+    neighbours = ((closed - 1) % VIEW_NODES, (closed + 1) % VIEW_NODES)
+    if not all(i in view["evicted_at"] for i in neighbours):
+        raise AssertionError(f"view_tcp: node{closed}'s ring neighbours did not evict it: "
+                             f"{view['evicted_at']}")
+    promotions = {i: view["view"][i]["view_promotions"] for i in neighbours}
+    if not any(promotions.values()):
+        raise AssertionError(f"view_tcp: no ring neighbour of node{closed} promoted a passive "
+                             f"peer: {promotions}")
+    if runs["identity"]["shas"] != runs["off"]["shas"]:
+        first = next(r for r, (a, b) in enumerate(zip(runs["identity"]["shas"], runs["off"]["shas"]))
+                     if a != b)
+        raise AssertionError(f"view_tcp: the identity view's frames differ from the view-off "
+                             f"run's from round {first}")
+    summary = {name: {k: v for k, v in run.items() if k not in ("shas", "fetched")}
+               for name, run in runs.items()}
+    return {
+        "nodes": VIEW_NODES, "d": MNIST_D, "rounds": VIEW_ROUNDS, "closed": closed,
+        "close_at": VIEW_CLOSE_AT, "view_config": VIEW, "identity_config": VIEW_IDENTITY,
+        "seed": seed, "frames_compared": sum(len(row) for row in runs["off"]["shas"]),
+        "identity_frames_equal": True, "neighbour_promotions": promotions,
+        "b2_launches": {name: run["launches"]["gather_merge"] for name, run in runs.items()},
+        **summary,
+    }
+
+
+def reactor_tcp(torch, kind: str, device) -> dict:
+    """``train_tcp`` and ``byzantine_tcp`` rerun at once with
+    ``protocol.rx_server: reactor`` (the byzantine rerun with a chaos block
+    that draws no fault, so every node, node3 included, serves from the
+    chaos reactor), with those phases' checks, and every process's server
+    the reactor's."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pair_run = pool.submit(run_pair, "reactor_tcp_train", kind, MNIST_STEPS,
+                               protocol=REACTOR_PROTOCOL)
+        byz = byzantine_tcp(torch, kind, device, phase="reactor_tcp_byzantine",
+                            protocol=REACTOR_PROTOCOL, blocks=REACTOR_CHAOS)
+        pair = pair_run.result()
+    servers = {"train": [n["rx_server"] for n in pair], "byzantine": byz["rx_server"]}
+    if (servers["train"] != ["ReactorPeerServer"] * 2
+            or set(byz["rx_server"].values()) != {"ChaosReactorPeerServer"}):
+        raise AssertionError(f"reactor_tcp: served by {servers}")
+    served = [n["reactor"]["frames"] for n in pair] + [r["frames"] for r in byz["reactor"].values()]
+    if min(served) < 1:
+        raise AssertionError(f"reactor_tcp: a reactor served no frame: {served}")
+    return {"train": {"nodes": pair, "steps": MNIST_STEPS}, "byzantine": byz,
+            "rx_server": servers, "frames_served": served}
+
+
+def reactor_exchange(torch, merge, device) -> dict:
+    """Where the host's time in a lock-step f32 round goes, under each Rx
+    server: :func:`tcp_exchange` at ResNet-50's d with the threaded server
+    and the reactor in turns (REACTOR_ORDER), each leg cut to
+    REACTOR_WARMUPS warm-up rounds and REACTOR_PASSES passes of
+    REACTOR_ITERS; each server's median round, fetch and remainder over its
+    legs."""
+    import numpy as np
+
+    legs = []
+    for rx in REACTOR_ORDER:
+        res = tcp_exchange(torch, merge, device, "f32", rx=rx,
+                           rounds=(REACTOR_WARMUPS, REACTOR_PASSES, REACTOR_ITERS))
+        legs.append({k: res[k] for k in ("rx_server", "round_ms", "fetch_ms", "after_fetch_ms",
+                                         "pass_median_ms", "b2_launches", "max_abs_err")})
+        torch.cuda.empty_cache()
+    out = {"order": list(REACTOR_ORDER), "legs": legs}
+    for rx in ("threaded", "reactor"):
+        mine = [leg for leg, name in zip(legs, REACTOR_ORDER) if name == rx]
+        out[rx] = {key: float(np.median([leg[key] for leg in mine]))
+                   for key in ("round_ms", "fetch_ms", "after_fetch_ms")}
+    return out
+
+
 def cuda_event_ms(torch, fn, iters: int) -> float:
     """Mean time of ``fn`` between two CUDA events on the current stream
     (host work inside ``fn`` that waits on the card shows up too)."""
@@ -2542,6 +2791,10 @@ def main(argv=None) -> int:
         "--phases", default=",".join(ALL_PHASES),
         help="comma-separated subset of " + ",".join(ALL_PHASES + EXTRA_PHASES)
         + " (the last of them only when named)",
+    )
+    ap.add_argument(
+        "--seed", type=int, default=0,
+        help="the seed of view_tcp's replicas and schedule",
     )
     ap.add_argument(
         "--out", default=None,
@@ -2880,6 +3133,35 @@ def main(argv=None) -> int:
             emit({"phase": "tcp_exchange", "seconds": time.perf_counter() - t0,
                   "nvidia_smi": name_limit, **res})
             torch.cuda.empty_cache()
+
+    if "view_tcp" in phases:
+        # 16 nodes of this process under a partial view, on the reactor; the
+        # launches counted from 0 in each of its three runs.
+        t0 = time.perf_counter()
+        res = view_tcp(torch, merge, device, args.seed)
+        main_launches["view_tcp"] = {"pair_merge_": 0, "gather_merge": res["b2_launches"]["view"]}
+        emit({"phase": "view_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              **res})
+        torch.cuda.empty_cache()
+
+    if "reactor_tcp" in phases:
+        # The launches are counted in each process (fresh counts there).
+        t0 = time.perf_counter()
+        res = reactor_tcp(torch, kind, device)
+        main_launches["reactor_tcp"] = {
+            "pair_merge_": 0,
+            "gather_merge": sum(n["b2_launches"] for n in res["train"]["nodes"])
+            + sum(res["byzantine"]["b2_launches"].values())}
+        emit({"phase": "reactor_tcp", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+
+    if "reactor_exchange" in phases:
+        t0 = time.perf_counter()
+        res = reactor_exchange(torch, merge, device)
+        main_launches["reactor_exchange"] = {
+            "pair_merge_": 0, "gather_merge": sum(leg["b2_launches"] for leg in res["legs"])}
+        emit({"phase": "reactor_exchange", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
 
     if "wire_exchange" in phases:
         t0 = time.perf_counter()
@@ -3269,6 +3551,12 @@ def main(argv=None) -> int:
                     "at_tcp_mnist": tcp_rows.get("mnist"),
                     "launches_tcp_exchange": [
                         main_launches.get(f"tcp_exchange_{w}", {}).get(name) for w in ("f32", "bf16")],
+                    # The 16 nodes under a partial view; the MNIST pair and
+                    # the byzantine group on the reactor; the f32 exchange
+                    # under each Rx server in turns.
+                    "launches_view_tcp": main_launches.get("view_tcp", {}).get(name),
+                    "launches_reactor_tcp": main_launches.get("reactor_tcp", {}).get(name),
+                    "launches_reactor_exchange": main_launches.get("reactor_exchange", {}).get(name),
                     "at_tcp": tcp_rows.get("resnet50"),
                 })
     if "codec_kernels" in results:

@@ -7,8 +7,8 @@ each node of the TCP transport serves), ``protocol:`` the schedule,
 ``interpolation:`` the merge coefficient, ``recovery:`` the guard, the
 rollback ring, the STATE wire and the bound of the α = 1 rescue,
 ``health:`` the TCP transport's failure detector, scoreboard and
-``/healthz`` port, ``membership:`` the epidemic membership plane (its
-global view: a ``view:`` block loads only as ``enabled: false``),
+``/healthz`` port, ``membership:`` the epidemic membership plane (with
+its bounded partial view, ``view:``),
 ``trust:`` the content-trust screen, ``flowctl:`` the flow control plane
 (adaptive deadlines, hedged fetches, degrade shedding, serving admission),
 ``chaos:`` the seeded fault injection of the TCP path and ``shard:`` the
@@ -90,9 +90,8 @@ class ProtocolConfig:
     in the reference and unused by the stacked transport, as there; the TCP
     transport reads them all (``wire_dtype`` f32, bf16 or int8,
     ``wire_codec`` dense or topk, the prefetch pipeline, barrier-free
-    rounds) and raises only for ``rx_server: reactor``, the Rx server it
-    does not have yet.  ``async_rounds`` takes an :class:`AsyncRoundsConfig`
-    or its YAML mapping."""
+    rounds, ``rx_server`` threaded or reactor).  ``async_rounds`` takes an
+    :class:`AsyncRoundsConfig` or its YAML mapping."""
 
     schedule: str = "ring"
     mode: str = "pairwise"  # pairwise (mutual merge) | pull (one-sided)
@@ -282,14 +281,65 @@ class HealthConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ViewConfig:
+    """``membership.view:`` block: bounded partial views (the reference's
+    fields, defaults and checks; :mod:`dpwa_tpu_torch.membership.
+    partial_view`).
+
+    Shrinks every control plane's horizon from the whole ``nodes:`` list to
+    a HyParView-style partial view: the **active** view is the peers this
+    node gossips with and probes; the **passive** view is the reservoir
+    that supplies a replacement when an active peer is evicted.  Digests
+    carry a threefry-drawn sample of ``digest_sample`` tracked peers a frame
+    (the wire format is unchanged), and the per-peer maps of trust,
+    flowctl, the scoreboard and membership are LRU-capped at
+    ``state_cap``.
+
+    With ``digest_sample >= N``, ``state_cap >= N`` and ``active_size >=
+    N - 1`` every frame and every plane decision is the global view's (the
+    ``enabled: false`` behaviour): sampling only ever truncates."""
+
+    enabled: bool = False
+    # Partner, relay and hedge draws range over (the healthy part of) these.
+    active_size: int = 8
+    # Candidates for promotion when an active peer fails.
+    passive_size: int = 32
+    # Tracked peers sampled into each published digest.
+    digest_sample: int = 16
+    # LRU cap on per-peer residency across the scoreboard, trust, the
+    # deadline estimator and membership; quarantined peers with an
+    # unexpired streak and collapsed-trust peers are never cap-evicted.
+    state_cap: int = 64
+    # Every this many rounds one passive slot is refreshed (0: never).
+    shuffle_every: int = 8
+
+    def __post_init__(self) -> None:
+        if self.active_size < 1:
+            raise ValueError(f"view.active_size must be >= 1, got {self.active_size}")
+        if self.passive_size < 0:
+            raise ValueError(f"view.passive_size must be >= 0, got {self.passive_size}")
+        if self.digest_sample < 1:
+            raise ValueError(f"view.digest_sample must be >= 1, got {self.digest_sample}")
+        if self.state_cap < 1:
+            raise ValueError(f"view.state_cap must be >= 1, got {self.state_cap}")
+        if self.state_cap < self.active_size:
+            raise ValueError(
+                f"view.state_cap ({self.state_cap}) must be >= view.active_size "
+                f"({self.active_size}): the active view is always tracked"
+            )
+        if self.shuffle_every < 0:
+            raise ValueError(f"view.shuffle_every must be >= 0, got {self.shuffle_every}")
+
+
+@dataclasses.dataclass(frozen=True)
 class MembershipConfig:
     """``membership:`` block: epidemic membership and partition tolerance
     on the TCP transport (the reference's fields, defaults and checks).
     Every frame carries the sender's digest of its view; receivers fold it
     into theirs.  Needs ``health.enabled`` (the digest is the scoreboard's
     view).  Decisions count gossip rounds and threefry draws, never wall
-    time.  The partial view (``view:``) is not ported: the block loads
-    only as ``view: {enabled: false}``."""
+    time.  ``view`` is the bounded partial view (:class:`ViewConfig`, or its
+    YAML mapping); off by default."""
 
     enabled: bool = True
     # Before quarantining a peer on its own evidence, ask this many drawn
@@ -309,18 +359,12 @@ class MembershipConfig:
     heal_reconcile: bool = True
     reconcile_min_fraction: float = 0.3
     max_heal_weight: float = 0.75
-    # The partial view's block: only ``{"enabled": False}`` (or none)
-    # loads, and is kept as None.
-    view: Any = None
+    # Bounded partial views (off: the global view).
+    view: "ViewConfig | Mapping[str, Any]" = dataclasses.field(default_factory=ViewConfig)
 
     def __post_init__(self) -> None:
-        view = dict(self.view or {"enabled": False})
-        if view != {"enabled": False}:
-            raise NotImplementedError(
-                f"membership.view: {view} (the partial view) is not ported to "
-                f"dpwa_tpu_torch yet (only 'enabled: false' is accepted)"
-            )
-        object.__setattr__(self, "view", None)
+        if isinstance(self.view, Mapping):
+            object.__setattr__(self, "view", ViewConfig(**self.view))
         if self.indirect_probes < 0:
             raise ValueError(f"indirect_probes must be >= 0, got {self.indirect_probes}")
         if self.relay_timeout_ms < 1:
@@ -423,8 +467,9 @@ class FlowctlConfig:
     Serving side: admission sheds excess connections, a drained per-remote
     token bucket and sends past ``max_inflight_bytes`` with a ``DPWB`` busy
     frame, and evicts a request that trickles in slower than
-    ``min_ingest_bytes_per_s``.  ``reactor_max_connections`` is validated
-    and unused (the port has no reactor Rx server)."""
+    ``min_ingest_bytes_per_s``.  ``reactor_max_connections`` caps the
+    connections the reactor Rx server holds open (``max_connections``
+    caps the threaded server's worker threads)."""
 
     enabled: bool = True
     quantile: float = 0.95
@@ -679,8 +724,7 @@ def _build_nodes(raw: Sequence[Any]) -> tuple[NodeSpec, ...]:
 def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
     """Build a :class:`DpwaConfig` from a parsed-YAML mapping.
 
-    Raises :class:`NotImplementedError` naming any other top-level block and
-    a ``membership.view`` that is on."""
+    Raises :class:`NotImplementedError` naming any other top-level block."""
     if "nodes" not in raw:
         raise ValueError("config is missing the required 'nodes:' list")
     for key in raw:

@@ -34,7 +34,8 @@ A TCP node runs the reference's recovery, health, membership, trust and
 flow control planes, and its ``chaos:`` block when the config has one (its
 summary line gives the trust verdicts, the planes' events, the hedges, the
 rounds shed from a degraded partner, each peer's adaptive deadline, the
-admission counters and the round times):
+admission counters, the round times and the Rx server, with the reactor's
+counters under ``protocol.rx_server: reactor``):
 with ``DPWA_BOOTSTRAP=1`` in its environment (as a restart supervisor sets
 it) it lands on a healthy peer's replica, clock and step and trains on
 from that step to ``--steps``.  ``--diverge-at STEP`` turns the node's replica
@@ -397,7 +398,8 @@ def run_tcp(args) -> dict:
         print(f"[{args.name}] {dataset} test accuracy: {acc:.4f}", flush=True)
         stats = adapter.transport.stats
         timed = args.steps - start - 1
-        fsnap = adapter.transport.health_snapshot().get("flowctl")
+        hsnap = adapter.transport.health_snapshot()
+        fsnap = hsnap.get("flowctl")
         result = {
             "node": args.name,
             "dataset": dataset,
@@ -426,6 +428,10 @@ def run_tcp(args) -> dict:
             # under protocol.async_rounds
             "fold_launches": merge.fold_merge.launches - fold0,
             "wire": adapter.transport.wire_snapshot(),
+            # The Rx server (threaded, reactor, or the chaos harness's) and,
+            # under the reactor, its scheduler's counters.
+            "rx_server": type(adapter.transport.server).__name__,
+            "reactor": hsnap.get("reactor"),
             "peak_memory_bytes": (
                 torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
             ),

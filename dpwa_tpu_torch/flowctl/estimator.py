@@ -11,7 +11,9 @@ budget, not the peer) gives:
   while cold (a cold estimator never hedges).
 
 Busy, slow and hedge outcomes are counted for the snapshot but never enter
-the window.  Latencies arrive as arguments, so nothing here reads the wall
+the window.  The snapshot lists the peers with resident state only
+(:meth:`DeadlineEstimator.tracked_peers`), the residency the partial
+view's ``state_cap`` bounds through the membership's evict listener.  Latencies arrive as arguments, so nothing here reads the wall
 clock.  Every public method takes the lock: fetch legs run on their own
 threads.
 """

@@ -1,8 +1,10 @@
 """The deterministic chaos harness: seeded fault injection on the TCP path
-(the port of :mod:`dpwa_tpu.health.chaos`, its threaded server).
+(the port of :mod:`dpwa_tpu.health.chaos`).
 
-:class:`ChaosPeerServer` wraps the Rx server and injects real wire faults,
-so the fetching side exercises its own parsing, timeout and skip paths:
+:class:`ChaosPeerServer` wraps the threaded Rx server, and
+:class:`ChaosReactorPeerServer` is the reactor's chaos server
+(``protocol.rx_server: reactor``); both inject real wire faults, so the
+fetching side exercises its own parsing, timeout and skip paths:
 
 - **drop**: close the connection before serving anything;
 - **delay**: sleep ``delay_ms`` before serving;
@@ -24,17 +26,24 @@ Each fault is drawn per (chaos seed, round, peer) on its own threefry
 stream (:func:`~dpwa_tpu_torch.parallel.schedules.chaos_draw`), the round
 being the integer publish clock (the training loops publish ``clock =
 step``), so a seed replays the same faults, bit for bit the reference's
-plan.  The served bytes of every fault are the reference's; a connection
-with no fault drawn is served the published segments untouched.
+plan.  The served bytes of every fault are the reference's, and the two
+servers' are equal (both go through :func:`mutate_frame` and
+:func:`byzantine_frame`); a connection with no fault drawn is served the
+published segments untouched.  The reactor cannot sleep, so its timing
+faults are gates on its writes (:class:`_WriteShaper`), released at the
+loop's 50 ms poll: the same classifications, coarser edges.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import selectors
+import socket
+import struct
 import threading
 import time
 from collections import deque
-from typing import Deque, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +51,7 @@ from dpwa_tpu_torch.config import ChaosConfig, FlowctlConfig
 from dpwa_tpu_torch.ops.quantize import n_chunks
 from dpwa_tpu_torch.parallel import ingest
 from dpwa_tpu_torch.parallel import protocol_constants as pc
+from dpwa_tpu_torch.parallel.reactor import ReactorPeerServer
 from dpwa_tpu_torch.parallel.schedules import chaos_draw
 from dpwa_tpu_torch.parallel.tcp import PeerServer
 from dpwa_tpu_torch.utils import tags
@@ -413,3 +423,227 @@ class ChaosPeerServer:
 
     def close(self) -> None:
         self._srv.close()
+
+
+class _WriteShaper:
+    """The chaos timing of one reactor response, as a byte allowance the
+    loop enforces (the reactor cannot sleep): a start gate (no byte before
+    ``start_t``: the accept delay and the delay fault), an optional stall
+    (a third of the frame, a freeze of ``stall_s``, the rest: the threaded
+    :func:`_send_shaped`'s shape) and a linear rate of ``bps`` bytes a
+    second (throttle and trickle).  Content is never touched here."""
+
+    __slots__ = ("start_t", "bps", "stall_cut", "stall_s", "stall_until")
+
+    def __init__(self, start_t: float, bps: float = 0.0, stall_cut: int = 0,
+                 stall_s: float = 0.0):
+        self.start_t = start_t
+        self.bps = bps
+        self.stall_cut = stall_cut
+        self.stall_s = stall_s
+        self.stall_until: Optional[float] = None
+
+    def limit(self, sent: int, now: float, total: int) -> int:
+        """The byte offset the wire may reach at ``now`` (monotone in
+        ``now``; the stall's anchor is set when the burst reaches the
+        cut)."""
+        if now < self.start_t:
+            return 0
+        if self.stall_cut:
+            if sent < self.stall_cut:
+                return self.stall_cut
+            if self.stall_until is None:
+                self.stall_until = now + self.stall_s
+                return sent
+            if now < self.stall_until:
+                return sent
+            if self.bps > 0.0:
+                return self.stall_cut + max(1, int((now - self.stall_until) * self.bps))
+            return total
+        if self.bps > 0.0:
+            return max(1, int((now - self.start_t) * self.bps))
+        return total
+
+    def next_wake(self, now: float) -> float:
+        """When the gated write is driven again."""
+        if now < self.start_t:
+            return self.start_t
+        if self.stall_until is not None and now < self.stall_until:
+            return self.stall_until
+        return now + 0.05
+
+
+class ChaosReactorPeerServer(ReactorPeerServer):
+    """Chaos under the reactor (``protocol.rx_server: reactor`` and
+    ``chaos.enabled``).  Content faults (byzantine, corrupt, truncate,
+    drop, down windows) go through the threaded :class:`ChaosPeerServer`'s
+    pure mutators, so for a (seed, round, peer) the two servers serve the
+    same bytes; a drop or a down window aborts with a reset, as the
+    threaded handler's close with the request unread does.  Timing faults
+    gate the loop's writes per connection (:class:`_WriteShaper`)."""
+
+    def __init__(self, host: str, port: int, engine: ChaosEngine,
+                 flowctl: Optional[FlowctlConfig] = None):
+        self.engine = engine
+        self._round = 0
+        self._history: Optional[Deque[Tuple[int, bytes]]] = (
+            deque(maxlen=_HISTORY) if engine.config.byzantine_replay_probability > 0 else None
+        )
+        # Loop thread only: the shaped connections and the gated ones
+        # waiting for a release, (wake time, conn).  Made before the base
+        # constructor starts the loop.
+        self._shapers: Dict[object, _WriteShaper] = {}
+        self._deferred: List[Tuple[float, object]] = []
+        # Relayed probes honour the injected partitions too.
+        self.relay_guard = lambda target: engine.link_blocked(self._round, engine.peer, target)
+        super().__init__(host, port, flowctl=flowctl)
+
+    def publish(self, payload, clock: float, loss: float, digest: Optional[bytes] = None,
+                code: Optional[int] = None) -> None:
+        # The integer publish clock is the round key.
+        self._round = int(clock)
+        super().publish(payload, clock, loss, digest, code)
+        if self._history is not None:
+            framed = self._payload
+            if framed is not None:
+                self._history.append((self._round, framed))
+
+    _replay_frame = ChaosPeerServer._replay_frame
+
+    def _abort_conn(self, conn) -> None:
+        """Close with a reset, not a FIN: the threaded handler closes with
+        the request unread, which resets."""
+        try:
+            conn.sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+        except OSError:
+            pass
+        self._close_conn(conn)
+
+    def _gate(self, conn, plan: FaultPlan, now: float) -> None:
+        """Gate a STATE or RELAY reply by the accept delay and a delay
+        fault."""
+        gate = plan.accept_delay_s + (plan.delay_s if plan.kind == "delay" else 0.0)
+        if gate > 0.0:
+            self._shapers[conn] = _WriteShaper(now + gate)
+
+    def _serve_blob(self, conn, now: float) -> None:
+        plan = self.engine.plan(self._round)
+        if plan.kind in ("down", "drop"):
+            self._abort_conn(conn)
+            return
+        if not plan.faulty:
+            super()._serve_blob(conn, now)
+            return
+        payload = self._payload
+        if payload is None:
+            self._close_conn(conn)
+            return
+        # Content first, then the wire, as the threaded server composes them.
+        if plan.byzantine == "replay":
+            payload = self._replay_frame(payload, plan.byz_replay_age)
+        elif plan.byzantine != "none":
+            payload = byzantine_frame(payload, plan.byzantine, plan.byz_scale)
+        bps = plan.trickle_bps
+        if plan.kind == "throttle":
+            bps = plan.trickle_bps or plan.throttle_bps  # a trickle window outranks it
+        elif plan.kind != "delay":
+            payload = mutate_frame(payload, plan.kind)
+        adm = self.admission
+        if adm is not None and not adm.reserve_bytes(len(payload)):
+            self._queue_busy(conn, self.flowctl.busy_retry_ms, now)
+            return
+        conn.reserved = len(payload)
+        conn.is_blob = True
+        start_t = now + plan.accept_delay_s + (plan.delay_s if plan.kind == "delay" else 0.0)
+        stall_cut = max(1, len(payload) // 3) if plan.stall_s > 0.0 and len(payload) > 1 else 0
+        if start_t > now or bps > 0.0 or stall_cut:
+            self._shapers[conn] = _WriteShaper(start_t, bps, stall_cut, plan.stall_s)
+        self._queue_write(conn, payload, now)
+
+    def _serve_state(self, conn, offset: int, max_chunk: int, now: float) -> None:
+        plan = self.engine.plan(self._round)
+        if plan.kind in ("down", "drop"):
+            self._abort_conn(conn)
+            return
+        self._gate(conn, plan, now)
+        super()._serve_state(conn, offset, max_chunk, now)
+
+    def _start_relay(self, conn, host: str, now: float) -> None:
+        plan = self.engine.plan(self._round)
+        if plan.kind in ("down", "drop"):
+            self._abort_conn(conn)
+            return
+        self._gate(conn, plan, now)  # gates the reply, not the probe
+        super()._start_relay(conn, host, now)
+
+    def _on_writable(self, conn) -> None:
+        sh = self._shapers.get(conn)
+        if sh is None:
+            super()._on_writable(conn)
+            return
+        if conn.outsegs is not None:
+            # A shaped write meters one buffer by offset: join the segments
+            # (a copy off the unfaulted path).
+            conn.outbuf = memoryview(b"".join(bytes(s) for s in conn.outsegs))
+            conn.outsegs = None
+        buf = conn.outbuf
+        if buf is None:
+            return
+        now = time.monotonic()
+        limit = min(len(buf), sh.limit(conn.sent, now, len(buf)))
+        progressed = False
+        while conn.sent < limit:
+            try:
+                n = conn.sock.send(buf[conn.sent:limit])
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                self._close_conn(conn)
+                return
+            if n <= 0:
+                break
+            conn.sent += n
+            progressed = True
+        if conn.sent >= len(buf):
+            self._written(conn)
+            return
+        if progressed:
+            conn.deadline = time.monotonic() + conn.write_timeout
+        if conn.sent >= limit:
+            # Gated: drop write interest (a writable socket would spin the
+            # loop) and wake at the release; reading stays on, so an EOF
+            # still tears the connection down.
+            wake = sh.next_wake(now)
+            if conn.deadline < wake + conn.write_timeout:
+                conn.deadline = wake + conn.write_timeout  # a long gate is no stall
+                self._wheel.file(conn)
+            try:
+                self._sel.modify(conn.sock, selectors.EVENT_READ, conn)
+            except (OSError, ValueError, KeyError):
+                self._close_conn(conn)
+                return
+            self._deferred.append((wake, conn))
+
+    def _drain_relay_done(self) -> None:
+        # Once a loop iteration: also the gated writes' release pump.
+        super()._drain_relay_done()
+        if not self._deferred:
+            return
+        now = time.monotonic()
+        ready = [c for t, c in self._deferred if t <= now]
+        if not ready:
+            return
+        self._deferred = [(t, c) for t, c in self._deferred if t > now and not c.closed]
+        for conn in ready:
+            if conn.closed:
+                continue
+            try:
+                self._sel.modify(conn.sock, selectors.EVENT_WRITE, conn)
+            except (OSError, ValueError, KeyError):
+                self._close_conn(conn)
+                continue
+            self._on_writable(conn)
+
+    def _close_conn(self, conn, timed_out: bool = False) -> None:
+        self._shapers.pop(conn, None)
+        super()._close_conn(conn, timed_out=timed_out)

@@ -1,17 +1,19 @@
 """Epidemic membership, partition tolerance and heal-time reconciliation on
-the TCP transport (the port of :mod:`dpwa_tpu.membership`, its global
-view):
+the TCP transport (the port of :mod:`dpwa_tpu.membership`):
 
 - :mod:`~dpwa_tpu_torch.membership.digest`: the compact versioned digest
   every frame carries as an optional trailer, and the incarnation-based
   merge rules;
 - :mod:`~dpwa_tpu_torch.membership.manager`: the merged view, refutation,
   component, quorum and degraded mode, eviction, and the heal advice the
-  adapter acts on.
+  adapter acts on;
+- :mod:`~dpwa_tpu_torch.membership.partial_view`: the bounded partial
+  view (``membership.view``): the active and passive views, the digest
+  sample and the LRU cap's victims, on the flat ring.
 
-The transport's wiring (the trailer, the RELAY verb, indirect probes) is
-in :mod:`dpwa_tpu_torch.parallel.tcp`; the heal's state merge is the
-adapter's.  The partial view is not ported."""
+The transport's wiring (the trailer, the RELAY verb, indirect probes, the
+view's candidates) is in :mod:`dpwa_tpu_torch.parallel.tcp`; the heal's
+state merge is the adapter's."""
 
 from dpwa_tpu_torch.membership.digest import (
     ALIVE,
@@ -26,6 +28,7 @@ from dpwa_tpu_torch.membership.digest import (
     merge_entry,
 )
 from dpwa_tpu_torch.membership.manager import MembershipManager
+from dpwa_tpu_torch.membership.partial_view import PartialView
 
 __all__ = [
     "ALIVE",
@@ -39,4 +42,5 @@ __all__ = [
     "encode_digest",
     "merge_entry",
     "MembershipManager",
+    "PartialView",
 ]

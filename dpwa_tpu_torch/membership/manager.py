@@ -16,11 +16,18 @@ what the scoreboard alone cannot provide:
   quorum and degraded mode, eviction of peers held dead, and the heal
   advice the adapter turns into a state merge.
 
+With ``membership.view`` on, the manager also owns the bounded partial
+view (:class:`~dpwa_tpu_torch.membership.partial_view.PartialView`): each
+digest carries a drawn sample of the tracked peers, the per-peer state of
+the planes is LRU-capped at ``state_cap`` (cap evictions go through the
+same evict listeners as dead ones, cause-tagged apart, and never count
+against quorum), quorum runs over the tracked horizon, and a dead active
+peer's slot is refilled from the passive view.
+
 Every decision counts gossip rounds; there is no wall clock, so equal
 outcome sequences give equal event streams, in either package.  Not
-ported: the partial view (``membership.view``), the hierarchical digest's
-leader board (a ``topology:`` block is refused by the config) and
-``register_metrics``.
+ported: the hierarchical digest's leader board (a ``topology:`` block is
+refused by the config) and ``register_metrics``.
 
 Thread safety: state changes take the internal lock.  Scoreboard calls are
 made outside it (the scoreboard's snapshot calls back into
@@ -47,6 +54,7 @@ from dpwa_tpu_torch.membership.digest import (
     encode_digest,
     merge_entry,
 )
+from dpwa_tpu_torch.membership.partial_view import PartialView
 
 # A peer back from unreachable stays in the pending-heal pool this many
 # rounds while waiting for enough of its component to follow; after that it
@@ -70,7 +78,6 @@ class MembershipManager:
         self.me = me
         self.seed = seed
         self.scoreboard = scoreboard
-        self.partial = None  # the partial view is not ported
         self._lock = threading.Lock()
         self.incarnation = 0
         self._view: Dict[int, MemberEntry] = {}
@@ -87,12 +94,44 @@ class MembershipManager:
         # Called (outside the lock) with each evicted peer.
         self._evict_listeners: List[Callable[[int], None]] = []
         self._round = 0
+        # The bounded partial view (config.view).  Cap-evicted peers land in
+        # _capped: tombstoned and pruned like dead ones, but untracked, not
+        # dead, so they stay out of the quorum's arithmetic.
+        self.partial: Optional[PartialView] = (
+            PartialView(n_peers, me, self.config.view, seed=seed)
+            if self.config.view.enabled else None
+        )
+        self._capped: Set[int] = set()
+        self._evictions_by_cause = {"dead": 0, "cap": 0}
+        self._digest_entries_last = 0
+        # High-water marks over end_round under the view: a cap enforced
+        # only at round end could hide a spike from a final-size check.
+        self._peak_resident = 0
+        self._peak_sb_tracked = 0
+        # Predicates consulted (outside the lock) before a cap eviction:
+        # the transport registers trust's collapsed check.
+        self._cap_protectors: List[Callable[[int], bool]] = []
         scoreboard.attach_membership(self)
 
     def add_evict_listener(self, fn: Callable[[int], None]) -> None:
         """Register a callback fired once per peer eviction."""
         with self._lock:
             self._evict_listeners.append(fn)
+
+    def add_cap_protector(self, fn: Callable[[int], bool]) -> None:
+        """Register a predicate that shields peers from a cap eviction
+        (trust's collapsed check); dead evictions do not consult it."""
+        with self._lock:
+            self._cap_protectors.append(fn)
+
+    def partner_candidates(self) -> Optional[List[int]]:
+        """The sorted active view with the partial view on, else None
+        (draws range over all of ``nodes:``)."""
+        part = self.partial
+        if part is None:
+            return None
+        with self._lock:
+            return sorted(part.active)
 
     # -- local evidence -> digest states --------------------------------
     def _local_state(self, peer: int) -> int:
@@ -116,9 +155,11 @@ class MembershipManager:
             suspicion=max(view.suspicion, self.scoreboard.suspicion(peer)),
         )
 
-    def _combined_all(self) -> Dict[int, MemberEntry]:
-        """Every tracked peer's combined entry (scoreboard reads: call
-        without the lock)."""
+    def _combined_all(self, tracked: Optional[List[int]] = None) -> Dict[int, MemberEntry]:
+        """The combined entry of every peer but the evicted ones, or of
+        ``tracked`` (scoreboard reads: call without the lock)."""
+        if tracked is not None:
+            return {p: self._combined(p) for p in tracked}
         with self._lock:
             evicted = set(self._evicted)
         return {
@@ -127,13 +168,37 @@ class MembershipManager:
             if p != self.me and p not in evicted
         }
 
+    def _tracked_candidates(self) -> List[int]:
+        """The sorted tracked horizon under the partial view (lock held):
+        every peer the gossip view or the active view names, less the
+        tombstones.  O(state_cap + active), never O(N)."""
+        tracked = set(self._view) | self.partial.active
+        tracked -= self._evicted
+        tracked -= self._capped
+        tracked.discard(self.me)
+        return sorted(tracked)
+
     # -- digest I/O (the transport's publish and fetch paths) -----------
     def encode(self, round: int) -> bytes:
         """The digest this round's published frame carries: every peer but
-        the evicted ones, and this node ALIVE at its incarnation."""
-        entries = self._combined_all()
+        the evicted ones, and this node ALIVE at its incarnation.  Under
+        the partial view the candidates are the tracked horizon and the
+        digest carries :meth:`PartialView.sample_digest`'s sample of them
+        (damning entries first); a sample that covers them all is the
+        whole list, the global view's frame."""
+        with self._lock:
+            part = self.partial
+            tracked = self._tracked_candidates() if part is not None else None
+        combined = self._combined_all(tracked)
         with self._lock:
             self._round = max(self._round, int(round))
+            if part is not None:
+                damning = {p for p, e in combined.items() if e.state >= QUARANTINED}
+                entries = {p: combined[p]
+                           for p in part.sample_digest(sorted(combined), damning, int(round))}
+            else:
+                entries = combined
+            self._digest_entries_last = len(entries) + 1
             entries[self.me] = MemberEntry(state=ALIVE, incarnation=self.incarnation, suspicion=0.0)
             return encode_digest(Digest(origin=self.me, round=int(round), entries=entries))
 
@@ -149,12 +214,27 @@ class MembershipManager:
         r = int(round) if round is not None else self._round
         readmits: List[int] = []
         adopts: List[int] = []
+        uncapped: List[int] = []
         events: List[dict] = []
         with self._lock:
             self._round = max(self._round, r)
+            part = self.partial
+            if part is not None and digest.origin != self.me:
+                part.touch(digest.origin, r)
             for peer, claim in sorted(digest.entries.items()):
                 if peer >= self.n_peers:
                     continue
+                if part is not None and peer != self.me:
+                    # Recency for the cap, and discovery: an unknown peer a
+                    # digest names enters the views.
+                    part.touch(peer, r)
+                    if peer in self._capped:
+                        # A mention re-tracks a capped peer (untracked, not
+                        # dead); an alive-ish claim also clears its
+                        # scoreboard tombstone, below.
+                        self._capped.discard(peer)
+                        if claim.state <= SUSPECT:
+                            uncapped.append(peer)
                 if peer == self.me:
                     # Refutation: someone thinks we are sick at an
                     # incarnation as fresh as ours; outbid them.
@@ -179,6 +259,10 @@ class MembershipManager:
                 elif fresher and merged.state == ALIVE:
                     readmits.append(peer)  # the peer refuted a suspicion
             self._events.extend(events)
+        for peer in uncapped:
+            # Clears the cap tombstone: a clean record, rebuilt from the
+            # claims just folded.
+            self.scoreboard.readmit(peer, round=r)
         for peer in adopts:
             self.scoreboard.adopt_quarantine(peer, round=r)
         refuted: List[dict] = []
@@ -194,6 +278,7 @@ class MembershipManager:
                 for rec in refuted:
                     peer = rec["peer"]
                     self._dead_since.pop(peer, None)
+                    self._capped.discard(peer)
                     if peer in self._evicted:
                         # A rejoiner outbid its own dead claim.
                         self._evicted.discard(peer)
@@ -209,13 +294,39 @@ class MembershipManager:
     def end_round(self, step: int) -> None:
         """Recompute the component after this round's exchange, age dead
         claims toward eviction, and leave heal advice when enough of the
-        ring came back."""
-        combined = self._combined_all()
+        ring came back.  Under the partial view this is also where the
+        ``state_cap`` is enforced: residency across the membership and
+        scoreboard maps is measured, and the least recently touched peers
+        outside the active view and the protected ones (quarantined, or
+        shielded by a protector) are cap-evicted through the evict
+        listeners; a dead active peer's slot is refilled from the passive
+        view, and the passive view shuffles on its cadence."""
+        with self._lock:
+            part = self.partial
+            tracked = self._tracked_candidates() if part is not None else None
+            evicted = set(self._evicted)
+            view_keys = set(self._view) if part is not None else set()
+            touch_keys = set(part._last_touch) if part is not None else set()
+            protectors = list(self._cap_protectors) if part is not None else []
+        combined = self._combined_all(tracked)
+        # The cap's inputs, read outside our lock too: the scoreboard's
+        # resident peers, its quarantine verdicts and the protectors.
+        protected: Set[int] = set()
+        sb_tracked: List[int] = []
+        if part is not None:
+            sb_tracked = self.scoreboard.tracked_peers()
+            for p in sorted(view_keys | set(sb_tracked) | touch_keys):
+                if p == self.me or p in evicted:
+                    continue
+                if self.scoreboard.state(p) == PeerState.QUARANTINED or any(
+                        fn(p) for fn in protectors):
+                    protected.add(p)
         component = {self.me} | {p for p, e in combined.items() if e.state <= SUSPECT}
         dead_now = {p for p, e in combined.items() if e.state >= DEAD}
         step = int(step)
         events: List[dict] = []
         evictions: List[int] = []
+        cap_evictions: List[int] = []
         with self._lock:
             self._round = max(self._round, step)
             if self.config.dead_gossip_rounds > 0:
@@ -235,8 +346,14 @@ class MembershipManager:
                         "dead_rounds": self.config.dead_gossip_rounds,
                         "evicted": sorted(self._evicted),
                     })
-            # Quorum and heal fractions run over the ring that still exists.
-            alive_universe = max(1, self.n_peers - len(self._evicted))
+            # Quorum and heal fractions run over the ring that still exists:
+            # under the partial view, this node's tracked horizon (itself
+            # and the tracked peers, less this round's dead evictions), equal
+            # to the global formula with a full view.
+            if part is None:
+                alive_universe = max(1, self.n_peers - len(self._evicted))
+            else:
+                alive_universe = max(1, 1 + len(tracked) - len(evictions))
             prev = self._component
             if component != prev:
                 events.append({
@@ -276,24 +393,63 @@ class MembershipManager:
                 })
             self._component = component
             self._degraded = degraded
+            if part is not None:
+                cap_evictions = self._enforce_cap(part, step, evictions, sb_tracked, protected,
+                                                  events)
             self._events.extend(events)
             listeners = list(self._evict_listeners)
         # Prune the other planes outside our lock (theirs-before-ours).
-        for p in evictions:
+        for p in evictions + cap_evictions:
             self.scoreboard.evict_peer(p, round=step)
             for fn in listeners:
                 fn(p)
+
+    def _enforce_cap(self, part: PartialView, step: int, evictions: List[int],
+                     sb_tracked: List[int], protected: Set[int], events: List[dict]) -> List[int]:
+        """The partial view's round end (lock held): a dead active peer is
+        forgotten (promoting a passive one), the passive view shuffles, and
+        the resident peers over ``state_cap`` are cap-evicted, least
+        recently touched first; the victims, tombstoned here and pruned by
+        the caller."""
+        self._evictions_by_cause["dead"] += len(evictions)
+        for p in evictions:
+            part.forget(p)
+        part.maybe_shuffle(step)
+        cap = self.config.view.state_cap
+        resident = (set(self._view) | set(sb_tracked) | set(part._last_touch)) - (
+            self._evicted | self._capped | {self.me})
+        resident -= set(evictions)
+        victims = part.cap_victims(resident, protected, len(resident) - cap)
+        for p in victims:
+            self._view.pop(p, None)
+            part.forget(p)
+            self._capped.add(p)
+        self._peak_resident = max(self._peak_resident, len(resident) - len(victims))
+        self._peak_sb_tracked = max(self._peak_sb_tracked, len(sb_tracked))
+        if victims:
+            self._evictions_by_cause["cap"] += len(victims)
+            events.append({"event": "peers_capped", "peers": victims, "state_cap": cap})
+        return victims
 
     def on_peer_returned(self, peer: int, round: Optional[int] = None) -> None:
         """Direct probe evidence that an evicted peer is back.  Called by
         ``Scoreboard.record_probe`` with the scoreboard lock held: must not
         call back into the scoreboard.  Clears the eviction and downgrades
-        the stale DEAD entry to ALIVE at the same incarnation."""
+        the stale DEAD entry to ALIVE at the same incarnation.  A capped
+        peer (untracked, not dead) is tracked again, with no rejoin event."""
+        r = int(round) if round is not None else None
         with self._lock:
+            if peer in self._capped:
+                self._capped.discard(peer)
+                if self.partial is not None:
+                    self.partial.touch(peer, r if r is not None else self._round)
+                return
             if peer not in self._evicted:
                 return
             self._evicted.discard(peer)
             self._dead_since.pop(peer, None)
+            if self.partial is not None:
+                self.partial.touch(peer, r if r is not None else self._round)
             entry = self._view.get(peer)
             if entry is not None and entry.state > ALIVE:
                 self._view[peer] = MemberEntry(
@@ -303,7 +459,7 @@ class MembershipManager:
                 "event": "peer_rejoined",
                 "peer": peer,
                 "via": "probe",
-                "round": int(round) if round is not None else None,
+                "round": r,
             })
 
     def evicted_peers(self) -> List[int]:
@@ -349,4 +505,18 @@ class MembershipManager:
             }
             if self._evicted:
                 snap["evicted"] = sorted(self._evicted)
+            if self.partial is not None:
+                # Present exactly when the partial view is on.
+                part = self.partial.snapshot()
+                snap["view"] = {
+                    "view_active": part["active_size"],
+                    "view_passive": part["passive_size"],
+                    "view_tracked": len(self._tracked_candidates()),
+                    "view_capped": len(self._capped),
+                    "view_digest_entries": self._digest_entries_last,
+                    "view_evicted_dead": self._evictions_by_cause["dead"],
+                    "view_evicted_cap": self._evictions_by_cause["cap"],
+                    "view_promotions": part["promotions"],
+                    "view_shuffles": part["shuffles"],
+                }
             return snap

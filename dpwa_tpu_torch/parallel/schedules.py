@@ -20,9 +20,10 @@ transport's control draws, the fallback partner of a quarantined one
 backoff's jitter (:func:`backoff_jitter_draw`), the bootstrap donor
 (:func:`donor_draw`), the relays of an indirect probe (:func:`relay_draw`),
 the donor of a heal's reconciliation (:func:`heal_draw`), the shedding of
-a degraded partner's rounds (:func:`degrade_shed_draw`) and the chaos
-harness's faults (:func:`chaos_draw`), are the reference's threefry draws
-too.
+a degraded partner's rounds (:func:`degrade_shed_draw`), the partial view's
+digest sample and passive promotions (:func:`view_sample_draw`,
+:func:`passive_shuffle_draw`) and the chaos harness's faults
+(:func:`chaos_draw`), are the reference's threefry draws too.
 """
 
 from __future__ import annotations
@@ -129,6 +130,22 @@ def shard_draw(seed: int, step: int, k: int) -> int:
         return 0
     epoch, pos = divmod(int(step), k)
     return int(shard_permutation(seed, epoch, k)[pos])
+
+
+def view_sample_draw(seed: int, clock: int, me: int, n_candidates: int) -> np.ndarray:
+    """The permutation of the sorted tracked-peer candidates one digest
+    frame samples from (tag 34, the partial view's sample stream), keyed on
+    ``(seed, publish clock, me)``: a node's frame at a clock always samples
+    the same peers.  The caller takes the first ``digest_sample`` entries,
+    so a sample as large as the list is the whole list."""
+    return prng.permutation(_pair_key(seed, clock, me, _tags.TAG_VIEW_SAMPLE), int(n_candidates))
+
+
+def passive_shuffle_draw(seed: int, round_: int, me: int, n_candidates: int) -> int:
+    """Index of the passive-view candidate promoted (or displaced) on a
+    failure replacement or a shuffle (tag 35, apart from the sample
+    stream), keyed on ``(seed, round, me)``."""
+    return prng.randint(_pair_key(seed, round_, me, _tags.TAG_PASSIVE_SHUFFLE), 0, n_candidates)
 
 
 # The chaos fault kinds' tags are CHAOS_TAG_BASE + kind (utils/tags.py).

@@ -55,11 +55,25 @@ ring; only the winner's frame is landed and merged); a soft-``degraded``
 partner's rounds are partly shed to the fallback; the Rx server sheds
 excess load with the ``DPWB`` busy frame and evicts a trickled request.
 
-With ``chaos.enabled`` the Rx server is the chaos harness's
-(:class:`~dpwa_tpu_torch.health.chaos.ChaosPeerServer`: seeded wire and
-content faults, trickles, partitions) and the fetcher honours its blocked
-links; ``health.healthz_port`` serves :meth:`TcpTransport.health_snapshot`
-at ``/healthz`` (:mod:`dpwa_tpu_torch.health.endpoint`).
+The Rx server is the threaded :class:`PeerServer`, or with
+``protocol.rx_server: reactor`` the event-loop
+:class:`~dpwa_tpu_torch.parallel.reactor.ReactorPeerServer` (one
+``selectors`` thread for every connection, the same bytes).  With
+``chaos.enabled`` it is the chaos harness's wrapper of either
+(:class:`~dpwa_tpu_torch.health.chaos.ChaosPeerServer`,
+:class:`~dpwa_tpu_torch.health.chaos.ChaosReactorPeerServer`: seeded wire
+and content faults, trickles, partitions) and the fetcher honours its
+blocked links; ``health.healthz_port`` serves
+:meth:`TcpTransport.health_snapshot` at ``/healthz``
+(:mod:`dpwa_tpu_torch.health.endpoint`).
+
+With ``membership.view`` on, the bounded partial view
+(:mod:`dpwa_tpu_torch.membership.partial_view`) narrows the planes: the
+digest carries a drawn sample of the tracked peers, the per-peer state of
+the scoreboard, trust, the estimator and membership is capped at
+``state_cap`` (a collapsed-trust peer is never cap-evicted), and remaps,
+hedge fallbacks and relays draw from the healthy part of the active view
+(:meth:`TcpTransport._view_candidates`).
 
 The codecs (:mod:`dpwa_tpu_torch.ops.quantize`, :mod:`dpwa_tpu_torch.ops.
 shard`): ``wire_dtype: int8`` (code 4), ``wire_codec: topk`` with int8 or
@@ -102,8 +116,7 @@ fold form.  ``protocol.async_rounds`` makes the rounds barrier-free
 merge staleness-damped whenever ready, a publish clock at most once
 (the ``_async_guard`` dedup).
 
-Not ported yet: the reactor and native Rx servers, and ``/metrics``; the
-transport raises :class:`NotImplementedError` for ``rx_server: reactor``.
+Not ported yet: the native Rx server and ``/metrics``.
 """
 
 from __future__ import annotations
@@ -451,11 +464,12 @@ class PeerServer:
 
 
 def make_peer_server(host: str, port: int, flowctl: Optional[FlowctlConfig] = None) -> PeerServer:
-    """The Rx server: the threaded :class:`PeerServer`.  The reference
-    picks its native C++ server where it builds and no Python-only plane is
-    on; the port has no native server yet (nor the reactor, which
-    ``protocol.rx_server: reactor`` asks for and :class:`TcpTransport`
-    refuses)."""
+    """The threaded Rx server, :class:`PeerServer`.  The reference picks
+    its native C++ server here where it builds and no Python-only plane is
+    on; the port has no native server, so every threaded node serves from
+    :class:`PeerServer` (``protocol.rx_server: reactor`` selects
+    :class:`~dpwa_tpu_torch.parallel.reactor.ReactorPeerServer` in
+    :class:`TcpTransport`)."""
     return PeerServer(host, port, flowctl=flowctl)
 
 
@@ -1078,13 +1092,6 @@ class _Slot:
             _recycle_raw(raw)
 
 
-def _unsupported(config: DpwaConfig) -> Optional[str]:
-    proto = config.protocol
-    if proto.rx_server != "threaded":
-        return f"protocol.rx_server: {proto.rx_server} (the reactor Rx server)"
-    return None
-
-
 class _Landed:
     """A fetched frame on the merge's device: ``merge``, what the engine
     merges (a flat tensor or a codec payload); ``dense``, the sender's
@@ -1193,11 +1200,6 @@ class TcpTransport:
     verdict."""
 
     def __init__(self, config: DpwaConfig, name: str, device=None):
-        missing = _unsupported(config)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{missing} is not ported to dpwa_tpu_torch's TCP transport yet"
-            )
         self.config = config
         self.me = config.node_index(name)
         self.device = resolve_device(device)
@@ -1244,15 +1246,23 @@ class TcpTransport:
             DeadlineEstimator(config.flowctl, timeout_ms=config.protocol.timeout_ms)
             if config.flowctl.enabled else None
         )
-        # Chaos wraps the Rx server; its engine also blocks the links its
-        # partitions cut on this fetching side.
+        # Chaos wraps the Rx server, threaded or reactor; its engine also
+        # blocks the links its partitions cut on this fetching side.
         self._chaos_engine = None
+        reactor = proto.rx_server == "reactor"
         if config.chaos.enabled:
-            from dpwa_tpu_torch.health.chaos import ChaosEngine, ChaosPeerServer
+            from dpwa_tpu_torch.health.chaos import (
+                ChaosEngine, ChaosPeerServer, ChaosReactorPeerServer,
+            )
 
             self._chaos_engine = ChaosEngine(config.chaos, self.me)
-            self.server = ChaosPeerServer(spec.host, spec.port, self._chaos_engine,
-                                          flowctl=config.flowctl)
+            server_cls = ChaosReactorPeerServer if reactor else ChaosPeerServer
+            self.server = server_cls(spec.host, spec.port, self._chaos_engine,
+                                     flowctl=config.flowctl)
+        elif reactor:
+            from dpwa_tpu_torch.parallel.reactor import ReactorPeerServer
+
+            self.server = ReactorPeerServer(spec.host, spec.port, flowctl=config.flowctl)
         else:
             self.server = make_peer_server(spec.host, spec.port, flowctl=config.flowctl)
         self._ports = {i: (n.host, n.port) for i, n in enumerate(config.nodes)}
@@ -1273,6 +1283,11 @@ class TcpTransport:
                 self.membership.add_evict_listener(self.trust.evict_peer)
             if self._estimator is not None:
                 self.membership.add_evict_listener(self._estimator.evict_peer)
+            if self.membership.partial is not None and self.trust is not None:
+                # The cap never drops a collapsed-trust verdict, and trust's
+                # snapshot lists the tracked peers only.
+                self.membership.add_cap_protector(self.trust.is_collapsed)
+                self.trust.enable_capped_snapshots()
         if self.trust is not None and self.scoreboard is not None:
             # Collapsed trust feeds the scoreboard as untrusted probes.
             self.trust.attach_scoreboard(self.scoreboard)
@@ -1680,13 +1695,30 @@ class TcpTransport:
                            not primary_done, elapsed, step)
         return hedge.raw(True, fallback)
 
+    def _view_candidates(self) -> Optional[List[int]]:
+        """The sorted active view with ``membership.view`` on, else None
+        (draws range over all of ``nodes:``)."""
+        return None if self.membership is None else self.membership.partner_candidates()
+
+    def _remap(self, step: int, sched: int) -> int:
+        """The healthy fallback of a remapped round: over the whole ring's
+        healthy mask, or with the partial view on over the active view
+        (eligibility read for those peers only)."""
+        view = self._view_candidates()
+        healthy = (self.scoreboard.healthy_mask(step) if view is None
+                   else self.scoreboard.healthy_map(view, step))
+        return self.schedule.remap_partner(step, self.me, sched, healthy, view)
+
     def _hedge_fallback(self, peer: int, step: int) -> Optional[int]:
         """The hedge's target: the schedule's fallback draw over the healthy
-        peers (the draw a quarantine remap makes this round), or None when
-        there is no other healthy, reachable peer."""
-        mask = (self.scoreboard.healthy_mask(step) if self.scoreboard is not None
-                else [True] * len(self.config.nodes))
-        fallback = self.schedule.remap_partner(step, self.me, peer, mask)
+        peers (the draw a quarantine remap makes this round; of the active
+        view with the partial view on), or None when there is no other
+        healthy, reachable peer."""
+        if self.scoreboard is not None:
+            fallback = self._remap(step, peer)
+        else:
+            fallback = self.schedule.remap_partner(step, self.me, peer,
+                                                   [True] * len(self.config.nodes))
         if fallback in (self.me, peer) or self._link_blocked(fallback):
             return None
         return int(fallback)
@@ -1747,10 +1779,12 @@ class TcpTransport:
         one summarized outcome for it: a success when any relay vouched.
         Each relay's own reachability feeds its record too.  The relays are
         :func:`~dpwa_tpu_torch.parallel.schedules.relay_draw`'s, keyed on
-        (seed, step, me, slot)."""
+        (seed, step, me, slot); with the partial view on they are drawn from
+        the active view."""
         sb = self.scoreboard
+        view = self._view_candidates()
         candidates = [
-            p for p in range(len(self.config.nodes))
+            p for p in (view if view is not None else range(len(self.config.nodes)))
             if p != self.me and p != suspect and sb.state(p) == PeerState.HEALTHY
         ]
         if not candidates:
@@ -1824,7 +1858,7 @@ class TcpTransport:
                 and sb.is_degraded(sched, step)
                 and degrade_shed_draw(self.schedule.seed, step, self.me) < fc.degrade_shed_fraction
             ):
-                partner = self.schedule.remap_partner(step, self.me, sched, sb.healthy_mask(step))
+                partner = self._remap(step, sched)
                 remapped = True
         return sched, partner, remapped
 
@@ -1879,7 +1913,9 @@ class TcpTransport:
         runs), plus each peer's trust columns and a top-level ``trust`` view
         when the trust plane runs, and each peer's deadline, hedge, busy and
         slow columns and a top-level ``flowctl`` view (the estimator's, with
-        the server's admission counters) when flowctl runs."""
+        the server's admission counters) when flowctl runs; the ``reactor``
+        scheduler's counters exactly when the reactor serves; the ``wire``
+        accounting when a codec, the pipeline or the partial view is on."""
         if self.scoreboard is None:
             snap = {"me": self.me, "round": 0, "peers": {}}
         else:
@@ -1899,7 +1935,11 @@ class TcpTransport:
                     {k: info[k] for k in ("deadline_ms", "hedges", "hedge_wins", "busy", "slow")}
                 )
             snap["flowctl"] = fsnap
-        if self._wire_topk or self._shard_on or self._prefetch_on:
+        reactor_snap = getattr(self.server, "reactor_snapshot", None)
+        if reactor_snap is not None:
+            snap["reactor"] = reactor_snap()
+        if (self._wire_topk or self._shard_on or self._prefetch_on
+                or (self.membership is not None and self.membership.partial is not None)):
             snap["wire"] = self.wire_snapshot()
         if self.async_engine is not None:
             snap["async"] = self.async_engine.snapshot()
@@ -1915,8 +1955,11 @@ class TcpTransport:
         (rounds, rounds consumed from a slot, slots still streaming at the
         consuming publish, the fetches' and the joins' seconds, the share of
         the rounds' wall time a fetch was in flight, and the share of the
-        fetch time hidden) when it runs.  The reference's receive-ring occupancy
-        and device-engine columns are its own and not reported."""
+        fetch time hidden) when it runs; the partial view's ``view`` group
+        (view sizes, residency, evictions by cause, promotions, shuffles,
+        and the digest bytes of the last published frame) when it is on.
+        The reference's receive-ring occupancy and device-engine columns are
+        its own and not reported."""
         with self._stats_lock:
             t = dict(self._wire_tally)
             shard_tally = {i: dict(st) for i, st in self._shard_tally.items()}
@@ -1946,6 +1989,10 @@ class TcpTransport:
                     shard_tally.get(i, {}).get("wire_bytes", 0) for i in range(k)],
                 "coverage": round(len(shard_tally) / k, 4),
             }
+        if self.membership is not None and self.membership.partial is not None:
+            view = dict(self.membership.view_snapshot().get("view") or {})
+            view["view_digest_bytes"] = self.last_digest_nbytes
+            out["view"] = view
         if self._prefetch_on:
             with self._stats_lock:
                 o = dict(self._overlap)

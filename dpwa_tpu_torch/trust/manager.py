@@ -98,6 +98,9 @@ class TrustManager:
         self._last_seen: Dict[int, int] = {}
         self._amnesty_until: Dict[int, int] = {}
         self._events: List[dict] = []
+        # Under the partial view (membership.view) the snapshot lists the
+        # tracked peers only (enable_capped_snapshots).
+        self._capped_snapshots = False
         self._leaf_starts: Optional[np.ndarray] = None
         self._leaf_sizes: Optional[Tuple[int, ...]] = None
         # Per-clean-exchange recovery gain: trust deficit halves every
@@ -405,6 +408,29 @@ class TrustManager:
         with self._lock:
             return self._trust.get(peer, 1.0)
 
+    def enable_capped_snapshots(self) -> None:
+        """Make :meth:`snapshot` list the tracked peers only (the transport
+        calls this when ``membership.view`` is on)."""
+        with self._lock:
+            self._capped_snapshots = True
+
+    def is_collapsed(self, peer: int) -> bool:
+        """Whether ``peer``'s trust has collapsed to quarantine: the partial
+        view's cap protector (a collapsed verdict expires through the
+        streak, never because the peer went cold in the LRU)."""
+        with self._lock:
+            return bool(self._collapsed.get(peer, False))
+
+    def tracked_peers(self) -> List[int]:
+        """Every peer with state in any per-peer map: the residency the
+        partial view's ``state_cap`` bounds."""
+        with self._lock:
+            keys = (set(self._trust) | set(self._collapsed) | set(self._last_clock)
+                    | set(self._replay_streak) | set(self._counts) | set(self._last_verdict)
+                    | set(self._last_seen) | set(self._amnesty_until))
+            keys.discard(self.me)
+            return sorted(keys)
+
     def alpha_scale(self, peer: int) -> float:
         """Merge damping for ``peer``: ``trust ** damping``, snapped to
         exactly 1.0 near full trust so honest rings merge bit-identically
@@ -427,7 +453,10 @@ class TrustManager:
         with self._lock:
             fill = min(len(b) for b in self._baselines.values())
             peers = {}
-            for p in range(self.n_peers):
+            # Under the partial view only tracked peers have state to report.
+            universe = (sorted(set(self._trust) | set(self._counts) | set(self._last_verdict))
+                        if self._capped_snapshots else range(self.n_peers))
+            for p in universe:
                 if p == self.me:
                     continue
                 c = self._counts.get(p, {})

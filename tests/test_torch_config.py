@@ -93,8 +93,7 @@ def test_default_on_block_loads_what_the_reference_loads(block, content):
             config.config_from_dict(doc)
         return
     mine = getattr(config.config_from_dict(doc), block)
-    assert _fields(mine) == {k: v for k, v in _fields(ref).items() if k != "view"} | (
-        {"view": None} if block == "membership" else {})
+    assert _fields(mine) == _fields(ref)  # membership's view block included
 
 
 @pytest.mark.parametrize("raw", [{}, {"enabled": False}, {"suspicion_threshold": 3.5,

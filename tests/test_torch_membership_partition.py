@@ -14,7 +14,7 @@ Each test names the test of ``tests/test_membership.py`` it mirrors.
   (``test_partition_detect_heal_in_process``,
   ``test_reconcile_heal_merges_returning_state``).
 - Neither plane imports JAX or the reference, and a partial view in the
-  config raises, naming it.
+  config loads as the reference's.
 
 Every socket binds port 0 and peers are wired with ``set_peer_port``.
 """
@@ -190,10 +190,18 @@ def test_membership_and_trust_import_neither_jax_nor_the_reference():
 
 
 def test_view_on_raises_naming_the_partial_view():
-    from dpwa_tpu_torch.config import config_from_dict, load_config
+    """The partial view is ported: a view that is on loads as the
+    reference's ``ViewConfig``, and a bad one raises a ``ValueError`` naming
+    its field; a ``topology:`` block still raises."""
+    from dpwa_tpu.config import config_from_dict as ref_config_from_dict
+    from dpwa_tpu_torch.config import ViewConfig, config_from_dict, load_config
 
-    with pytest.raises(NotImplementedError, match="partial view"):
-        config_from_dict({"nodes": ["a"], "membership": {"view": {"enabled": True}}})
+    doc = {"nodes": ["a"], "membership": {"view": {"enabled": True, "state_cap": 12}}}
+    view = config_from_dict(doc).membership.view
+    assert isinstance(view, ViewConfig) and view.enabled
+    assert dataclasses.asdict(view) == dataclasses.asdict(ref_config_from_dict(doc).membership.view)
+    with pytest.raises(ValueError, match="view.state_cap"):
+        config_from_dict({"nodes": ["a"], "membership": {"view": {"state_cap": 2}}})
     with pytest.raises(NotImplementedError, match="topology"):
         config_from_dict({"nodes": ["a"], "topology": {"enabled": False}})
     cfg = load_config("examples/mnist/nodes.yaml")

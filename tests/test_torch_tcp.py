@@ -410,11 +410,26 @@ def test_poisoned_frame_is_not_merged():
     dict(membership={"view": {"enabled": True}}), dict(rx_server="reactor"),
 ])
 def test_unported_settings_raise(setting):
-    """What the port's transport does not have raises, a codec (which it
-    has) composed with it included."""
-    with pytest.raises(NotImplementedError, match=next(iter(setting))):
-        cfg = _ephemeral(make_local_config(2, **setting))
-        tcp.TcpTransport(cfg, "node0", device="cpu")
+    """Settings the port's transport once refused (the reactor Rx server,
+    alone and under a codec, and the partial view) build with no
+    ``NotImplementedError`` and run a merged pair round."""
+    cfg = _ephemeral(make_local_config(2, **setting))
+    nodes = [tcp.TcpTransport(cfg, f"node{i}", device="cpu") for i in range(2)]
+    try:
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        assert (type(nodes[0].server).__name__ == "ReactorPeerServer") == (
+            setting.get("rx_server") == "reactor")
+        vecs = [torch.full((64,), float(i + 1)) for i in range(2)]
+        for i, t in enumerate(nodes):
+            t.publish(vecs[i], 1.0, 0.1)
+        for i, t in enumerate(nodes):
+            _merged, alpha, partner = t.exchange(vecs[i], 1.0, 0.1, 0)
+            assert alpha > 0.0 and partner == 1 - i
+    finally:
+        for t in nodes:
+            t.close()
 
 
 def test_replica_reads_back_once_per_merge():
