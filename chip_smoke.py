@@ -55,7 +55,14 @@ that they went through the kernels:
   one node closed early (its neighbours remap over their active views,
   evict it and promote a passive peer; digests, caps and fetches checked),
   and the same run view-off and at the identity view, whose frames must be
-  equal; and the MNIST pair and the byzantine group again on the reactor;
+  equal; the MNIST pair and the byzantine group again on the reactor; the
+  MNIST pair with the whole observability plane on (round traces joined
+  across the nodes, sketches, ``/metrics``, a clean run's incident report,
+  the flight recorder's dumps, the adapter's metrics files, each checked
+  by the repo's tools); and the f32 exchange with the plane off and on in
+  turns (each on frame the off frame plus its ``DPWT`` trailer, the merges
+  bit-equal, the round split by stage, the sketch on the card against its
+  bound) and under the traced prefetch pipeline;
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -112,7 +119,7 @@ ALL_PHASES = (
     "train_mnist", "profile_mnist", "resume_mnist", "train_bn", "train_tcp", "slowpeer_tcp",
     "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
     "codec_kernels", "wire_exchange", "codecs_tcp", "fold_kernels", "overlap_tcp", "async_tcp",
-    "view_tcp", "reactor_tcp", "reactor_exchange",
+    "view_tcp", "reactor_tcp", "reactor_exchange", "obs_tcp", "obs_exchange",
     "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
@@ -143,7 +150,7 @@ TCP_TIMEOUT_S = 420
 # RECOVER_STEPS steps, enough for node0 to outlast the restart); each must
 # merge at least RECOVER_MIN_MERGED rounds after it; node1's step made NaN
 # at ROLLBACK_AT.
-RECOVER_STEPS, RECOVER_KILL_MERGED, RECOVER_MIN_MERGED, ROLLBACK_AT = 6000, 50, 100, 150
+RECOVER_STEPS, RECOVER_KILL_MERGED, RECOVER_MIN_MERGED, ROLLBACK_AT = 4000, 50, 100, 150
 TCP_WARMUPS, TCP_PASSES, TCP_ITERS = 3, 3, 10
 # The byzantine phase: examples/mnist/nodes.yaml widened to 4 nodes; node0-2
 # are processes of the MNIST example, node3 a TcpTransport of this script
@@ -224,6 +231,27 @@ REACTOR_PROTOCOL = "  rx_server: reactor\n"
 REACTOR_CHAOS = "chaos: {enabled: true, seed: 0}\n"
 REACTOR_ORDER = ("threaded", "reactor", "reactor", "threaded", "threaded", "reactor")
 REACTOR_WARMUPS, REACTOR_PASSES, REACTOR_ITERS = 2, 2, 5
+# The observability plane: obs_tcp runs train_tcp's two MNIST processes with
+# start and end barriers, every facility of OBS_TCP on (the round traces,
+# the sketch, /metrics, the incident plane, the flight recorder; each
+# node's files named in a config of its own) and the adapter's metrics
+# JSONL; obs_exchange runs tcp_exchange's lock-step f32 round at
+# ResNet-50's d with the obs block off and OBS_EXCHANGE on in turns
+# (OBS_ORDER), each leg OBS_WARMUPS warm-up rounds and OBS_ROUNDS timed,
+# then one leg of the prefetch pipeline, traced, under a compute stand-in
+# the size of the off legs' median round.
+OBS_TCP = ("obs: {{trace: true, sketch: true, metrics: true, incidents: true, "
+           "recorder: true, trace_path: '{trace}', incident_path: '{incidents}', "
+           "recorder_path: '{flight}'}}\n")
+OBS_EXCHANGE = {"trace": True, "sketch": True, "metrics": True}
+OBS_ORDER = ("off", "on", "on", "off")
+OBS_WARMUPS, OBS_ROUNDS = 1, 4
+OBS_SKETCH_K = 64  # ObsConfig.sketch_k's default
+OBS_STAGES = ("publish", "partner_resolve", "wire", "guard", "trust", "merge")
+OBS_PIPE_STAGES = ("join_wait", "decode", "guard", "trust", "merge", "publish")
+OBS_FAMILIES = ("dpwa_peer_state", "dpwa_membership_incarnation", "dpwa_trust_score",
+                "dpwa_flowctl_deadline_ms", "dpwa_admission_sheds_total", "dpwa_wire_frames_total",
+                "dpwa_disagreement_rms", "dpwa_trace_stage_seconds_total")
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -2715,6 +2743,315 @@ def reactor_exchange(torch, merge, device) -> dict:
     return out
 
 
+def run_tool(script: str, paths, json_out: bool = True):
+    """One of the repo's stdlib tools (``tools/<script>``) over ``paths`` as
+    a subprocess: ``(exit code, its JSON report or its output)``."""
+    cmd = [sys.executable, os.path.join(HERE, "tools", script), *(["--json"] if json_out else []),
+           *paths]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=120)
+    if json_out and proc.returncode == 0:
+        return proc.returncode, json.loads(proc.stdout)
+    return proc.returncode, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
+def obs_tcp(kind: str) -> dict:
+    """``train_tcp``'s two MNIST processes (start and end barriers) with the
+    whole obs block on and the adapter's metrics JSONL: every node at
+    accuracy >= 0.9 with one B2 launch a merged round, a trace record a
+    round, every JSONL file accepted by ``tools/schema_check.py``,
+    ``tools/trace_report.py`` joining the two nodes' spans with completeness
+    1.0 and a falling convergence estimate, ``tools/incident_report.py``
+    finding no incident, and a flight dump each node left at its close."""
+    workdir = os.path.join(HERE, "build", "obs_tcp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    base = tcp_config(workdir)
+    with open(base) as f:
+        text = f.read()
+    files = {name: [os.path.join(workdir, f"{name}-{i}.jsonl") for i in range(2)]
+             for name in ("trace", "incidents", "flight", "metrics")}
+    configs = []
+    for i in range(2):
+        configs.append(os.path.join(workdir, f"node{i}.yaml"))
+        with open(configs[i], "w") as f:
+            f.write(text + OBS_TCP.format(trace=files["trace"][i], incidents=files["incidents"][i],
+                                          flight=files["flight"][i]))
+    barrier = os.path.join(workdir, "barrier")
+    procs = []
+    try:
+        for i in range(2):
+            procs.append(mnist_node(configs[i], f"node{i}", MNIST_STEPS,
+                                    ("--barrier", barrier, "--metrics", files["metrics"][i])))
+        outs = [p.communicate(timeout=TCP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    nodes = [node_result("obs_tcp", f"node{i}", p.returncode, *out, kind, MNIST_STEPS)
+             for i, (p, out) in enumerate(zip(procs, outs))]
+    traced = []
+    for i, n in enumerate(nodes):
+        with open(files["trace"][i]) as f:
+            recs = [json.loads(line) for line in f]
+        rounds = sum(r["kind"] == "round" for r in recs)
+        if rounds != n["rounds"]:
+            raise AssertionError(f"obs_tcp: node{i} traced {rounds} of its {n['rounds']} rounds")
+        traced.append({"rounds": rounds, "serves": sum(r["kind"] == "serve" for r in recs)})
+    every = [p for paths in files.values() for p in paths if os.path.exists(p)]
+    rc, schema = run_tool("schema_check.py", every)
+    if rc != 0:
+        raise AssertionError(f"obs_tcp: tools/schema_check.py exited {rc}: {schema}")
+    rc, trace = run_tool("trace_report.py", files["trace"])
+    if rc != 0:
+        raise AssertionError(f"obs_tcp: tools/trace_report.py exited {rc}: {trace}")
+    conv = trace["convergence"]
+    if trace["join"]["completeness"] != 1.0 or not conv or not (
+            conv[-1]["rms_mean"] < conv[0]["rms_mean"]):
+        raise AssertionError(f"obs_tcp: trace join {trace['join']}, convergence "
+                             f"{conv[:1]} .. {conv[-1:]}")
+    rc, incidents = run_tool("incident_report.py", files["incidents"] + files["flight"])
+    if rc != 0 or incidents["clusters"] or incidents["alerts"]:
+        raise AssertionError(f"obs_tcp: a clean run's incident report: {incidents}")
+    dumps = []
+    for i, path in enumerate(files["flight"]):
+        with open(path) as f:
+            meta = json.loads(f.readline())
+        if meta["reason"] != "close":
+            raise AssertionError(f"obs_tcp: node{i}'s flight dump {meta}")
+        dumps.append({"rounds": meta["rounds"], "dumps": meta["dumps"]})
+    for n in nodes:
+        n.pop("losses", None)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "nodes": nodes, "steps_per_sec": [n["steps_per_sec"] for n in nodes],
+        "traced": traced, "schema_records": schema["records"],
+        "trace_join": trace["join"], "trace_stage_median_ms": trace["stage_median_ms"],
+        "convergence_rms": [conv[0]["rms_mean"], conv[-1]["rms_mean"]],
+        "convergence_rel": [conv[0]["rel_mean"], conv[-1]["rel_mean"]],
+        "incident_clusters": len(incidents["clusters"]), "alerts": incidents["alerts"],
+        "flight_dumps": dumps,
+    }
+
+
+def obs_exchange(torch, merge, device, flush) -> dict:
+    """``tcp_exchange``'s lock-step f32 round at ResNet-50's d (2 nodes in
+    this process, both publish, then both exchange on their own threads)
+    with the obs block off and OBS_EXCHANGE on in turns (OBS_ORDER), every
+    leg from the same seeded replicas: each on leg's frames equal to the
+    first off leg's plus one DPWT trailer and its merged replicas bit-equal;
+    each leg's median round; the traced stages' medians; one scrape of
+    ``/metrics`` holding every plane's families; the sketch on the card
+    against its plain float64 version within the float32 summation bound
+    and timed (CUDA events, L2 flushed) beside its bound; then the prefetch
+    pipeline with the trace on, under a compute stand-in of the off legs'
+    median round: the unhidden time split by stage, and the span-derived
+    hidden fraction against ``wire_snapshot``'s."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from dpwa_tpu_torch.config import make_local_config
+    from dpwa_tpu_torch.obs import sketch, wire
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    gen = torch.Generator(device=device).manual_seed(53)
+    base = [torch.randn(R50_D, generator=gen, device=device) for _ in range(2)]
+    first = {}  # the first off leg's frames (host copies) and merged replicas
+
+    def nodes_of(obs, **kw):
+        cfg = make_local_config(2, schedule="ring", interpolation="constant", factor=0.3,
+                                timeout_ms=10000, obs=obs,
+                                health={"healthz_port": 0} if obs.get("metrics") else None, **kw)
+        cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0)
+                                                   for n in cfg.nodes))
+        nodes = [TcpTransport(cfg, f"node{i}", device=device) for i in range(2)]
+        for t in nodes:
+            for i, other in enumerate(nodes):
+                t.set_peer_port(i, other.port)
+        return nodes
+
+    def leg(label: str, obs: dict, compute_s: float = 0.0, **kw) -> dict:
+        nodes = nodes_of(obs, **kw)
+        try:
+            vecs = [b.clone() for b in base]
+            merge.reset_launch_counts()
+            durs, rounds = [], 0
+            for it in range(OBS_WARMUPS + OBS_ROUNDS):
+                for i, t in enumerate(nodes):
+                    t.publish(vecs[i], it, 0.0)
+                results = [None, None]
+
+                def run(i):
+                    results[i] = nodes[i].exchange_on_device(vecs[i], it, 0.0, it)
+
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=120)
+                torch.cuda.synchronize(device)
+                elapsed = time.perf_counter() - t0
+                if any(th.is_alive() for th in threads) or any(
+                        r is None or r[1] == 0.0 for r in results):
+                    raise AssertionError(f"obs_exchange {label}: round {it} did not merge: "
+                                         f"{[t.last_fetch for t in nodes]}")
+                vecs = [r[0] for r in results]
+                if it >= OBS_WARMUPS:
+                    durs.append(elapsed)
+                    if not compute_s:
+                        check_frames(label, nodes, it - OBS_WARMUPS, bool(obs))
+                if compute_s:
+                    time.sleep(compute_s)
+            merged_rounds = sum(t.stats["merged"] for t in nodes)
+            if merge.gather_merge.launches != merged_rounds:
+                raise AssertionError(f"obs_exchange {label}: {merged_rounds} merged rounds, "
+                                     f"{merge.gather_merge.launches} B2 launches")
+            if not compute_s:
+                if "vecs" not in first:
+                    first["vecs"] = vecs
+                elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                             for a, b in zip(vecs, first["vecs"])):
+                    raise AssertionError(f"obs_exchange {label}: the merged replicas differ "
+                                         "from the first off leg's")
+            out = {"leg": label, "round_ms": float(np.median(durs)) * 1e3,
+                   "rounds_ms": [d * 1e3 for d in durs], "b2_launches": merged_rounds,
+                   "fetch_ms": [t.last_fetch["latency_s"] * 1e3 for t in nodes]}
+            if nodes[0].tracer is not None:
+                recs = [r for t in nodes for r in t.tracer.pop_records() if r["kind"] == "round"]
+                out["records"] = recs
+                out["serve_spans"] = nodes[0].tracer.stage_summary().get("serve", {}).get("n", 0)
+            if obs.get("metrics") and "scrape" not in first:
+                first["scrape"] = scrape(nodes[0])
+            if kw.get("overlap_prefetch"):
+                ovs = [t.wire_snapshot()["overlap"] for t in nodes]
+                out["overlap"] = ovs
+            return out
+        finally:
+            for t in nodes:
+                t.close()
+
+    def check_frames(label, nodes, r, with_obs):
+        for i, t in enumerate(nodes):
+            with t.server._lock:
+                segs = t.server._segments
+            if with_obs:
+                segs, trailer = segs[:-1], bytes(segs[-1])
+                frame = wire.decode_obs(trailer)
+                if frame is None or frame.trace_id != f"{i}:{OBS_WARMUPS + r}" or (
+                        frame.sketch is None or frame.sketch.shape != (OBS_SKETCH_K,)):
+                    raise AssertionError(f"obs_exchange {label}: node{i}'s trailer {frame}")
+            views = [np.frombuffer(memoryview(s).cast("B"), np.uint8) for s in segs]
+            key = (i, r)
+            if "frames" not in first:
+                first["frames"] = {}
+            if key not in first["frames"]:
+                if with_obs:
+                    raise AssertionError("obs_exchange: an on leg ran before the first off leg")
+                first["frames"][key] = [v.copy() for v in views]
+            else:
+                want = first["frames"][key]
+                if len(want) != len(views) or not all(
+                        np.array_equal(a, b) for a, b in zip(views, want)):
+                    raise AssertionError(f"obs_exchange {label}: node{i}'s frame of round {r} "
+                                         "is not the off leg's")
+
+    def scrape(node) -> dict:
+        url = f"http://127.0.0.1:{node.healthz.port}/metrics"
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            ctype, text = resp.headers["Content-Type"], resp.read().decode()
+        families = sorted({line.split()[2] for line in text.splitlines()
+                           if line.startswith("# TYPE ")})
+        samples = 0
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                float(line.rsplit(" ", 1)[1])
+                samples += 1
+        missing = sorted(set(OBS_FAMILIES) - set(families))
+        if missing or not ctype.startswith("text/plain; version=0.0.4"):
+            raise AssertionError(f"obs_exchange: /metrics ({ctype}) lacks {missing}")
+        return {"families": len(families), "samples": samples, "bytes": len(text)}
+
+    def medians(recs, stages) -> dict:
+        return {s: float(np.median([r["stages"].get(s, 0.0) for r in recs])) * 1e3
+                for s in stages}
+
+    legs = [leg(label, OBS_EXCHANGE if label == "on" else {}) for label in OBS_ORDER]
+    first.pop("frames", None)
+    off_ms = float(np.median([x for leg_ in legs if leg_["leg"] == "off"
+                              for x in leg_["rounds_ms"]]))
+    on_ms = float(np.median([x for leg_ in legs if leg_["leg"] == "on"
+                             for x in leg_["rounds_ms"]]))
+    traced = [r for leg_ in legs for r in leg_.pop("records", []) if r["step"] >= OBS_WARMUPS]
+    stage_ms = medians(traced, OBS_STAGES)
+    # The sketch on the card: the complete blocks' batched product and the
+    # last block's dot, against a float64 sum on the card.
+    k, vec = OBS_SKETCH_K, base[0]
+    signs = sketch.sketch_signs(0, R50_D, k, device)
+    m = signs.shape[1]
+    padded = torch.zeros(k * m, dtype=torch.float64, device=device)
+    padded[:R50_D] = vec.double()
+    want = (signs.double() * padded.view(k, m)).sum(1)
+    bound_err = 2 * m * 2.0 ** -24 * padded.abs().view(k, m).sum(1)
+    got = torch.from_numpy(sketch.replica_sketch(vec, 0, k)).to(device).double()
+    err = (got - want).abs()
+    if not bool((err <= bound_err).all()):
+        raise AssertionError(f"obs_exchange: the sketch is off its plain version by {err.max()}")
+    del padded, want
+    sketch_ms = time_ms(torch, lambda: sketch.replica_sketch_tensor(vec, 0, k), 20, flush)
+    # The complete blocks' projection in three plain-PyTorch forms: one
+    # batched product over float32 signs, and a product then a row sum over
+    # float32 or int8 signs (the signed replica a float32 temporary; the
+    # port's form is the int8 one).
+    full = R50_D // m
+    v2d = vec[:full * m].view(full, m)
+    signs_f32 = signs[:full].float()
+    forms = {
+        "bmm_f32": lambda: torch.bmm(signs_f32[:, None, :], v2d[:, :, None]),
+        "mul_sum_f32": lambda: (signs_f32 * v2d).sum(1),
+        "mul_sum_int8": lambda: (signs[:full] * v2d).sum(1),
+    }
+    forms_ms = {name: time_ms(torch, fn, 10, flush) for name, fn in forms.items()}
+    plain_ms = forms_ms["mul_sum_f32"]
+    del signs_f32, v2d
+    nbytes = 4 * R50_D + k * m + 4 * k  # the replica, the int8 signs, the sketch
+    sketch_bound, bound_by = bound_ms(nbytes, 2 * k * m)
+    # The prefetch pipeline, traced, under a compute stand-in of the off
+    # legs' median round.
+    pipe = leg("prefetch", {"trace": True}, compute_s=off_ms / 1e3, overlap_prefetch=True)
+    # Every round, the cold first one too, as wire_snapshot counts them.
+    recs = [r for r in pipe.pop("records") if r.get("prefetched") is not None]
+    wire_s = sum(r["stages"].get("wire", 0.0) for r in recs)
+    wait_s = sum(r["stages"].get("join_wait", 0.0) for r in recs)
+    span_hidden = max(1.0 - wait_s / wire_s, 0.0) if wire_s else 0.0
+    ovs = pipe.pop("overlap")
+    self_hidden = max(1.0 - sum(o["join_wait_s"] for o in ovs) / sum(o["fetch_s"] for o in ovs),
+                      0.0)
+    if abs(span_hidden - self_hidden) >= 0.10 or not any(r["prefetched"] for r in recs):
+        raise AssertionError(f"obs_exchange: span-derived hidden fraction {span_hidden} against "
+                             f"wire_snapshot's {self_hidden}")
+    del base, signs
+    torch.cuda.empty_cache()
+    return {
+        "d": R50_D, "order": list(OBS_ORDER), "warmups": OBS_WARMUPS, "rounds": OBS_ROUNDS,
+        "legs": legs, "off_round_ms": off_ms, "on_round_ms": on_ms,
+        "on_over_off": on_ms / off_ms, "frames_equal": True, "replicas_bit_equal": True,
+        "stage_median_ms": stage_ms,
+        "unstaged_ms": on_ms - sum(stage_ms.values()),
+        "scrape": first["scrape"],
+        "sketch": {"k": k, "ms": sketch_ms, "bound_ms": sketch_bound, "bound_by": bound_by,
+                   "bytes": nbytes, "signs_bytes": k * m, "plain_ms": plain_ms,
+                   "forms_ms": forms_ms,
+                   "max_abs_err": float(err.max()), "bound_err_min": float(bound_err.min())},
+        "prefetch": {**pipe, "compute_stand_in_ms": off_ms,
+                     "stage_median_ms": medians([r for r in recs if r["step"] >= OBS_WARMUPS],
+                                                OBS_PIPE_STAGES),
+                     "span_hidden_frac": span_hidden, "wire_snapshot_hidden_frac": self_hidden,
+                     "overlap": ovs},
+    }
+
+
 def cuda_event_ms(torch, fn, iters: int) -> float:
     """Mean time of ``fn`` between two CUDA events on the current stream
     (host work inside ``fn`` that waits on the card shows up too)."""
@@ -2902,6 +3239,7 @@ def main(argv=None) -> int:
     from dpwa_tpu_torch.examples import cifar10
 
     main_launches, rates = {}, {}
+    train_tcp_rate = None  # train_tcp's steps/s, beside obs_tcp's
     for phase, extra, steps, kernel in (
         ("train", [], 20, "pair_merge_"),
         ("train_pull", ["--mode", "pull"], 5, "gather_merge"),
@@ -3052,6 +3390,7 @@ def main(argv=None) -> int:
         # The launches are counted in each process (fresh counts there).
         t0 = time.perf_counter()
         res = train_tcp(kind)
+        train_tcp_rate = [n["steps_per_sec"] for n in res["nodes"]]
         main_launches["train_tcp"] = {
             "pair_merge_": 0, "gather_merge": sum(n["b2_launches"] for n in res["nodes"])}
         emit({"phase": "train_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
@@ -3162,6 +3501,28 @@ def main(argv=None) -> int:
             "pair_merge_": 0, "gather_merge": sum(leg["b2_launches"] for leg in res["legs"])}
         emit({"phase": "reactor_exchange", "seconds": time.perf_counter() - t0,
               "nvidia_smi": name_limit, **res})
+
+    if "obs_tcp" in phases:
+        # The launches are counted in each process (fresh counts there).
+        t0 = time.perf_counter()
+        res = obs_tcp(kind)
+        main_launches["obs_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(n["b2_launches"] for n in res["nodes"])}
+        emit({"phase": "obs_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              "steps": MNIST_STEPS, "train_tcp_steps_per_sec": train_tcp_rate, **res})
+
+    if "obs_exchange" in phases:
+        t0 = time.perf_counter()
+        flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=device)
+        res = obs_exchange(torch, merge, device, flush)
+        del flush
+        main_launches["obs_exchange"] = {
+            "pair_merge_": 0,
+            "gather_merge": sum(leg["b2_launches"] for leg in res["legs"])
+            + res["prefetch"]["b2_launches"]}
+        emit({"phase": "obs_exchange", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+        torch.cuda.empty_cache()
 
     if "wire_exchange" in phases:
         t0 = time.perf_counter()
@@ -3557,6 +3918,10 @@ def main(argv=None) -> int:
                     "launches_view_tcp": main_launches.get("view_tcp", {}).get(name),
                     "launches_reactor_tcp": main_launches.get("reactor_tcp", {}).get(name),
                     "launches_reactor_exchange": main_launches.get("reactor_exchange", {}).get(name),
+                    # The MNIST pair with the obs block on; the f32 exchange
+                    # with it off and on in turns, and its prefetch leg.
+                    "launches_obs_tcp": main_launches.get("obs_tcp", {}).get(name),
+                    "launches_obs_exchange": main_launches.get("obs_exchange", {}).get(name),
                     "at_tcp": tcp_rows.get("resnet50"),
                 })
     if "codec_kernels" in results:

@@ -32,10 +32,14 @@
 Each round's exchange record (the reference's metrics record: step,
 loss, α, the scheduled and actual partner, the remap, the outcome, the
 trust verdict, when a hedge fired its winner, and the codec of a top-k or
-sharded frame) is :attr:`DpwaTcpAdapter.last_record`.  The adapters run on
-every wire the transport has, the codecs included: their frames and
-decisions are the transport's.  Not ported yet: the tune events and
-the metrics files.
+sharded frame) is :attr:`DpwaTcpAdapter.last_record`.  With ``metrics``
+(a :class:`~dpwa_tpu_torch.metrics.MetricsLogger`, or a path, opened under
+``obs.log_max_bytes`` and ``obs.log_keep``) the adapter writes the
+reference's JSONL: that record each round, a ``health`` record every
+``health_every`` rounds and an ``event`` record for each rollback,
+bootstrap, re-sync and membership, trust and heal event.  The adapters run
+on every wire the transport has, the codecs included: their frames and
+decisions are the transport's.  Not ported yet: the tune events.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from dpwa_tpu_torch.config import DpwaConfig, load_config
+from dpwa_tpu_torch.metrics import MetricsLogger
 from dpwa_tpu_torch.parallel.schedules import heal_draw
 from dpwa_tpu_torch.parallel.tcp import TcpTransport
 from dpwa_tpu_torch.recovery.guard import RollbackRing, validate_payload
@@ -98,7 +103,9 @@ class DpwaTcpAdapter:
     :attr:`events` keeps the newest ``EVENT_LOG_CAP`` events of the
     membership and trust planes and of the heal's reconciliation
     (``partition_reconciled`` or why it was not), each with the step that
-    runs next."""
+    runs next.  ``metrics`` (a :class:`~dpwa_tpu_torch.metrics.
+    MetricsLogger` or a path) writes the reference's ``exchange``,
+    ``health`` (every ``health_every`` rounds) and ``event`` records."""
 
     def __init__(
         self,
@@ -109,6 +116,8 @@ class DpwaTcpAdapter:
         device=None,
         transport: Optional[TcpTransport] = None,
         bootstrap: Optional[bool] = None,
+        metrics: Union[MetricsLogger, str, None] = None,
+        health_every: int = 10,
     ):
         self.config = _resolve(config)
         self.transport = transport if transport is not None else TcpTransport(
@@ -132,9 +141,21 @@ class DpwaTcpAdapter:
         self.last_alpha = 0.0
         self.last_partner = -1
         self.last_record: dict = {}
+        self._own_metrics = isinstance(metrics, str)
+        obs = self.config.obs
+        self.metrics: Optional[MetricsLogger] = (
+            MetricsLogger(path=metrics, max_bytes=obs.log_max_bytes, keep=obs.log_keep)
+            if self._own_metrics else metrics
+        )
+        self._health_every = max(1, health_every)
         rec = self.config.recovery
         self._recovery = rec if rec.enabled else None
         self.ring: Optional[RollbackRing] = RollbackRing(rec.snapshot_ring) if rec.enabled else None
+        if self.ring is not None and self.transport.metrics_registry is not None:
+            # The ring lives here, so its /metrics collector is wired here.
+            from dpwa_tpu_torch.recovery.guard import register_metrics
+
+            register_metrics(self.transport.metrics_registry, self.ring)
         self.last_bootstrap: Optional[dict] = None
         self.last_rollback: Optional[dict] = None
         self.last_resync_advice: Optional[dict] = None
@@ -200,7 +221,11 @@ class DpwaTcpAdapter:
         from dpwa_tpu_torch.recovery.bootstrap import bootstrap_from_peer
 
         res = bootstrap_from_peer(self.transport, like=None, step=self._step)
-        if res is None or not res.state or not self._land(res.state[0]):
+        if res is None or not res.state:
+            self._log_event("bootstrap_failed")
+            return False
+        if not self._land(res.state[0]):
+            self._log_event("bootstrap_failed", donor=res.donor, reason="shape_mismatch")
             return False
         self._clock = float(res.meta.get("clock", 0.0))
         self._step = int(res.meta.get("step", 0))
@@ -210,6 +235,8 @@ class DpwaTcpAdapter:
             "nbytes": res.nbytes, "attempts": res.attempts,
             "latency_s": res.latency_s, "meta": res.meta,
         }
+        self._log_event("bootstrap", donor=res.donor, landed_step=self._step,
+                        landed_clock=self._clock, nbytes=res.nbytes, attempts=res.attempts)
         return True
 
     def _resync(self) -> bool:
@@ -222,6 +249,7 @@ class DpwaTcpAdapter:
         if res is None or not res.state or not self._land(res.state[0]):
             return False
         self._clock = float(res.meta.get("clock", self._clock))
+        self._log_event("resync", donor=res.donor, adopted_clock=self._clock, nbytes=res.nbytes)
         return True
 
     def _guard_local(self, loss: float) -> None:
@@ -241,6 +269,8 @@ class DpwaTcpAdapter:
             "step": self._step, "reason": reason, "restored": snap is not None,
             "snapshot_step": snap.step if snap is not None else None,
         }
+        self._log_event("rollback", reason=reason, restored=snap is not None,
+                        snapshot_step=snap.step if snap is not None else None)
 
     def update(self, loss: float, params: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
         """One gossip round: the clock advances, the replica (``params`` if
@@ -280,6 +310,7 @@ class DpwaTcpAdapter:
             advice = self.transport.pop_resync_advice()
             if advice is not None:
                 self.last_resync_advice = advice
+                self._log_event("resync_advised", **advice)
                 if self._recovery.auto_resync:
                     self._resync()
         for ev in self.transport.pop_membership_events() + self.transport.pop_trust_events():
@@ -287,6 +318,10 @@ class DpwaTcpAdapter:
         heal = self.transport.pop_heal_advice()
         if heal is not None and self.config.membership.heal_reconcile and self._recovery is not None:
             self._reconcile_heal(heal)
+        if self.metrics is not None:
+            self.metrics.log(step, **{k: v for k, v in self.last_record.items() if k != "step"})
+            if step % self._health_every == 0:
+                self.metrics.log_health(step, self.transport.health_snapshot())
         return self.params
 
     def _record(self, step: int, loss: float) -> None:
@@ -308,8 +343,17 @@ class DpwaTcpAdapter:
 
     def _event(self, event: str, **fields) -> None:
         """An event record, at the step that runs next (the reference
-        adapter's event records carry the same step)."""
+        adapter's event records carry the same step), kept in
+        :attr:`events` and written to the metrics file."""
         self.events.append({"step": self._step, "event": event, **fields})
+        self._log_event(event, **fields)
+
+    def _log_event(self, event: str, **fields) -> None:
+        """An event record in the metrics file only (the recovery events,
+        which :attr:`last_rollback`, :attr:`last_bootstrap` and
+        :attr:`last_resync_advice` report)."""
+        if self.metrics is not None:
+            self.metrics.log_event(self._step, event, **fields)
 
     def _reconcile_heal(self, advice: dict) -> None:
         """Anti-entropy merge with a returning component after a heal: one
@@ -365,6 +409,8 @@ class DpwaTcpAdapter:
                     returning=returning)
 
     def close(self) -> None:
+        if self.metrics is not None and self._own_metrics:
+            self.metrics.close()
         self.transport.close()
 
 

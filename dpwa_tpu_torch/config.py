@@ -11,8 +11,10 @@ rollback ring, the STATE wire and the bound of the α = 1 rescue,
 its bounded partial view, ``view:``),
 ``trust:`` the content-trust screen, ``flowctl:`` the flow control plane
 (adaptive deadlines, hedged fetches, degrade shedding, serving admission),
-``chaos:`` the seeded fault injection of the TCP path and ``shard:`` the
-TCP wire's k-way sharding.  Every other
+``chaos:`` the seeded fault injection of the TCP path, ``shard:`` the
+TCP wire's k-way sharding and ``obs:`` the observability plane (round
+traces, replica sketches, ``/metrics``, incidents and the flight
+recorder).  Every other
 top-level block raises :class:`NotImplementedError` naming it, rather than
 being dropped.
 """
@@ -30,7 +32,7 @@ DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 # The top-level blocks the port reads.
 PORTED_BLOCKS = (
     "nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust",
-    "flowctl", "chaos", "shard",
+    "flowctl", "chaos", "shard", "obs",
 )
 # The planes make_local_config's ``disabled_planes`` may switch off.
 DEFAULT_ON_PLANES = ("membership", "trust", "flowctl")
@@ -667,6 +669,103 @@ class ShardConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """``obs:`` block: the observability plane on the TCP transport
+    (:mod:`dpwa_tpu_torch.obs`), as :class:`dpwa_tpu.config.ObsConfig`.
+
+    Every facility is off by default, and off costs nothing: no trailer is
+    added to a frame, no timing call runs, and frames and merged replicas
+    are byte-identical to a build without the plane.
+
+    - ``trace``: per-stage round spans as ``trace`` JSONL records
+      (``trace_path``), the round's trace ID riding every served frame in
+      the ``DPWT`` trailer so ``tools/trace_report.py`` joins the fetcher's
+      and the server's spans; ``trace_every`` samples the rounds.
+    - ``sketch``: a ``sketch_k``-float seeded random projection of the
+      replica in the trailer (every ``sketch_every`` publish clocks), an
+      online estimate of the ring's replica disagreement.
+    - ``metrics``: a Prometheus text ``/metrics`` route on the healthz port.
+    - ``incidents``: detectors over the planes' signals, folded into
+      open, update and resolved ``incident`` records (``incident_path``),
+      served at ``/incidents``.
+    - ``recorder``: a ring of the last ``recorder_rounds`` rounds dumped to
+      ``recorder_path`` on a crash, an incident's open, a close or the
+      ``/flightdump`` route.
+
+    ``log_max_bytes`` caps the adapter's metrics JSONL, rolling through
+    ``log_keep`` generations."""
+
+    trace: bool = False
+    trace_every: int = 1
+    trace_path: "str | None" = None
+    trace_max_records: int = 4096
+    sketch: bool = False
+    sketch_k: int = 64
+    sketch_every: int = 1
+    metrics: bool = False
+    log_max_bytes: int = 0
+    log_keep: int = 1
+    incidents: bool = False
+    incident_path: "str | None" = None
+    incident_window: int = 8
+    incident_fail_streak: int = 2
+    incident_soft_streak: int = 2
+    incident_trust_burst: int = 2
+    incident_storm_threshold: int = 3
+    incident_stale_storm: int = 3
+    incident_stall_window: int = 8
+    incident_stall_min_rel: float = 0.05
+    incident_stall_improve: float = 0.01
+    incident_slo_factor: float = 4.0
+    incident_slo_rounds: int = 5
+    incident_slo_warmup: int = 16
+    incident_resolve_after: int = 8
+    recorder: bool = False
+    recorder_rounds: int = 64
+    recorder_path: "str | None" = None
+
+    def __post_init__(self) -> None:
+        if self.trace_every < 1:
+            raise ValueError(f"trace_every must be >= 1, got {self.trace_every}")
+        if self.trace_max_records < 1:
+            raise ValueError(f"trace_max_records must be >= 1, got {self.trace_max_records}")
+        if not 1 <= self.sketch_k <= 4096:
+            raise ValueError(f"sketch_k must be in [1, 4096], got {self.sketch_k}")
+        if self.sketch_every < 1:
+            raise ValueError(f"sketch_every must be >= 1, got {self.sketch_every}")
+        if self.log_max_bytes < 0:
+            raise ValueError(f"log_max_bytes must be >= 0, got {self.log_max_bytes}")
+        if self.log_keep < 1:
+            raise ValueError(f"log_keep must be >= 1, got {self.log_keep}")
+        for name in (
+            "incident_window", "incident_fail_streak", "incident_soft_streak",
+            "incident_trust_burst", "incident_storm_threshold", "incident_stale_storm",
+            "incident_stall_window", "incident_slo_rounds", "incident_slo_warmup",
+            "incident_resolve_after", "recorder_rounds",
+        ):
+            v = getattr(self, name)
+            if v < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+        if self.incident_stall_min_rel < 0:
+            raise ValueError(
+                f"incident_stall_min_rel must be >= 0, got {self.incident_stall_min_rel}"
+            )
+        if not 0.0 <= self.incident_stall_improve < 1.0:
+            raise ValueError(
+                f"incident_stall_improve must be in [0, 1), got {self.incident_stall_improve}"
+            )
+        if self.incident_slo_factor <= 1.0:
+            raise ValueError(
+                f"incident_slo_factor must be > 1, got {self.incident_slo_factor}"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        """Any facility on (the transport builds obs state only then)."""
+        return self.trace or self.sketch or self.metrics or self.incidents or self.recorder
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
@@ -678,6 +777,7 @@ class DpwaConfig:
     flowctl: FlowctlConfig = FlowctlConfig()
     chaos: ChaosConfig = ChaosConfig()
     shard: ShardConfig = ShardConfig()
+    obs: ObsConfig = ObsConfig()
 
     @property
     def n_peers(self) -> int:
@@ -746,6 +846,7 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         flowctl=FlowctlConfig(**dict(raw.get("flowctl") or {})),
         chaos=ChaosConfig(**chaos),
         shard=ShardConfig(**dict(raw.get("shard") or {})),
+        obs=ObsConfig(**dict(raw.get("obs") or {})),
     )
 
 
@@ -774,6 +875,7 @@ def make_local_config(
     flowctl: "FlowctlConfig | Mapping[str, Any] | None" = None,
     chaos: "ChaosConfig | Mapping[str, Any] | None" = None,
     shard: "ShardConfig | Mapping[str, Any] | None" = None,
+    obs: "ObsConfig | Mapping[str, Any] | None" = None,
     disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
@@ -791,8 +893,9 @@ def make_local_config(
                          else {**dict(given or {}), "enabled": False})
     types = {"recovery": RecoveryConfig, "health": HealthConfig, "membership": MembershipConfig,
              "trust": TrustConfig, "flowctl": FlowctlConfig, "chaos": ChaosConfig,
-             "shard": ShardConfig}
-    given = {"recovery": recovery, "health": health, "chaos": chaos, "shard": shard, **blocks}
+             "shard": ShardConfig, "obs": ObsConfig}
+    given = {"recovery": recovery, "health": health, "chaos": chaos, "shard": shard, "obs": obs,
+             **blocks}
     built = {
         name: (types[name](**value) if isinstance(value, Mapping)
                else types[name]() if value is None else value)

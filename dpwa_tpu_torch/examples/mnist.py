@@ -48,7 +48,10 @@ the round's milliseconds).  ``--barrier DIR`` serves the node's initial
 replica (at clock 0) at once, starts its first round only once every node
 of the config has finished its first step's computation, and keeps it
 serving after its last step until every node is done, so no node's start
-or end reads as a dead peer to the others.
+or end reads as a dead peer to the others.  ``--metrics FILE`` writes the
+adapter's JSONL (an exchange record a round, a health record every 10, the
+events); the config's ``obs:`` block turns on the round traces, sketches,
+``/metrics``, incidents and the flight recorder.
 """
 
 from __future__ import annotations
@@ -122,6 +125,11 @@ def main(argv=None) -> dict:
         "and phase in DIR)",
     )
     ap.add_argument(
+        "--metrics", metavar="FILE",
+        help="--transport tcp: the adapter's metrics JSONL (exchange, health and "
+        "event records)",
+    )
+    ap.add_argument(
         "--profile", action="store_true",
         help="trace the timed steps with torch.profiler and report where the "
         "device time goes (the rate then includes the profiler's cost)",
@@ -140,8 +148,10 @@ def main(argv=None) -> dict:
         if args.checkpoint or args.profile:
             ap.error("--checkpoint and --profile are not wired into the per-process tcp loop")
         return run_tcp(args)
-    if args.diverge_at is not None or args.trace_state or args.round_log or args.barrier:
-        ap.error("--diverge-at, --trace-state, --round-log and --barrier need --transport tcp")
+    if (args.diverge_at is not None or args.trace_state or args.round_log or args.barrier
+            or args.metrics):
+        ap.error("--diverge-at, --trace-state, --round-log, --barrier and --metrics need "
+                 "--transport tcp")
 
     from dpwa_tpu_torch import checkpoint
     from dpwa_tpu_torch.config import load_config
@@ -304,7 +314,8 @@ def run_tcp(args) -> dict:
     params = mnist.init(model, prng.key(me), device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    adapter = DpwaTcpAdapter(params, args.name, cfg, transport=bundle.transport)
+    adapter = DpwaTcpAdapter(params, args.name, cfg, transport=bundle.transport,
+                             metrics=args.metrics)
     params = adapter.params
     flat = adapter.flat
     start = adapter.step  # 0, or the donor's step after a bootstrap

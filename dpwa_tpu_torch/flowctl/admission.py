@@ -104,3 +104,29 @@ class AdmissionController:
                 "shed_total": sum(self._sheds.values()),
                 "evictions": self._evictions,
             }
+
+
+def register_metrics(registry, admission: AdmissionController) -> None:
+    """The serving admission gates on a ``/metrics`` registry."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        snap = admission.snapshot()
+        sheds = Family("dpwa_admission_sheds_total", "counter",
+                       "Requests shed by the serving admission gates, by reason")
+        for reason, n in sorted((snap.get("sheds") or {}).items()):
+            sheds.sample(n, {"reason": reason})
+        return [
+            Family("dpwa_admission_active_connections", "gauge",
+                   "Rx connections currently being served").sample(snap.get("active")),
+            Family("dpwa_admission_inflight_bytes", "gauge",
+                   "Payload bytes currently in flight to fetchers").sample(
+                snap.get("inflight_bytes")),
+            Family("dpwa_admission_admitted_total", "counter",
+                   "Requests admitted past the serving gates").sample(snap.get("admitted")),
+            Family("dpwa_admission_evictions_total", "counter",
+                   "Slow-loris connections evicted mid-read").sample(snap.get("evictions")),
+            sheds,
+        ]
+
+    registry.register(collect)

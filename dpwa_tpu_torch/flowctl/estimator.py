@@ -152,3 +152,29 @@ class DeadlineEstimator:
                 "hedge_wins": self._hedge_wins,
                 "peers": peers,
             }
+
+
+def register_metrics(registry, estimator: DeadlineEstimator) -> None:
+    """Adaptive deadlines and hedging on a ``/metrics`` registry."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        snap = estimator.snapshot()
+        deadline = Family("dpwa_flowctl_deadline_ms", "gauge",
+                          "Adaptive cumulative fetch deadline per peer")
+        p50 = Family("dpwa_flowctl_latency_p50_ms", "gauge",
+                     "Median observed success latency per peer")
+        for p, info in sorted((snap.get("peers") or {}).items()):
+            labels = {"peer": p}
+            deadline.sample(info.get("deadline_ms"), labels)
+            p50.sample(info.get("p50_ms"), labels)
+        return [
+            deadline,
+            p50,
+            Family("dpwa_flowctl_hedges_total", "counter",
+                   "Hedged retries launched").sample(snap.get("hedges")),
+            Family("dpwa_flowctl_hedge_wins_total", "counter",
+                   "Hedged retries that beat the primary").sample(snap.get("hedge_wins")),
+        ]
+
+    registry.register(collect)

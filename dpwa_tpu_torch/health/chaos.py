@@ -344,10 +344,11 @@ class ChaosPeerServer:
         self._srv.relay_guard = lambda target: engine.link_blocked(self._round, engine.peer, target)
 
     def publish(self, payload, clock: float, loss: float, digest: Optional[bytes] = None,
-                code: Optional[int] = None) -> None:
+                code: Optional[int] = None, obs: Optional[bytes] = None,
+                trace_id: Optional[str] = None) -> None:
         # The integer publish clock is the round key.
         self._round = int(clock)
-        self._srv.publish(payload, clock, loss, digest, code)
+        self._srv.publish(payload, clock, loss, digest, code, obs=obs, trace_id=trace_id)
         if self._history is not None:
             framed = self._srv._payload
             if framed is not None:
@@ -499,10 +500,11 @@ class ChaosReactorPeerServer(ReactorPeerServer):
         super().__init__(host, port, flowctl=flowctl)
 
     def publish(self, payload, clock: float, loss: float, digest: Optional[bytes] = None,
-                code: Optional[int] = None) -> None:
+                code: Optional[int] = None, obs: Optional[bytes] = None,
+                trace_id: Optional[str] = None) -> None:
         # The integer publish clock is the round key.
         self._round = int(clock)
-        super().publish(payload, clock, loss, digest, code)
+        super().publish(payload, clock, loss, digest, code, obs=obs, trace_id=trace_id)
         if self._history is not None:
             framed = self._payload
             if framed is not None:

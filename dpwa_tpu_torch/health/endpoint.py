@@ -6,12 +6,14 @@ a stdlib HTTP/1.0 responder on a daemon thread and a port of its own
     $ curl http://127.0.0.1:<port>/healthz
 
 ``/membership``, ``/trust`` and ``/flowctl`` serve that sub-document (or
-``{"error": "<plane> disabled"}``), ``/wire`` the wire plane's (which the
-port's snapshot never holds: ``{"error": "wire plane disabled"}``), and
-every other path, ``/metrics``, ``/incidents`` and ``/flightdump``
-included, the whole snapshot, as the reference answers when those routes
-are not wired.  It faces untrusted input: one bounded ``recv``, a timeout
-a connection, and anything unparseable served the whole snapshot.
+``{"error": "<plane> disabled"}``), ``/wire`` the wire plane's.  With a
+``metrics_fn`` (``obs.metrics``) ``/metrics`` serves its Prometheus text;
+``extra_routes`` (a path to a callable map, the longest path matched first)
+serve more JSON documents: the transport wires ``/incidents`` and
+``/flightdump`` there.  Every other path, and those routes when not wired,
+gets the whole snapshot.  It faces untrusted input: one bounded ``recv``, a
+timeout a connection, anything unparseable served the whole snapshot, and
+no route or snapshot that raises can kill it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import json
 import socket
 import threading
-from typing import Callable
+from typing import Callable, Mapping, Optional
 
 # Routes serving one sub-document of the snapshot, and the name of its plane.
 _SUBDOCUMENTS = (
@@ -34,8 +36,12 @@ class HealthzServer:
     """Serves ``snapshot_fn()`` as JSON to any HTTP client."""
 
     def __init__(self, snapshot_fn: Callable[[], dict], host: str = "127.0.0.1", port: int = 0,
-                 request_timeout_s: float = 2.0):
+                 metrics_fn: Optional[Callable[[], str]] = None, request_timeout_s: float = 2.0,
+                 extra_routes: Optional[Mapping[str, Callable[[], dict]]] = None):
         self._snapshot_fn = snapshot_fn
+        self._metrics_fn = metrics_fn
+        # Longest path first, so "/incidents" wins over a "/inc" route.
+        self._extra_routes = sorted((extra_routes or {}).items(), key=lambda kv: -len(kv[0]))
         self._request_timeout_s = max(0.05, float(request_timeout_s))
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -52,16 +58,32 @@ class HealthzServer:
         )
         self._thread.start()
 
-    def _document(self, request_line: bytes) -> bytes:
+    def _document(self, request_line: bytes) -> tuple:
+        """``(content type, body)`` for one request line."""
+        if self._metrics_fn is not None and b" /metrics" in request_line:
+            try:
+                text = self._metrics_fn()
+            except Exception:  # the endpoint outlives a failing collector
+                text = ""
+            return b"text/plain; version=0.0.4; charset=utf-8", text.encode()
+        for route, fn in self._extra_routes:
+            if b" " + route.encode() in request_line:
+                try:
+                    doc = fn()
+                    if not isinstance(doc, dict):
+                        doc = {"result": doc}
+                    return b"application/json", json.dumps(doc).encode()
+                except Exception:  # the endpoint outlives a failing route
+                    return b"application/json", b'{"error": "route failed"}'
         try:
             doc = self._snapshot_fn()
             for route, key, error in _SUBDOCUMENTS:
                 if route in request_line:
                     doc = doc.get(key) or {"error": error}
                     break
-            return json.dumps(doc).encode()
+            return b"application/json", json.dumps(doc).encode()
         except Exception:  # the endpoint outlives a failing snapshot
-            return b'{"error": "snapshot failed"}'
+            return b"application/json", b'{"error": "snapshot failed"}'
 
     def _serve(self) -> None:
         try:
@@ -82,9 +104,9 @@ class HealthzServer:
                     raw = conn.recv(4096)
                 except OSError:
                     pass
-                body = self._document(raw.split(b"\r\n", 1)[0])
+                ctype, body = self._document(raw.split(b"\r\n", 1)[0])
                 conn.sendall(
-                    b"HTTP/1.0 200 OK\r\nContent-Type: application/json\r\n"
+                    b"HTTP/1.0 200 OK\r\nContent-Type: " + ctype + b"\r\n"
                     b"Content-Length: " + str(len(body)).encode() + b"\r\n"
                     b"Connection: close\r\n\r\n" + body
                 )

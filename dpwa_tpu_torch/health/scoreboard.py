@@ -17,8 +17,8 @@ equal quarantine windows, on every replica and in either package.
 The membership manager attaches itself (:meth:`Scoreboard.attach_membership`):
 the snapshot then carries its view, an evicted peer's successful probe
 tells it the peer is back, and it evicts peers held dead
-(:meth:`Scoreboard.evict_peer`).  The ``/metrics`` collector is not
-ported.  Every public method takes the internal lock.
+(:meth:`Scoreboard.evict_peer`).  :func:`register_metrics` exposes it on
+``/metrics``.  Every public method takes the internal lock.
 """
 
 from __future__ import annotations
@@ -581,3 +581,44 @@ def run_probe(
         ok = False
     scoreboard.record_probe(peer, ok, round)
     return ok
+
+
+# The dpwa_peer_state gauge's codes.
+_STATE_CODES = {
+    PeerState.HEALTHY: 0,
+    PeerState.SUSPECT: 1,
+    PeerState.DEGRADED: 2,
+    PeerState.QUARANTINED: 3,
+}
+
+
+def register_metrics(registry, scoreboard: Scoreboard) -> None:
+    """The health plane on a :class:`~dpwa_tpu_torch.obs.prometheus.
+    MetricsRegistry`: one :meth:`Scoreboard.snapshot` read a scrape."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        snap = scoreboard.snapshot()
+        state = Family("dpwa_peer_state", "gauge",
+                       "Scoreboard state per peer (0 healthy, 1 suspect, "
+                       "2 degraded, 3 quarantined)")
+        suspicion = Family("dpwa_peer_suspicion", "gauge",
+                           "Failure-detector suspicion score per peer")
+        quarantines = Family("dpwa_peer_quarantines_total", "counter",
+                             "Lifetime quarantine entries per peer")
+        attempts = Family("dpwa_peer_attempts_total", "counter",
+                          "Exchange attempts recorded per peer")
+        failures = Family("dpwa_peer_failures_total", "counter",
+                          "Failed exchange attempts recorded per peer")
+        for p, info in sorted(snap.get("peers", {}).items()):
+            labels = {"peer": p}
+            state.sample(_STATE_CODES.get(info.get("state")), labels)
+            suspicion.sample(info.get("suspicion"), labels)
+            quarantines.sample(info.get("quarantines"), labels)
+            attempts.sample(info.get("attempts"), labels)
+            failures.sample(info.get("failures"), labels)
+        rnd = Family("dpwa_health_round", "counter", "Scoreboard round clock").sample(
+            snap.get("round"))
+        return [state, suspicion, quarantines, attempts, failures, rnd]
+
+    registry.register(collect)

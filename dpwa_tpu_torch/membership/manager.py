@@ -27,7 +27,8 @@ peer's slot is refilled from the passive view.
 Every decision counts gossip rounds; there is no wall clock, so equal
 outcome sequences give equal event streams, in either package.  Not
 ported: the hierarchical digest's leader board (a ``topology:`` block is
-refused by the config) and ``register_metrics``.
+refused by the config).  :func:`register_metrics` exposes the view on
+``/metrics``.
 
 Thread safety: state changes take the internal lock.  Scoreboard calls are
 made outside it (the scoreboard's snapshot calls back into
@@ -520,3 +521,23 @@ class MembershipManager:
                     "view_shuffles": part["shuffles"],
                 }
             return snap
+
+
+def register_metrics(registry, manager: MembershipManager) -> None:
+    """The membership plane on a ``/metrics`` registry."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        view = manager.view_snapshot()
+        return [
+            Family("dpwa_membership_incarnation", "counter",
+                   "Own SWIM incarnation number").sample(view.get("incarnation")),
+            Family("dpwa_membership_component_size", "gauge",
+                   "Size of the connected component this node sits in").sample(
+                view.get("component_size")),
+            Family("dpwa_membership_degraded", "gauge",
+                   "1 when the partition quorum check has degraded the node").sample(
+                view.get("partition_state") == "degraded"),
+        ]
+
+    registry.register(collect)

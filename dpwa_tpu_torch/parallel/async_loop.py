@@ -32,7 +32,8 @@ frames.  The port runs the device drain, with B2's fold form on the card
 (:func:`~dpwa_tpu_torch.device.engine.fold`), and makes the host drain's
 decisions: it also records the partner's outcome in ``last_round``, as the
 host drain does.  A frame held in a queue keeps its receive-ring lease
-until it is merged, dropped or shed.  ``register_metrics`` is not ported.
+until it is merged, dropped or shed.  With ``obs.metrics`` the engine
+registers its ``dpwa_async_*`` families (:func:`register_metrics`).
 """
 
 from __future__ import annotations
@@ -106,6 +107,8 @@ class AsyncExchangeEngine:
         # Receive-ring bytes held by queued frames (arrivals and pending).
         self._held = 0
         self._peak_held = 0
+        if getattr(transport, "metrics_registry", None) is not None:
+            register_metrics(transport.metrics_registry, self)
 
     # -- intake ---------------------------------------------------------
     def _peer_stats(self, peer: int) -> dict:
@@ -400,3 +403,44 @@ class AsyncExchangeEngine:
             }
         out["peers"] = peers
         return out
+
+
+def register_metrics(registry, engine: AsyncExchangeEngine) -> None:
+    """The async round plane on a ``/metrics`` registry (``dpwa_async_*``)."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        snap = engine.snapshot()
+        merges = Family("dpwa_async_merges_total", "counter",
+                        "Frames merged by the barrier-free async round loop")
+        stale = Family("dpwa_async_stale_drops_total", "counter",
+                       "Frames dropped by the bounded-staleness rule")
+        lag = Family("dpwa_async_peer_last_lag", "gauge",
+                     "Publish-clock lag of the last frame seen per peer")
+        pend = Family("dpwa_async_pending_frames", "gauge",
+                      "Frames currently queued per peer")
+        hist = Family("dpwa_async_staleness_merges", "counter",
+                      "Merged frames by publish-clock lag (overflow = dropped)")
+        for p, info in sorted((snap.get("peers") or {}).items()):
+            labels = {"peer": p}
+            merges.sample(info.get("merges"), labels)
+            stale.sample(info.get("stale"), labels)
+            if info.get("last_lag") is not None:
+                lag.sample(info.get("last_lag"), labels)
+            pend.sample(info.get("pending"), labels)
+        buckets = snap.get("staleness_hist") or []
+        for i, n in enumerate(buckets):
+            hist.sample(n, {"lag": str(i) if i < len(buckets) - 1 else "overflow"})
+        return [
+            merges, stale, lag, pend, hist,
+            Family("dpwa_async_rounds_total", "counter",
+                   "Barrier-free rounds driven").sample(snap.get("rounds")),
+            Family("dpwa_async_fold_frames_total", "counter",
+                   "Dense frames batched through fold dispatches").sample(
+                snap.get("fold_frames")),
+            Family("dpwa_async_pending_wait_seconds_total", "counter",
+                   "Cumulative arrival-to-merge wait across merged frames").sample(
+                snap.get("pending_wait_s")),
+        ]
+
+    registry.register(collect)

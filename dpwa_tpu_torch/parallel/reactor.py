@@ -33,8 +33,8 @@ blocking header probe of a third node, up to ``MAX_RELAY_TIMEOUT_MS``);
 its completions come back through a queue and a self-pipe wake-up.  Reads
 land in one preallocated scratch buffer, requests are parsed in place, and
 frames and state chunks go out as segment lists through non-blocking
-``sendmsg``, header and payload never joined.  ``register_metrics`` is not
-ported (no ``/metrics`` yet).
+``sendmsg``, header and payload never joined.  :func:`register_metrics`
+exposes the scheduler on ``/metrics`` as ``dpwa_reactor_*``.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class _Conn:
     __slots__ = (
         "sock", "host", "admitted", "phase", "inbuf", "need", "outbuf", "outsegs", "sent",
         "base_deadline", "deadline", "per_byte", "ingested", "write_timeout", "reserved",
-        "is_blob", "relay", "seq", "slot", "closed",
+        "is_blob", "trace_id", "t0", "relay", "seq", "slot", "closed",
     )
 
     def __init__(self, sock: socket.socket, host: str, admitted: bool):
@@ -104,6 +104,8 @@ class _Conn:
         self.write_timeout = 0.0
         self.reserved = 0  # bytes held against the in-flight ceiling
         self.is_blob = False
+        self.trace_id: Optional[str] = None  # the served frame's, for its span
+        self.t0 = 0.0
         self.relay: Optional[Tuple[int, int, int]] = None
         self.seq = 0
         self.slot = -1  # timer-wheel slot, -1 when not filed
@@ -165,11 +167,13 @@ class ReactorPeerServer:
     ``port``, ``admission``, ``relay_guard``) and :meth:`reactor_snapshot`."""
 
     relay_guard = None
+    obs_serve_hook = None
 
     def __init__(self, host: str, port: int, flowctl: Optional[FlowctlConfig] = None):
         self._lock = threading.Lock()
         self._segments: Optional[tuple] = None
         self._payload_nbytes = 0
+        self._payload_trace_id: Optional[str] = None
         self._state = None
         self._state_gen = 0
         self.flowctl = flowctl if flowctl is not None else FlowctlConfig()
@@ -218,15 +222,18 @@ class ReactorPeerServer:
 
     # -- the publish surface (the threaded server's) --------------------
     def publish(self, payload: torch.Tensor, clock: float, loss: float,
-                digest: Optional[bytes] = None, code: Optional[int] = None) -> None:
+                digest: Optional[bytes] = None, code: Optional[int] = None,
+                obs: Optional[bytes] = None, trace_id: Optional[str] = None) -> None:
         """Serve ``payload`` (a host tensor the caller no longer changes;
         with ``code``, a codec's encoded body) with ``clock`` and ``loss``,
-        and ``digest`` as its trailer, from now on."""
-        segments = _tcp._frame_segments(payload, clock, loss, digest, code)
+        and ``digest`` and ``obs`` as its trailers, from now on; a served
+        frame's span is stamped with ``trace_id``."""
+        segments = _tcp._frame_segments(payload, clock, loss, digest, code, obs)
         nbytes = sum(len(s) for s in segments)
         with self._lock:
             self._segments = segments
             self._payload_nbytes = nbytes
+            self._payload_trace_id = trace_id
 
     def publish_state(self, blob) -> None:
         """Serve a packed train state from now on: bytes, or a callable
@@ -470,6 +477,7 @@ class ReactorPeerServer:
         ceiling (past it, the busy frame); nothing published is a close."""
         with self._lock:
             segments, nbytes = self._segments, self._payload_nbytes
+            trace_id = self._payload_trace_id
         if segments is None:
             self._close_conn(conn)
             return
@@ -479,6 +487,8 @@ class ReactorPeerServer:
             return
         conn.reserved = nbytes
         conn.is_blob = True
+        conn.trace_id = trace_id
+        conn.t0 = now
         self._queue_segments(conn, segments, now)
 
     def _queue_busy(self, conn: _Conn, retry_ms: int, now: float) -> None:
@@ -675,13 +685,50 @@ class ReactorPeerServer:
         except OSError:
             pass
         adm = self.admission
-        if adm is not None:
-            if conn.reserved:
-                adm.release_bytes(conn.reserved)
-            if conn.admitted:
-                adm.release(conn.host)
+        if adm is not None and conn.reserved:
+            adm.release_bytes(conn.reserved)
+        hook = self.obs_serve_hook
+        if conn.is_blob and hook is not None and conn.trace_id is not None:
+            try:
+                hook(conn.trace_id, conn.reserved, time.monotonic() - conn.t0)
+            except Exception:  # observability never breaks a serve
+                pass
+        if adm is not None and conn.admitted:
+            adm.release(conn.host)
         with self._stats_lock:
             st = self._stats
             st["open"] -= 1
             if timed_out:
                 st["evicted"] += 1
+
+
+def register_metrics(registry, server: ReactorPeerServer) -> None:
+    """The reactor scheduler on a ``/metrics`` registry (``dpwa_reactor_*``)."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def _collect():
+        snap = server.reactor_snapshot()
+        return [
+            Family("dpwa_reactor_loop_lag_ms", "gauge",
+                   "EWMA of event-loop iteration processing time.").sample(snap["loop_lag_ms"]),
+            Family("dpwa_reactor_ready_depth", "gauge",
+                   "Ready connections dispatched in the last iteration.").sample(
+                snap["ready_depth"]),
+            Family("dpwa_reactor_open_connections", "gauge",
+                   "Connections currently registered with the loop.").sample(snap["open"]),
+            Family("dpwa_reactor_peak_connections", "gauge",
+                   "High-water mark of concurrently open connections.").sample(snap["peak_open"]),
+            Family("dpwa_reactor_accepted_total", "counter",
+                   "Connections admitted past flowctl at accept.").sample(snap["accepted"]),
+            Family("dpwa_reactor_evicted_total", "counter",
+                   "Connections closed by a timer-wheel deadline.").sample(snap["evicted"]),
+            Family("dpwa_reactor_busy_shed_total", "counter",
+                   "DPWB busy frames sent (admission + byte-ceiling sheds).").sample(
+                snap["busy_shed"]),
+            Family("dpwa_reactor_frames_served_total", "counter",
+                   "Published blob frames fully written to a peer.").sample(snap["frames"]),
+            Family("dpwa_reactor_relay_pending", "gauge",
+                   "Relay probes in flight on the helper thread.").sample(snap["relay_pending"]),
+        ]
+
+    registry.register(_collect)

@@ -12,11 +12,11 @@ The frame is the reference's, byte for byte: ``BLOB_HDR`` (magic, version,
 payload code, clock, loss, nbytes) and the flat little-endian payload,
 float32 or bf16 (``protocol.wire_dtype``), rounded as the reference
 rounds it, followed by the optional trailers: the sender's membership
-digest (``DPWM``), which ``nbytes`` does not count.  A port node and a
-``dpwa_tpu`` node gossip with each other; the fetcher reads the trailers
-after the payload tolerantly, dispatching on their magics (an
-observability section, ``DPWT``, is read past and dropped), and a peer
-that serves none is the old wire, not a failure.  The RELAY verb asks a
+digest (``DPWM``) and the observability section (``DPWT``), which
+``nbytes`` does not count.  A port node and a ``dpwa_tpu`` node gossip with
+each other; the fetcher reads the trailers after the payload tolerantly,
+dispatching on their magics, and a peer that serves none is the old wire,
+not a failure.  The RELAY verb asks a
 node to header-probe a third on the asker's behalf (:func:`relay_probe`).
 
 :meth:`TcpTransport.exchange_on_device` merges a replica that lives on the
@@ -116,7 +116,25 @@ fold form.  ``protocol.async_rounds`` makes the rounds barrier-free
 merge staleness-damped whenever ready, a publish clock at most once
 (the ``_async_guard`` dedup).
 
-Not ported yet: the native Rx server and ``/metrics``.
+The ``obs:`` block (:mod:`dpwa_tpu_torch.obs`, every facility off by
+default, and then no trailer, no timing call and no obs state): with
+``trace`` or ``sketch`` every frame carries the ``DPWT`` trailer, its trace
+ID ``"{me}:{clock}"`` and, with ``sketch``, the replica's sketch made where
+the replica lies (memoised per publish clock); a fetched trailer's sketch
+feeds :attr:`TcpTransport.sketchboard` and its trace ID the round's record.
+``trace`` times a round's stages (:class:`~dpwa_tpu_torch.obs.trace.
+Tracer`: publish, partner_resolve, wire, join_wait, decode, guard, trust,
+merge, and the Rx server's serve spans).  The reference traces the rounds
+of its host ``exchange`` only, which its adapters call; the port's
+adapters call :meth:`TcpTransport.exchange_on_device`, so that is where
+the port's rounds are traced, with the same stages, fields and trace IDs.
+``metrics`` serves every plane's families at ``/metrics``, ``incidents`` the
+detectors' :class:`~dpwa_tpu_torch.obs.incidents.IncidentPlane` at
+``/incidents``, ``recorder`` the :class:`~dpwa_tpu_torch.obs.recorder.
+FlightRecorder` at ``/flightdump`` (and on a crash, an incident and a
+close).
+
+Not ported yet: the native Rx server.
 """
 
 from __future__ import annotations
@@ -142,6 +160,7 @@ from dpwa_tpu_torch.health.scoreboard import PeerState
 from dpwa_tpu_torch.interpolation import PeerMeta, make_interpolation
 from dpwa_tpu_torch.membership import digest as _digest
 from dpwa_tpu_torch.membership.manager import MembershipManager
+from dpwa_tpu_torch.obs import wire as _obs_wire
 from dpwa_tpu_torch.ops.quantize import (
     Int8Payload, TopkEncoder, TopkPayload, decode_int8_payload, decode_topk_payload,
     encode_int8_payload, int8_nbytes, topk_k, topk_nbytes,
@@ -193,14 +212,15 @@ assert tuple(_RELAY_OUTCOMES) == pc.RELAY_OUTCOME_NAMES
 
 def _frame_segments(
     payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
-    code: Optional[int] = None,
+    code: Optional[int] = None, obs: Optional[bytes] = None,
 ) -> tuple:
-    """``(header, payload bytes[, digest])``: the wire frame as the segments
-    the server sends, the payload a view of ``payload``'s host memory
-    (which the caller must not change while it is served), then the
-    membership digest trailer when there is one.  The code follows the
-    payload's dtype (float32, float64 or bf16), unless ``code`` names a
-    codec and ``payload`` is its encoded body (uint8)."""
+    """``(header, payload bytes[, digest][, obs])``: the wire frame as the
+    segments the server sends, the payload a view of ``payload``'s host
+    memory (which the caller must not change while it is served), then the
+    membership digest trailer and the ``DPWT`` section when there are
+    ones, in that order.  The code follows the payload's dtype (float32,
+    float64 or bf16), unless ``code`` names a codec and ``payload`` is its
+    encoded body (uint8)."""
     if code is None:
         code = next(c for c, (_, dt) in _FLAT.items() if dt == payload.dtype)
     flat = payload.reshape(-1).contiguous()
@@ -208,15 +228,20 @@ def _frame_segments(
         flat = flat.view(torch.int16)
     data = flat.numpy().view(np.uint8)
     header = pc.BLOB_HDR.pack(pc.BLOB_MAGIC, 1, code, float(clock), float(loss), data.size)
-    return (header, data) if not digest else (header, data, bytes(digest))
+    segs = (header, data)
+    if digest:
+        segs += (bytes(digest),)
+    if obs:
+        segs += (bytes(obs),)
+    return segs
 
 
 def _frame(
     payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
-    code: Optional[int] = None,
+    code: Optional[int] = None, obs: Optional[bytes] = None,
 ) -> bytes:
     """:func:`_frame_segments` joined: the frame as one byte string."""
-    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss, digest, code))
+    return b"".join(bytes(s) for s in _frame_segments(payload, clock, loss, digest, code, obs))
 
 
 class _LazyState:
@@ -261,14 +286,18 @@ class PeerServer:
     busy frame, and a request read slower than the minimum ingest rate is
     cut and counted.  :attr:`relay_guard`, when set (the chaos harness
     sets it), is asked whether this node's own link to a relay's target is
-    blocked; such a probe reports ``refused``."""
+    blocked; such a probe reports ``refused``.  :attr:`obs_serve_hook`,
+    when set (``obs.trace``), is called ``(trace_id, nbytes, seconds)``
+    after each frame served with a trace ID."""
 
     relay_guard: Optional[Callable[[int], bool]] = None
+    obs_serve_hook: Optional[Callable[[str, int, float], None]] = None
 
     def __init__(self, host: str, port: int, flowctl: Optional[FlowctlConfig] = None):
         self._lock = threading.Lock()
         self._segments: Optional[tuple] = None
         self._payload_nbytes = 0
+        self._payload_trace_id: Optional[str] = None
         self._state: Union[bytes, _LazyState, None] = None
         self._state_gen = 0
         self.flowctl = flowctl if flowctl is not None else FlowctlConfig()
@@ -292,16 +321,18 @@ class PeerServer:
 
     def publish(
         self, payload: torch.Tensor, clock: float, loss: float, digest: Optional[bytes] = None,
-        code: Optional[int] = None,
+        code: Optional[int] = None, obs: Optional[bytes] = None, trace_id: Optional[str] = None,
     ) -> None:
         """Serve ``payload`` (a host tensor the caller no longer changes;
         with ``code``, a codec's encoded body) with ``clock`` and ``loss``,
-        and ``digest`` as its trailer, from now on."""
-        segments = _frame_segments(payload, clock, loss, digest, code)
+        and ``digest`` and ``obs`` as its trailers, from now on; a served
+        frame's span is stamped with ``trace_id``."""
+        segments = _frame_segments(payload, clock, loss, digest, code, obs)
         nbytes = sum(len(s) for s in segments)
         with self._lock:
             self._segments = segments
             self._payload_nbytes = nbytes
+            self._payload_trace_id = trace_id
 
     def publish_state(self, blob: Union[bytes, Callable[[], bytes]]) -> None:
         """Serve a packed train state for a peer's bootstrap from now on:
@@ -402,6 +433,7 @@ class PeerServer:
         ceiling (past it, the busy frame)."""
         with self._lock:
             segments, nbytes = self._segments, self._payload_nbytes
+            trace_id = self._payload_trace_id
         if segments is None:
             return
         adm = self.admission
@@ -411,11 +443,18 @@ class PeerServer:
             except OSError:
                 pass
             return
+        hook = self.obs_serve_hook
+        t0 = time.monotonic() if hook is not None else 0.0
         try:
             ingest.sendall_segments(conn, segments)
         finally:
             if adm is not None:
                 adm.release_bytes(nbytes)
+            if hook is not None and trace_id is not None:
+                try:
+                    hook(trace_id, nbytes, time.monotonic() - t0)
+                except Exception:  # observability never breaks a serve
+                    pass
 
     def _handle_relay(self, conn: socket.socket) -> None:
         """Serve one relayed header probe: probe the requested target and
@@ -511,24 +550,26 @@ def _recv_trailing(sock: socket.socket, n: int, deadline: float) -> Optional[mem
         return None
 
 
-def _read_trailers(sock: socket.socket, budget_s: float = _TRAILER_BUDGET_S) -> Optional[bytes]:
-    """The membership digest among the trailers after a payload, or None.
+def _read_trailers(sock: socket.socket, want_digest: bool = True, want_obs: bool = False,
+                   budget_s: float = _TRAILER_BUDGET_S) -> Tuple[Optional[bytes], Optional[bytes]]:
+    """``(digest, obs)``: the membership digest and the ``DPWT`` section
+    among the trailers after a payload, each None when absent, malformed or
+    not wanted.
 
     Reads a 4-byte magic, dispatches on it and repeats (at most 4
-    sections): a digest (``DPWM``, its header and the entries its count
-    implies) ends the read, since the sections after it (the
-    observability section rides after the digest) carry nothing the port
-    reads, and waiting for the server's close would cost a thread switch
-    on its side; an observability section (``DPWT``) before any digest is
-    read past and dropped; anything else, or a malformed or missing
-    section, ends the read.  Never raises."""
+    sections, one of each kind); anything else, or a malformed or missing
+    section, ends the read.  The observability section rides after the
+    digest, so without ``want_obs`` the read ends at the digest, and it
+    ends at the observability section once nothing else is wanted (waiting
+    for the server's close would cost a thread switch on its side).  Never
+    raises."""
     deadline = time.monotonic() + budget_s
-    obs_seen = False
+    digest = obs = None
     for _ in range(4):
         magic = _recv_trailing(sock, 4, deadline)
         if magic is None:
             break
-        if magic == pc.DIGEST_MAGIC:
+        if magic == pc.DIGEST_MAGIC and digest is None:
             rest = _recv_trailing(sock, _digest.HEADER_SIZE - 4, deadline)
             if rest is None:
                 break
@@ -539,20 +580,26 @@ def _read_trailers(sock: socket.socket, budget_s: float = _TRAILER_BUDGET_S) -> 
             body = _recv_trailing(sock, nbytes, deadline)
             if body is None:
                 break
-            return b"".join((head, body))
-        elif magic == pc.OBS_MAGIC and not obs_seen:
+            digest = b"".join((head, body))
+            if not want_obs:
+                break
+        elif magic == pc.OBS_MAGIC and obs is None:
             rest = _recv_trailing(sock, pc.OBS_HDR.size - 4, deadline)
             if rest is None:
                 break
-            _m, version, n, _trace, _loss, _res = pc.OBS_HDR.unpack(b"".join((magic, rest)))
-            if version != pc.OBS_VERSION or n > pc.MAX_SKETCH_VALUES:
+            head = b"".join((magic, rest))
+            n = _obs_wire.header_sketch_count(head)
+            if n is None:
                 break
-            if _recv_trailing(sock, 4 * n, deadline) is None:
+            body = _recv_trailing(sock, _obs_wire.values_size(n), deadline)
+            if body is None:
                 break
-            obs_seen = True
+            obs = b"".join((head, body))
+            if digest is not None or not want_digest:
+                break
         else:
             break
-    return None
+    return (digest if want_digest else None), (obs if want_obs else None)
 
 
 def fetch_blob_full(
@@ -564,6 +611,7 @@ def fetch_blob_full(
     lease_box: Optional[list] = None,
     trailer_box: Optional[list] = None,
     sock_box: Optional[list] = None,
+    obs_box: Optional[list] = None,
 ) -> Tuple[Optional[Tuple[torch.Tensor, float, float]], str, float, int]:
     """Fetch a peer's frame: ``(result, outcome, latency_s, payload bytes
     received)``, ``result`` = ``(vector, clock, loss)`` or None.
@@ -586,7 +634,8 @@ def fetch_blob_full(
     reads the vector; without, the lease returns to the ring when the
     vector dies.  With ``trailer_box`` the trailers after a valid payload
     are read too (:func:`_read_trailers`) and the membership digest's
-    bytes, or None, appended there.  ``sock_box`` gets the socket once it
+    bytes, or None, appended there; with ``obs_box`` the ``DPWT``
+    section's bytes, or None, there.  ``sock_box`` gets the socket once it
     is connected: a hedging caller cancels this fetch from another thread
     by shutting it down (:func:`_cancel`)."""
     ring = ring if ring is not None else _default_ring()
@@ -662,8 +711,12 @@ def fetch_blob_full(
                 return done(Outcome.CORRUPT)
             vec, arr = decoded
             del decoded
-            if trailer_box is not None:
-                trailer_box.append(_read_trailers(sock))
+            if trailer_box is not None or obs_box is not None:
+                digest, obs = _read_trailers(sock, trailer_box is not None, obs_box is not None)
+                if trailer_box is not None:
+                    trailer_box.append(digest)
+                if obs_box is not None:
+                    obs_box.append(obs)
             if code in _CODEC_DECODERS:  # an int8 body lands as it arrived
                 ingest.note_rx_frame(0 if code == pc.PAYLOAD_INT8_CHUNKED else 1)
             else:
@@ -963,6 +1016,7 @@ class _Leg:
         self.leases: list = []
         self.socks: list = []
         self.trailers: Optional[list] = [] if transport.membership is not None else None
+        self.obs: Optional[list] = [] if transport._obs_wire else None
         self.result: Optional[tuple] = None
         self._abandoned = False
         self._lock = threading.Lock()
@@ -976,6 +1030,7 @@ class _Leg:
         result = fetch_blob_full(
             host, port, deadline_ms, min_bandwidth_bps=bandwidth, ring=ring,
             lease_box=self.leases, trailer_box=self.trailers, sock_box=self.socks,
+            obs_box=self.obs,
         )
         with self._lock:
             self.result = result
@@ -1029,11 +1084,12 @@ class _Leg:
 
     def raw(self, hedged: bool, hedge_winner: Optional[int]) -> tuple:
         """``(peer, got, outcome, latency_s, nbytes, leases, digest, hedged,
-        hedge_winner)`` for the consuming half of a fetch."""
+        hedge_winner, obs)`` for the consuming half of a fetch."""
         got, outcome, latency_s, nbytes = self.result
         digest = self.trailers[0] if self.trailers else None
+        obs = self.obs[0] if self.obs else None
         return (self.peer, got, outcome, latency_s, nbytes, self.leases, digest,
-                hedged, hedge_winner)
+                hedged, hedge_winner, obs)
 
 
 def _recycle_raw(raw: tuple) -> None:
@@ -1197,7 +1253,9 @@ class TcpTransport:
     epidemic view, with ``trust.enabled`` :attr:`trust` the content-trust
     state; :attr:`last_round` says each round's scheduled and actual
     partner, whether it was remapped, the fetch's outcome and the trust
-    verdict."""
+    verdict.  The ``obs:`` block's facilities are :attr:`tracer`,
+    :attr:`sketchboard`, :attr:`metrics_registry`, :attr:`incidents` and
+    :attr:`flight`, each None when off."""
 
     def __init__(self, config: DpwaConfig, name: str, device=None):
         self.config = config
@@ -1239,6 +1297,7 @@ class TcpTransport:
         self.ring = ingest.BufferRing(pinned=self.device.type == "cuda")
         self._dev_replica: Optional[DeviceReplica] = None
         self._local_norm: Optional[float] = None
+        self._init_obs(config)
         spec = config.nodes[self.me]
         # Fetcher-side flow control: adaptive deadlines and hedging (None:
         # every fetch runs on protocol.timeout_ms).
@@ -1265,6 +1324,11 @@ class TcpTransport:
             self.server = ReactorPeerServer(spec.host, spec.port, flowctl=config.flowctl)
         else:
             self.server = make_peer_server(spec.host, spec.port, flowctl=config.flowctl)
+        if self.tracer is not None and hasattr(self.server, "obs_serve_hook"):
+            # Serve spans: the threaded and the reactor servers time their
+            # sends (the chaos harness's threaded wrapper has no hook, so
+            # its nodes trace the fetching side only, as the reference's).
+            self.server.obs_serve_hook = self.tracer.note_serve
         self._ports = {i: (n.host, n.port) for i, n in enumerate(config.nodes)}
         # Every fetch outcome feeds the scoreboard; a quarantined partner
         # is probed or remapped in _resolve_partner.
@@ -1327,12 +1391,71 @@ class TcpTransport:
         if config.health.enabled and config.health.healthz_port is not None:
             from dpwa_tpu_torch.health.endpoint import HealthzServer
 
-            self.healthz = HealthzServer(self.health_snapshot, spec.host,
-                                         config.health.healthz_port)
+            routes = {}
+            if self.incidents is not None:
+                routes["/incidents"] = self.incidents.snapshot
+            if self.flight is not None:
+                routes["/flightdump"] = self._flight_dump_route
+            self.healthz = HealthzServer(
+                self.health_snapshot, spec.host, config.health.healthz_port,
+                metrics_fn=(self.metrics_registry.render if self.metrics_registry is not None
+                            else None),
+                extra_routes=routes or None,
+            )
         if proto.async_rounds.enabled:
             from dpwa_tpu_torch.parallel.async_loop import AsyncExchangeEngine
 
             AsyncExchangeEngine(self)
+        if self.metrics_registry is not None:
+            # Last: the collectors read the planes, which must all exist.
+            self._register_metrics(self.metrics_registry)
+
+    def _init_obs(self, config: DpwaConfig) -> None:
+        """The ``obs:`` block's facilities, each None when off (the round
+        then takes no obs branch and makes no timing call, and frames are
+        those of a build without the plane)."""
+        obs = config.obs
+        self.tracer = None
+        if obs.trace:
+            from dpwa_tpu_torch.obs.trace import Tracer
+
+            self.tracer = Tracer(self.me, every=obs.trace_every, path=obs.trace_path,
+                                 max_records=obs.trace_max_records)
+        self.sketchboard = None
+        if obs.sketch:
+            from dpwa_tpu_torch.obs.sketch import SketchBoard
+
+            self.sketchboard = SketchBoard(self.me, k=obs.sketch_k)
+        # A published DPWT section, and the trailer read of a fetch, follow
+        # either facility (the trace ID is free once the section exists).
+        self._obs_wire = obs.trace or obs.sketch
+        self._trace_id: Optional[str] = None
+        self._obs_trailer_cache: Optional[Tuple[int, bytes]] = None
+        # A traced round's merge on the card: its (start, end) CUDA events.
+        self._merge_events: Optional[tuple] = None
+        self.metrics_registry = None
+        if obs.metrics:
+            from dpwa_tpu_torch.obs.prometheus import MetricsRegistry
+
+            self.metrics_registry = MetricsRegistry()
+        self.incidents = None
+        if obs.incidents:
+            from dpwa_tpu_torch.obs.incidents import IncidentPlane
+
+            self.incidents = IncidentPlane(self.me, len(config.nodes), obs)
+        self.flight = None
+        if obs.recorder:
+            from dpwa_tpu_torch.obs.recorder import FlightRecorder
+
+            self.flight = FlightRecorder(self.me, rounds=obs.recorder_rounds,
+                                         path=obs.recorder_path)
+            self.flight.arm_crash_dump()
+        # With the incident plane or the recorder on, the round boundary
+        # drains the membership and trust events (the detectors see them
+        # the round they happen) into these buffers, which pop_*_events read.
+        self._membership_event_buf: list = []
+        self._trust_event_buf: list = []
+        self._obs_round_entry_t: Optional[float] = None
 
     @property
     def port(self) -> int:
@@ -1345,7 +1468,8 @@ class TcpTransport:
 
     # -- publish --------------------------------------------------------
     def _serve(self, payload: torch.Tensor, clock: float, loss: float, dense_bytes: int,
-               code: Optional[int] = None, shard: Optional[int] = None) -> None:
+               code: Optional[int] = None, shard: Optional[int] = None,
+               obs: Optional[bytes] = None) -> None:
         nbytes = payload.numel() * payload.element_size()
         with self._stats_lock:
             self.stats["frames_published"] += 1
@@ -1362,7 +1486,11 @@ class TcpTransport:
         digest = self.membership.encode(int(clock)) if self.membership is not None else None
         if digest is not None:
             self.last_digest_nbytes = len(digest)
-        self.server.publish(payload, clock, loss, digest, code)
+        if obs is None:
+            self.server.publish(payload, clock, loss, digest, code)
+        else:
+            self.server.publish(payload, clock, loss, digest, code, obs=obs,
+                                trace_id=self._trace_id)
 
     def _replica(self, flat: torch.Tensor) -> DeviceReplica:
         """The replica that holds ``flat``: the current one when it does
@@ -1384,6 +1512,42 @@ class TcpTransport:
         self._publish_replica(self._replica(_flat(vec)), clock, loss)
 
     def _publish_replica(self, rep: DeviceReplica, clock: float, loss: float) -> None:
+        tr = self.tracer
+        if tr is None:
+            self._publish(rep, clock, loss)
+            return
+        t0 = time.monotonic()
+        try:
+            self._publish(rep, clock, loss)
+        finally:
+            tr.mark("publish", time.monotonic() - t0)
+            tr.set(trace_id=self._trace_id)
+
+    def _make_obs_trailer(self, rep: DeviceReplica, clock: float) -> bytes:
+        """The ``DPWT`` section of this publish: the trace ID and, with the
+        sketch on (every ``sketch_every`` clocks), the sketch of the whole
+        replica (a top-k or shard frame carries the whole replica's too),
+        made on its device with ``k`` floats read back; ``norm_est`` is the
+        sketch's own norm.  One section a publish clock: a republish under
+        the same clock reuses it."""
+        seq = int(clock) & 0xFFFFFFFF
+        self._trace_id = f"{self.me}:{seq}"
+        cached = self._obs_trailer_cache
+        if cached is not None and cached[0] == seq:
+            return cached[1]
+        sketch, norm = None, 0.0
+        board = self.sketchboard
+        if board is not None and int(clock) % self.config.obs.sketch_every == 0:
+            from dpwa_tpu_torch.obs.sketch import replica_sketch
+
+            sketch = replica_sketch(rep.dev, self.schedule.seed, board.k)
+            norm = float(np.dot(sketch, sketch)) ** 0.5
+            board.note_local(seq, sketch)
+        blob = _obs_wire.encode_obs(self.me, seq, norm, sketch)
+        self._obs_trailer_cache = (seq, blob)
+        return blob
+
+    def _publish(self, rep: DeviceReplica, clock: float, loss: float) -> None:
         self._last_clock = float(clock)
         rec = self.config.recovery
         zero_energy = rec.enabled and rec.min_param_norm_ratio > 0.0
@@ -1392,12 +1556,13 @@ class TcpTransport:
             # shard frame densifies against: the replica just published.
             self._local_vec = rep.dev
         dense_bytes = 4 * rep.dev.numel()
+        obs = self._make_obs_trailer(rep, clock) if self._obs_wire else None
         if self._codec:
             code, shard = self._codec_of(clock)
             body = rep.encoded(lambda v: self.codec_body(v, clock)[0])
-            self._serve(body, clock, loss, dense_bytes, code, shard)
+            self._serve(body, clock, loss, dense_bytes, code, shard, obs)
         else:
-            self._serve(rep.payload(self.wire), clock, loss, dense_bytes)
+            self._serve(rep.payload(self.wire), clock, loss, dense_bytes, obs=obs)
         if zero_energy:
             self._local_norm = rep.norm()
 
@@ -1540,7 +1705,22 @@ class TcpTransport:
 
     def _consume(self, raw: tuple, step: Optional[int], device) -> Optional[tuple]:
         (peer_index, got, outcome, latency_s, nbytes, _leases, digest,
-         hedged, hedge_winner) = raw
+         hedged, hedge_winner) = raw[:9]
+        obs = raw[9] if len(raw) > 9 else None  # a fetch without the obs read
+        tr = self.tracer
+        timing = tr is not None and tr.active
+        if timing:
+            # The leg's own streaming time (under the pipeline it ran a round
+            # earlier; join_wait is what the caller waited for it).
+            tr.mark("wire", latency_s)
+        if obs is not None and (timing or self.sketchboard is not None):
+            frame = _obs_wire.decode_obs(obs)
+            if frame is not None:
+                if timing:
+                    tr.set(remote_trace_id=frame.trace_id)
+                if self.sketchboard is not None and frame.sketch is not None:
+                    self.sketchboard.note_remote(frame.origin, frame.seq, frame.sketch,
+                                                 round=step)
         guard = self._async_guard
         if guard is not None and got is not None and float(got[1]) <= guard.get(
                 peer_index, float("-inf")):
@@ -1554,14 +1734,27 @@ class TcpTransport:
         if got is not None:
             remote, rclock, rloss = got
             got = None
+            # A codec frame's decoding is the decode stage (a dense frame's
+            # landing is in no stage, as the reference's device merge
+            # engine lands inside its merge).
+            decoding = timing and not isinstance(remote, torch.Tensor)
+            t_stage = time.monotonic() if decoding else 0.0
             landed = self._land(remote, device)
             del remote
+            if decoding:
+                tr.mark("decode", time.monotonic() - t_stage)
             if landed is None:
                 outcome = Outcome.CORRUPT
             else:
                 codec = landed.codec
                 got = (landed, rclock, rloss)
+                t_stage = time.monotonic() if timing else 0.0
                 reason, sums = self._judge(peer_index, landed, rloss)
+                if timing:
+                    # One readback serves the guard and the screen's sums:
+                    # the guard's span (the screen's without recovery).
+                    tr.mark("guard" if self.config.recovery.enabled else "trust",
+                            time.monotonic() - t_stage)
             if reason is not None:
                 got = None
                 outcome = Outcome.POISONED
@@ -1570,6 +1763,7 @@ class TcpTransport:
                 # support, a shard frame slice against slice); a rejection
                 # is the untrusted outcome, recorded as poisoned is (and,
                 # like it, never gated behind relays).
+                t_stage = time.monotonic() if timing else 0.0
                 verdict, scale, tstats = self.trust.screen(
                     peer_index,
                     landed.trust_remote if landed.trust_remote is not None else landed.dense,
@@ -1579,6 +1773,8 @@ class TcpTransport:
                     codec=landed.trust_codec or codec or "dense", sparse=landed.trust_sparse,
                     shard=landed.shard,
                 )
+                if timing:
+                    tr.mark("trust", time.monotonic() - t_stage)
                 trust_info = dict(tstats, verdict=verdict, alpha_scale=round(scale, 4))
                 with self._stats_lock:
                     counts = self.stats["verdicts"]
@@ -1633,14 +1829,14 @@ class TcpTransport:
                     step: Optional[int] = None) -> tuple:
         """The wire half of a fetch, which moves bytes only (a prefetch or
         async slot runs it on its own thread): ``(winner, got, outcome,
-        latency_s, nbytes, leases, digest, hedged, hedge_winner)``, the
+        latency_s, nbytes, leases, digest, hedged, hedge_winner, obs)``, the
         frame's host vector (or decoded payload) viewing the ``leases`` of
         the receive ring until :meth:`_consume_fetch` gives them back.  A
         link the chaos harness blocks is refused without a socket."""
         if timeout_ms is None:
             timeout_ms = self.config.protocol.timeout_ms
         if self._link_blocked(peer):
-            return peer, None, Outcome.REFUSED, 0.0, 0, [], None, False, None
+            return peer, None, Outcome.REFUSED, 0.0, 0, [], None, False, None, None
         if self._estimator is not None:
             return self._hedged_fetch(peer, step, timeout_ms)
         leg = _Leg(self, peer, timeout_ms)
@@ -1889,7 +2085,13 @@ class TcpTransport:
     def pop_membership_events(self) -> list:
         """Drain the membership events (refutations, component changes,
         partition entered and healed, evictions and rejoins)."""
-        return [] if self.membership is None else self.membership.pop_events()
+        if self.membership is None:
+            return []
+        if self.incidents is not None or self.flight is not None:
+            out, self._membership_event_buf = self._membership_event_buf, []
+            out.extend(self.membership.pop_events())
+            return out
+        return self.membership.pop_events()
 
     def pop_heal_advice(self) -> Optional[dict]:
         """Consume the pending heal-reconciliation advice, if any."""
@@ -1898,7 +2100,13 @@ class TcpTransport:
     def pop_trust_events(self) -> list:
         """Drain the trust events (collapse, recovery, amnesty, clock
         resets)."""
-        return [] if self.trust is None else self.trust.pop_events()
+        if self.trust is None:
+            return []
+        if self.incidents is not None or self.flight is not None:
+            out, self._trust_event_buf = self._trust_event_buf, []
+            out.extend(self.trust.pop_events())
+            return out
+        return self.trust.pop_events()
 
     def set_trust_leaves(self, sizes) -> None:
         """Adopt the model's leaf sizes, in the frame's order, so the
@@ -1915,7 +2123,9 @@ class TcpTransport:
         slow columns and a top-level ``flowctl`` view (the estimator's, with
         the server's admission counters) when flowctl runs; the ``reactor``
         scheduler's counters exactly when the reactor serves; the ``wire``
-        accounting when a codec, the pipeline or the partial view is on."""
+        accounting when a codec, the pipeline or the partial view is on; the
+        ``obs`` document with the tracer or the sketch on and ``incidents``
+        with the incident plane on."""
         if self.scoreboard is None:
             snap = {"me": self.me, "round": 0, "peers": {}}
         else:
@@ -1941,9 +2151,122 @@ class TcpTransport:
         if (self._wire_topk or self._shard_on or self._prefetch_on
                 or (self.membership is not None and self.membership.partial is not None)):
             snap["wire"] = self.wire_snapshot()
+        if self.tracer is not None or self.sketchboard is not None:
+            snap["obs"] = self.obs_snapshot()
+        if self.incidents is not None:
+            snap["incidents"] = self.incidents.snapshot()
         if self.async_engine is not None:
             snap["async"] = self.async_engine.snapshot()
         return snap
+
+    def obs_snapshot(self) -> dict:
+        """The JSON-ready observability document: the sketch's convergence
+        estimate and the tracer's per-stage summary."""
+        out: dict = {}
+        if self.sketchboard is not None:
+            out["convergence"] = self.sketchboard.snapshot()
+        if self.tracer is not None:
+            out["trace"] = self.tracer.stage_summary()
+        return out
+
+    def _flight_dump_route(self) -> dict:
+        """The ``/flightdump`` route: dump the ring now."""
+        path = self.flight.dump("endpoint") if self.flight is not None else None
+        out: dict = {"dumped": path is not None}
+        if path is not None:
+            out["path"] = path
+        return out
+
+    def _register_metrics(self, registry) -> None:
+        """Every running plane's collectors on the ``/metrics`` registry
+        (once, at the end of construction), the wire, overlap, sketch and
+        tracer gauges with them; each reads its plane's snapshot at scrape
+        time, nothing a round."""
+        from dpwa_tpu_torch.obs.prometheus import Family
+
+        registry.gauge_fn("dpwa_me", "This node's ring index.", lambda: self.me)
+        if self.scoreboard is not None:
+            from dpwa_tpu_torch.health.scoreboard import register_metrics as _reg_health
+
+            _reg_health(registry, self.scoreboard)
+        if self.membership is not None:
+            from dpwa_tpu_torch.membership.manager import register_metrics as _reg_member
+
+            _reg_member(registry, self.membership)
+        if self.trust is not None:
+            from dpwa_tpu_torch.trust.manager import register_metrics as _reg_trust
+
+            _reg_trust(registry, self.trust)
+        if self._estimator is not None:
+            from dpwa_tpu_torch.flowctl.estimator import register_metrics as _reg_est
+
+            _reg_est(registry, self._estimator)
+        admission = getattr(self.server, "admission", None)
+        if admission is not None:
+            from dpwa_tpu_torch.flowctl.admission import register_metrics as _reg_adm
+
+            _reg_adm(registry, admission)
+        if hasattr(self.server, "reactor_snapshot"):
+            from dpwa_tpu_torch.parallel.reactor import register_metrics as _reg_reactor
+
+            _reg_reactor(registry, self.server)
+
+        def _wire():
+            snap = self.wire_snapshot()
+            fams = [
+                Family("dpwa_wire_bytes_total", "counter",
+                       "Payload bytes published to the wire.").sample(snap["wire_bytes"]),
+                Family("dpwa_wire_frames_total", "counter",
+                       "Frames published to the wire.").sample(snap["frames"]),
+                Family("dpwa_wire_compression_ratio", "gauge",
+                       "Dense f32 bytes over on-wire bytes.").sample(snap["compression_ratio"]),
+            ]
+            ov = snap.get("overlap")
+            if ov is not None:
+                fams.append(Family("dpwa_overlap_occupancy", "gauge",
+                                   "Fetch in-flight time over round wall time.").sample(
+                    ov["occupancy"]))
+                fams.append(Family("dpwa_overlap_hidden_frac", "gauge",
+                                   "Fraction of fetch wall-time hidden from the caller.").sample(
+                    ov["hidden_frac"]))
+            return fams
+
+        registry.register(_wire)
+        if self.sketchboard is not None:
+
+            def _sketch():
+                snap = self.sketchboard.snapshot()
+                return [
+                    Family("dpwa_disagreement_rms", "gauge",
+                           "Sketch-estimated RMS replica disagreement across peers seen.").sample(
+                        snap["rms"]),
+                    Family("dpwa_disagreement_rel", "gauge",
+                           "RMS disagreement relative to the local replica norm estimate."
+                           ).sample(snap["rel_rms"]),
+                    Family("dpwa_sketch_peers", "gauge",
+                           "Peers with a current sketch on the board.").sample(
+                        snap["peers_seen"]),
+                ]
+
+            registry.register(_sketch)
+        if self.tracer is not None:
+
+            def _trace():
+                summary = self.tracer.stage_summary()
+                total = Family("dpwa_trace_stage_seconds_total", "counter",
+                               "Cumulative seconds spent per exchange stage.")
+                med = Family("dpwa_trace_stage_median_ms", "gauge",
+                             "Median stage duration over the recent window.")
+                for stage, info in summary.items():
+                    total.sample(info["total_s"], {"stage": stage})
+                    med.sample(info["median_ms"], {"stage": stage})
+                return [total, med]
+
+            registry.register(_trace)
+        if self.incidents is not None:
+            from dpwa_tpu_torch.obs.incidents import register_metrics as _reg_inc
+
+            _reg_inc(registry, self.incidents)
 
     def wire_snapshot(self) -> dict:
         """JSON-ready wire accounting, as the reference's: the codec
@@ -2027,6 +2350,124 @@ class TcpTransport:
         # partitioned node skips every round, which is when it must notice.
         if self.membership is not None:
             self.membership.end_round(step)
+        if self.incidents is not None or self.flight is not None:
+            self._obs_round_end(step)
+
+    def _obs_round_end(self, step: int) -> None:
+        """The incident plane's and the flight recorder's round boundary,
+        on every exit of every exchange, right after the membership
+        boundary: this round's evidence from what the round already made
+        (``last_round``, ``last_fetch``, the scoreboard, the membership
+        view, the sketch board); no wire traffic and no device sync."""
+        now = time.monotonic()
+        wall = None
+        if self._obs_round_entry_t is not None:
+            # Entry to entry: compute and exchange, the SLO burn's baseline.
+            wall = now - self._obs_round_entry_t
+        self._obs_round_entry_t = now
+        lr = self.last_round
+        this_round = lr.get("step") == step
+        peer = lr.get("partner") if this_round else None
+        outcome = lr.get("outcome") if this_round else None
+        lf = self.last_fetch if this_round else {}
+        events: list = []
+        if self.membership is not None:
+            evs = self.membership.pop_events()
+            events.extend(evs)
+            self._membership_event_buf.extend(evs)
+        if self.trust is not None:
+            evs = self.trust.pop_events()
+            events.extend(evs)
+            self._trust_event_buf.extend(evs)
+        board = self.scoreboard.snapshot() if self.scoreboard is not None else None
+        partition_state = component = None
+        if self.membership is not None:
+            view = self.membership.view_snapshot()
+            partition_state = view.get("partition_state")
+            component = view.get("component")
+        rel = None
+        if self.sketchboard is not None:
+            _, rel = self.sketchboard.disagreement()
+        # The peers whose frames the async loop dropped as stale this round.
+        stale_peers = (self.async_engine.pop_round_stale()
+                       if self.async_engine is not None else ())
+        fired: list = []
+        opened = False
+        if self.incidents is not None:
+            res = self.incidents.observe_round(
+                step, outcome=outcome, peer=peer, board=board, events=events, rel_rms=rel,
+                wall_s=wall, partition_state=partition_state, component=component,
+                stale_peers=stale_peers,
+            )
+            fired = res["alerts"]
+            opened = res["opened"]
+        if self.flight is not None:
+            self.flight.note_round(
+                step,
+                partner=peer,
+                sched_partner=lr.get("sched_partner") if this_round else None,
+                remapped=lr.get("remapped") if this_round else None,
+                outcome=outcome,
+                codec=lr.get("codec") if this_round else None,
+                trust=lr.get("trust") if this_round else None,
+                latency_s=lf.get("latency_s"),
+                nbytes=lf.get("nbytes"),
+                rel_rms=rel,
+                wall_s=round(wall, 6) if wall is not None else None,
+                partition_state=partition_state,
+                events=[e.get("event") for e in events] or None,
+                alerts=fired or None,
+            )
+            if opened:
+                # An incident's open dumps the run-up before the ring moves on.
+                self.flight.dump("incident", step)
+
+    def _trace_finish(self, tr) -> None:
+        """Close the traced round with its resolution (``last_round``,
+        ``last_fetch``) and the sketch's disagreement estimate.  A merge on
+        the card is timed by CUDA events around its launch; they are read
+        here, so a traced round waits for its merge's end event (the one
+        sync the tracer adds: the next round's publish reads the merged
+        replica back, and would wait for it anyway)."""
+        events, self._merge_events = self._merge_events, None
+        if events is not None:
+            start, end = events
+            end.synchronize()
+            tr.mark("merge", start.elapsed_time(end) / 1e3)
+        lr = self.last_round
+        fields = {
+            "partner": lr.get("partner"),
+            "sched_partner": lr.get("sched_partner"),
+            "remapped": lr.get("remapped"),
+            "outcome": lr.get("outcome"),
+            "codec": lr.get("codec"),
+        }
+        if lr.get("outcome") is not None:
+            fields["nbytes"] = self.last_fetch.get("nbytes")
+        if lr.get("hedged"):
+            fields["hedged"] = True
+        if self.sketchboard is not None:
+            rms, rel = self.sketchboard.disagreement()
+            fields["disagreement_rms"] = rms
+            fields["disagreement_rel"] = rel
+        tr.end_round(**fields)
+
+    def _traced_merge(self, tr, x: torch.Tensor, remote, alpha: float) -> torch.Tensor:
+        """:func:`engine.merge` on a traced round: between two CUDA events
+        on the card (read by :meth:`_trace_finish`), timed by the host
+        clock elsewhere."""
+        if x.is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            merged = engine.merge(x, remote, alpha)
+            end.record()
+            self._merge_events = (start, end)
+        else:
+            t0 = time.monotonic()
+            merged = engine.merge(x, remote, alpha)
+            tr.mark("merge", time.monotonic() - t0)
+        tr.set(alpha=float(alpha))
+        return merged
 
     def _start_round(self, step: int, sched: int, partner: int, remapped: bool) -> None:
         self.last_round = {
@@ -2056,7 +2497,12 @@ class TcpTransport:
         merge.  The membership round boundary runs on every exit."""
         try:
             self._publish_replica(rep, clock, loss)
+            tr = self.tracer
+            timing = tr is not None and tr.active
+            t0 = time.monotonic() if timing else 0.0
             sched, partner, remapped = self._resolve_partner(step)
+            if timing:
+                tr.mark("partner_resolve", time.monotonic() - t0)
             self._start_round(step, sched, partner, remapped)
             # Participation stays keyed on the scheduled pairing; a remap
             # moves only the fetch (to self when no healthy peer is left).
@@ -2102,7 +2548,12 @@ class TcpTransport:
         """Arm the slot for round ``step``: its partner resolved now, one
         scoreboard round early, and its frame streamed on a background
         thread (none when that round does not fetch)."""
+        tr = self.tracer
+        timing = tr is not None and tr.active
+        t0 = time.monotonic() if timing else 0.0
         sched, partner, remapped = self._resolve_partner(step)
+        if timing:
+            tr.mark("partner_resolve", time.monotonic() - t0)
         slot = None
         if partner != self.me and self.schedule.participates(step, self.me):
             slot = _Slot(self, partner, step)
@@ -2120,6 +2571,8 @@ class TcpTransport:
         wait).  The join waits as long as the fetch's own deadline can run
         (:meth:`_join_backstop_s`); a lapsed join skips the merge."""
         entry, self._prefetch_slot = self._prefetch_slot, None
+        tr = self.tracer
+        timing = tr is not None and tr.active
         if entry is None or entry["step"] != step:
             if entry is not None and entry["slot"] is not None:
                 entry["slot"].abandon()
@@ -2134,6 +2587,9 @@ class TcpTransport:
                 o["fetch_s"] += dt
                 o["join_wait_s"] += dt
                 o["inflight_s"] += dt
+            if timing:
+                tr.mark("join_wait", dt)
+                tr.set(prefetched=False)
             return raw, sched, partner, remapped
         sched, partner, remapped = entry["sched"], entry["partner"], entry["remapped"]
         slot = entry["slot"]
@@ -2145,9 +2601,13 @@ class TcpTransport:
         with self._stats_lock:
             self._overlap["prefetched"] += 1
             self._overlap["straddled"] += straddled
+        if timing:
+            tr.set(prefetched=True, straddled=straddled)
         t_join = time.monotonic()
         raw = slot.take(self._join_backstop_s(entry["expected_nbytes"]))
         join_dt = time.monotonic() - t_join
+        if timing:
+            tr.mark("join_wait", join_dt)
         span = max((slot.t_end or time.monotonic()) - slot.t_start, 0.0)
         with self._stats_lock:
             o = self._overlap
@@ -2160,7 +2620,7 @@ class TcpTransport:
             # A partition keyed on the consuming round's publish clock refuses
             # the frame the launch (one clock earlier) let through.
             _recycle_raw(raw)
-            raw = (partner, None, Outcome.REFUSED, 0.0, 0, [], None, False, None)
+            raw = (partner, None, Outcome.REFUSED, 0.0, 0, [], None, False, None, None)
         return raw, sched, partner, remapped
 
     def _join_backstop_s(self, expected_nbytes: int) -> float:
@@ -2209,7 +2669,8 @@ class TcpTransport:
         device): ``(merged, α, partner)``, the merged replica a new tensor
         on the same device, or ``vec_dev`` itself when the round was
         skipped (α = 0).  With ``overlap_prefetch`` the round goes through
-        the prefetch pipeline (:meth:`_round_pipelined`).  With
+        the prefetch pipeline (:meth:`_round_pipelined`).  With ``obs.trace``
+        the round is traced (one round in ``trace_every``).  With
         ``async_rounds`` it is the async engine's barrier-free round, and α
         is the damped α of this round's partner when its frame merged, else
         of the last frame merged (0.0 when none did)."""
@@ -2223,13 +2684,21 @@ class TcpTransport:
             return merged, alpha, partner
         rep = self._replica(_flat(vec_dev))
         round_fn = self._round_pipelined if self._prefetch_on else self._round
-        remote, alpha, partner = round_fn(rep, clock, loss, step)
-        self._count_round(() if remote is None else ((self.last_fetch["peer"], self._round_clock),))
-        if remote is None:
-            return rep.dev, alpha, partner
-        merged = engine.merge(rep.dev, remote, alpha)
-        rep.swap(merged)
-        return merged, alpha, partner
+        tr = self.tracer
+        rt = tr is not None and tr.begin_round(step)
+        try:
+            remote, alpha, partner = round_fn(rep, clock, loss, step)
+            self._count_round(
+                () if remote is None else ((self.last_fetch["peer"], self._round_clock),))
+            if remote is None:
+                return rep.dev, alpha, partner
+            merged = (self._traced_merge(tr, rep.dev, remote, alpha) if rt
+                      else engine.merge(rep.dev, remote, alpha))
+            rep.swap(merged)
+            return merged, alpha, partner
+        finally:
+            if rt:
+                self._trace_finish(tr)
 
     def exchange_overlapped_start(self, vec, clock: float, loss: float, step: int
                                   ) -> _OverlappedExchange:
@@ -2336,12 +2805,22 @@ class TcpTransport:
     def close(self) -> None:
         """Stop serving; a prefetch slot is abandoned and the async engine's
         in-flight fetches are joined, every frame they hold given back to
-        the receive ring."""
+        the receive ring; the flight recorder dumps, and the tracer's and
+        the incident plane's files are closed."""
         entry, self._prefetch_slot = self._prefetch_slot, None
         if entry is not None and entry["slot"] is not None:
             entry["slot"].abandon()
         if self.async_engine is not None:
             self.async_engine.release()
+        if self.flight is not None:
+            # The close's dump, then no crash hooks: a later atexit dump
+            # must not replace it.
+            self.flight.dump("close")
+            self.flight.disarm()
+        if self.incidents is not None:
+            self.incidents.close()
         if self.healthz is not None:
             self.healthz.close()
+        if self.tracer is not None:
+            self.tracer.close()
         self.server.close()

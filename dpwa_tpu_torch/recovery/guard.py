@@ -179,3 +179,21 @@ class RollbackRing:
 
     def clear(self) -> None:
         self._held.clear()
+
+
+def register_metrics(registry, ring: RollbackRing) -> None:
+    """The rollback ring on a ``/metrics`` registry (the adapter wires it:
+    the ring lives there)."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        return [
+            Family("dpwa_rollback_pushes_total", "counter",
+                   "Healthy replica snapshots banked").sample(ring.pushes),
+            Family("dpwa_rollback_rollbacks_total", "counter",
+                   "Guard-tripped rollbacks consumed").sample(ring.rollbacks),
+            Family("dpwa_rollback_held", "gauge",
+                   "Snapshots currently held in the ring").sample(len(ring)),
+        ]
+
+    registry.register(collect)

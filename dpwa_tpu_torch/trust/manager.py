@@ -27,8 +27,8 @@ clock, no RNG, so equal streams give equal verdicts, trust trajectories,
 support, a sharded frame slice against slice, each against baseline windows
 of its own: per codec (``"topk"``, or a shard's inner ``"f32"``, ``"bf16"``,
 ``"int8"``, ``"topk"``) and per ``f"{codec}:s{shard}"``; ``"dense"`` is the
-original set.  Not ported: ``register_metrics``.  One lock guards all
-mutable state.
+original set.  :func:`register_metrics` exposes the plane on ``/metrics``.
+One lock guards all mutable state.
 """
 
 from __future__ import annotations
@@ -486,3 +486,32 @@ class TrustManager:
 
 def round_f(x: float, digits: int = 4) -> float:
     return round(float(x), digits)
+
+
+def register_metrics(registry, manager: TrustManager) -> None:
+    """The content-trust plane on a ``/metrics`` registry."""
+    from dpwa_tpu_torch.obs.prometheus import Family
+
+    def collect():
+        snap = manager.snapshot()
+        trust = Family("dpwa_trust_score", "gauge",
+                       "Per-peer content-trust EWMA (1.0 = fully trusted)")
+        rejected = Family("dpwa_trust_rejected_total", "counter",
+                          "Payloads rejected by the trust screen per peer")
+        damped = Family("dpwa_trust_damped_total", "counter",
+                        "Payloads merged with damped alpha per peer")
+        for p, info in sorted((snap.get("peers") or {}).items()):
+            labels = {"peer": p}
+            trust.sample(info.get("trust"), labels)
+            rejected.sample(info.get("trust_rejected"), labels)
+            damped.sample(info.get("trust_damped"), labels)
+        return [
+            trust,
+            rejected,
+            damped,
+            Family("dpwa_trust_armed", "gauge",
+                   "1 once the robust baselines have enough history to arm").sample(
+                snap.get("armed")),
+        ]
+
+    registry.register(collect)

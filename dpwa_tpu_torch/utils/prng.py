@@ -213,6 +213,15 @@ def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0, device=None
     return _chunked(k, shape, device, lambda b: _scale_unit(unit_floats(b), minval, maxval))
 
 
+
+def rademacher(k: Key, shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``jax.random.rademacher(k, shape, dtype)``: ±1, bit-equal.  jax
+    draws it as ``2·bernoulli(p=0.5) − 1`` with ``bernoulli`` the
+    ``uniform < 0.5`` of :func:`uniform`, and a uniform built from a word's
+    top 23 bits is below 0.5 exactly when the word's top bit is clear: +1
+    there, −1 where it is set."""
+    return _chunked(k, shape, device, lambda b: (1 - 2 * (b >> 31)).to(dtype), dtype)
+
 # XLA's float32 log1p on the CPU: Cephes' rational approximation for
 # |x| < √2 − 1 (numerator and denominator highest degree first) ...
 _LOG1P_SMALL = 0.41421356237309504880

@@ -1274,3 +1274,73 @@ def test_fan_in_round_on_card_equals_sequential_b2(cuda_device):
     finally:
         for t in nodes:
             t.close()
+
+
+@pytest.mark.parametrize("n", [4099, 25557032])
+def test_sketch_on_card_matches_plain(cuda_device, n):
+    """The replica sketch made on the card: its signs bit-equal to the CPU's
+    (n 4099), its values within the float32 summation bound 2·m·2⁻²⁴·Σ|v_i|
+    of a float64 sum on the card, bit-equal on small integers, and only the
+    k floats read back."""
+    from dpwa_tpu_torch.obs import sketch
+
+    k = 64
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    v = torch.randn(n, generator=gen, device=cuda_device)
+    signs = sketch.sketch_signs(3, n, k, cuda_device)
+    assert signs.dtype == torch.int8
+    if n < 10**6:
+        assert torch.equal(signs.cpu(), sketch.sketch_signs(3, n, k))
+    m = signs.shape[1]
+    padded = torch.zeros(k * m, dtype=torch.float64, device=cuda_device)
+    padded[:n] = v.double()
+    want = (signs.double() * padded.view(k, m)).sum(1)
+    bound = 2 * m * 2.0 ** -24 * padded.abs().view(k, m).sum(1)
+    got = sketch.replica_sketch(v, 3, k)
+    assert isinstance(got, np.ndarray) and got.shape == (k,)
+    assert bool(((torch.from_numpy(got).double().to(cuda_device) - want).abs() <= bound).all())
+    ints = torch.randint(-8, 9, (n,), generator=gen, device=cuda_device).float()
+    padded[:n] = ints.double()
+    exact = (signs.double() * padded.view(k, m)).sum(1).float().cpu().numpy()
+    assert np.array_equal(sketch.replica_sketch(ints, 3, k), exact)
+
+
+def test_traced_round_on_card_times_the_merge_and_keeps_it_bit_equal(cuda_device):
+    """A pair on the card with trace and sketch on: each traced round's
+    merge stage is read from CUDA events, every frame is the obs-off frame
+    plus one DPWT trailer, and the merged replicas equal the obs-off pair's
+    bit for bit."""
+    import dataclasses
+
+    from dpwa_tpu_torch.obs import wire
+    from dpwa_tpu_torch.parallel.tcp import TcpTransport
+
+    runs = {}
+    for label, obs in (("off", {}), ("on", {"trace": True, "sketch": True})):
+        cfg = make_local_config(2, factor=0.3, obs=obs)
+        cfg = dataclasses.replace(cfg, nodes=tuple(dataclasses.replace(n, port=0)
+                                                   for n in cfg.nodes))
+        gen = torch.Generator(device=cuda_device).manual_seed(12)
+        vecs = [torch.randn(200_003, generator=gen, device=cuda_device) for _ in range(2)]
+        nodes = [TcpTransport(cfg, f"node{i}", device=cuda_device) for i in range(2)]
+        frames = []
+        try:
+            for t in nodes:
+                for i, other in enumerate(nodes):
+                    t.set_peer_port(i, other.port)
+            for step in range(4):
+                for i, t in enumerate(nodes):
+                    vecs[i], _a, _p = t.exchange_on_device(vecs[i], step + 1.0, 0.1, step)
+                frames.append([t.server._payload for t in nodes])
+            recs = nodes[0].tracer.pop_records() if nodes[0].tracer is not None else []
+        finally:
+            for t in nodes:
+                t.close()
+        runs[label] = (frames, vecs, recs)
+    for off_round, on_round in zip(runs["off"][0], runs["on"][0]):
+        for off, on in zip(off_round, on_round):
+            assert on.startswith(off) and wire.decode_obs(on[len(off):]) is not None
+    for a, b in zip(runs["off"][1], runs["on"][1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    rounds = [r for r in runs["on"][2] if r["kind"] == "round" and r["outcome"] == "success"]
+    assert rounds and all(r["stages"]["merge"] > 0 for r in rounds)
