@@ -62,7 +62,13 @@ that they went through the kernels:
   by the repo's tools); and the f32 exchange with the plane off and on in
   turns (each on frame the off frame plus its ``DPWT`` trailer, the merges
   bit-equal, the round split by stage, the sketch on the card against its
-  bound) and under the traced prefetch pipeline;
+  bound) and under the traced prefetch pipeline; eight processes of an
+  8-node copy split by a ``topology:`` block into two islands of four,
+  whose boards must elect node3 and node4 and whose only cross-island
+  fetches must be those two leaders' wide slots, every frame with a v2
+  digest; and the hierarchical gossip simulator with its replicas on the
+  card (64 peers, the flat ring and islands of 4, 8 and 16, then a leader
+  killed), its frames and replicas held against its run on the CPU;
 - ``dpwa_tpu_torch.examples.imagenet``: 32 peers of ResNet-50 at full
   width and depth (25,557,032 parameters a peer), 224×224, batch 4 a peer,
   the random schedule (pool 32), f32 wire (B1 over 3.27 GB a step) — once
@@ -120,7 +126,7 @@ ALL_PHASES = (
     "trust_screen", "byzantine_tcp", "tcp_exchange", "rollback_tcp", "recover_tcp", "state_exchange",
     "codec_kernels", "wire_exchange", "codecs_tcp", "fold_kernels", "overlap_tcp", "async_tcp",
     "view_tcp", "reactor_tcp", "reactor_exchange", "obs_tcp", "obs_exchange",
-    "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
+    "hier_tcp", "hier_engine", "train_draws", "train_draws_pull", "train_imagenet", "profile_imagenet",
     "train_bert", "profile_bert", "train_llama", "profile_llama", "train_sp",
     "train_sp_zigzag", "train_sp_a2a", "profile_sp",
 )
@@ -252,6 +258,24 @@ OBS_PIPE_STAGES = ("join_wait", "decode", "guard", "trust", "merge", "publish")
 OBS_FAMILIES = ("dpwa_peer_state", "dpwa_membership_incarnation", "dpwa_trust_score",
                 "dpwa_flowctl_deadline_ms", "dpwa_admission_sheds_total", "dpwa_wire_frames_total",
                 "dpwa_disagreement_rms", "dpwa_trace_stage_seconds_total")
+# Hierarchical gossip: hier_tcp runs HIER_NODES MNIST processes (start and
+# end barriers) on a copy of examples/mnist/nodes.yaml with HIER_TOPOLOGY
+# (docs/hierarchy.md's layout: leaders node3 and node4 at leader_seed 0, a
+# wide-area slot every third step); hier_engine runs the simulator at
+# bench.py --hier-leg's defaults (HIER_PEERS peers, islands of each of
+# HIER_SIZES, HIER_ROUNDS rounds, target HIER_TARGET, seed 0) with replicas
+# of MNIST_D floats on the card and on the CPU, then the leader-kill
+# episode of tests/test_hier.py (2 islands of 4, the leader of island 1
+# killed after round HIER_KILL_AT, HIER_KILL_ROUNDS rounds).
+HIER_NODES = 8
+HIER_TOPOLOGY = (
+    "topology:\n  islands:\n    - {name: pod-a, nodes: [node0, node1, node2, node3]}\n"
+    "    - {name: pod-b, nodes: [node4, node5, node6, node7]}\n"
+    "  leader_seed: 0\n  intra_rounds: 1\n"
+)
+HIER_LEADERS = {"pod-a": [3, 0], "pod-b": [4, 0]}
+HIER_PEERS, HIER_SIZES, HIER_ROUNDS, HIER_TARGET = 64, (4, 8, 16), 64, 0.05
+HIER_KILL_AT, HIER_KILL_ROUNDS = 3, 10
 # The trust screen at the TCP paths' replicas: (name, d, the leaves' model).
 SCREEN_CASES = (("smallnet", MNIST_D, "mnist"), ("resnet50", R50_D, "resnet50"))
 SCREEN_RTOL = 1e-5  # norm_ratio and update_ratio; cosine within 1e-5 absolute
@@ -541,7 +565,8 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     x, and the wire form, from a second buffer w of the same layout (the
     int8 wire's dequantized rows), each in the f32, bf16 and int8 wires'
     arithmetic.  B2 and B1 at the ResNet-20 path's padded ``[8, 272474]``
-    rows, at ``[8, 24·2^20]`` and at the ImageNet path's ``[32, 25557032]``
+    rows (every map), at bench.py's ``[8, 24·2^20]`` (the wire form's map)
+    and at the ImageNet path's ``[32, 25557032]``
     (ResNet-50, 3.27 GB); B1 also at the Llama path's ``[4, 1310720]`` LoRA
     column slice, at the BERT path's ``[16, 132953658]`` (8.51 GB, the
     hierarchical schedule's intra-group matching, f32 wire), at the MNIST
@@ -586,6 +611,8 @@ def kernel_checks(torch, merge, device, flush, kind: str) -> dict:
     cases = []
     for d in (MAIN_D, BIG_D):
         for map_name, perm in maps.items():
+            if d == BIG_D and map_name != wire_map:
+                continue  # bench's size, off every main path: one map there
             for a_name, a_np in alphas.items():
                 for wire in ("f32", "bf16") if a_name == "random" else ("f32",):
                     cases.append((n, d, padded_rows, map_name, perm, a_name, a_np, wire, False))
@@ -2327,12 +2354,14 @@ def fold_kernel_checks(torch, merge, device, flush) -> dict:
     return out
 
 
-def run_nodes(phase: str, kind: str, n: int, protocol: str, steps: int = MNIST_STEPS) -> list:
+def run_nodes(phase: str, kind: str, n: int, protocol: str, steps: int = MNIST_STEPS,
+              extra: str = "") -> list:
     """``n`` OS processes of the MNIST example over TCP on a copy of
-    examples/mnist/nodes.yaml widened to ``n`` nodes with ``protocol`` lines,
-    held at a start and an end barrier; their checked summaries."""
+    examples/mnist/nodes.yaml widened to ``n`` nodes with ``protocol`` lines
+    and ``extra`` blocks, held at a start and an end barrier; their checked
+    summaries."""
     workdir = os.path.join(HERE, "build", phase)
-    config = tcp_config(workdir, n=n, protocol=protocol)
+    config = tcp_config(workdir, n=n, extra=extra, protocol=protocol)
     barrier = os.path.join(workdir, "barrier")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = []
@@ -2831,6 +2860,115 @@ def obs_tcp(kind: str) -> dict:
         "incident_clusters": len(incidents["clusters"]), "alerts": incidents["alerts"],
         "flight_dumps": dumps,
     }
+
+
+def hier_tcp(kind: str) -> dict:
+    """HIER_NODES OS processes of the MNIST example over TCP, two islands of
+    four under HIER_TOPOLOGY: every node at accuracy >= 0.9 with one B2
+    launch a merged round, every board naming node3 and node4 at term 0,
+    every fetched frame carrying a v2 digest, and the only fetches across
+    the islands node3's of node4 and node4's of node3, one in each wide
+    slot (a step in three)."""
+    nodes = run_nodes("hier_tcp", kind, HIER_NODES, "", extra=HIER_TOPOLOGY)
+    island = {i: 0 if i < HIER_NODES // 2 else 1 for i in range(HIER_NODES)}
+    wide_steps = sum(1 for s in range(MNIST_STEPS) if s % 3 == 2)
+    across = []
+    for i, n in enumerate(nodes):
+        if n["leaders"] != HIER_LEADERS:
+            raise AssertionError(f"hier_tcp: node{i}'s board {n['leaders']}")
+        if n["digest_versions"] != {"2": n["outcomes"].get("success", 0)}:
+            raise AssertionError(f"hier_tcp: node{i} fetched digests {n['digest_versions']} "
+                                 f"in {n['outcomes']}")
+        wide = {p: c for p, c in n["fetched_from"].items() if island[int(p)] != island[i]}
+        leader = {3: "4", 4: "3"}.get(i)
+        want = {leader: wide_steps} if leader is not None else {}
+        if wide != want:
+            raise AssertionError(f"hier_tcp: node{i} fetched across the islands {wide}, "
+                                 f"expected {want}")
+        across.append(sum(wide.values()))
+    return {
+        "nodes": nodes, "steps_per_sec": [n["steps_per_sec"] for n in nodes],
+        "accuracy": [n["accuracy"] for n in nodes],
+        "merged_rounds": [n["merged_rounds"] for n in nodes],
+        "b2_launches": [n["b2_launches"] for n in nodes],
+        "fetched_across": across, "wide_slots": wide_steps,
+        "leaders": nodes[0]["leaders"],
+        "digest_bytes": [n["digest_bytes"] for n in nodes],
+    }
+
+
+def hier_engine(torch, device) -> dict:
+    """bench.py's island sweep with the simulator's replicas on the card:
+    the flat ring and each island size, each leg run on the card and on the
+    CPU with replicas of MNIST_D floats, the card's final replicas bit-equal
+    to the CPU's, the frames and records equal, and the wide-area frames
+    the flat ring's over the island size; then tests/test_hier.py's
+    leader-kill episode, on the card and on the CPU: one succession (term
+    1) and exactly one incident, a leader_failover."""
+    from dpwa_tpu_torch.config import ObsConfig
+    from dpwa_tpu_torch.hier import HierGossipEngine, Topology
+
+    def run(where, topo, rounds, target=None, kill=None):
+        eng = HierGossipEngine(topo.n_peers if topo else HIER_PEERS, dim=MNIST_D, seed=0,
+                               topology=topo, device=where,
+                               incidents=ObsConfig(incidents=True) if kill else None)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if kill is None:
+            res = eng.run(rounds, target_rel=target)
+        else:
+            for r in range(rounds):
+                if r == kill:
+                    eng.kill(eng.board.leader_of(1))
+                eng.step(r)
+            res = {"wide_frames": eng.wide_frames, "intra_frames": eng.intra_frames,
+                   "incidents_opened": eng.incidents_opened,
+                   "alerts": dict(eng.alerts_total)}
+        torch.cuda.synchronize(device)
+        return eng, res, time.perf_counter() - t0
+
+    def leg(name, topo, rounds, target=None, kill=None):
+        card, got, card_s = run(device, topo, rounds, target, kill)
+        cpu, want, cpu_s = run("cpu", topo, rounds, target, kill)
+        equal = torch.equal(card.replicas.cpu(), cpu.replicas)
+        # rel_rms is reduced in another order on each device: within 1e-9,
+        # relative or absolute (converged replicas spread by rounding noise).
+        close = all(math.isclose(a, b, rel_tol=1e-9, abs_tol=1e-9) for a, b in zip(
+            got.get("history", ()), want.get("history", ())))
+        exact = ("history", "final_rel_rms")
+        same = close and {k: v for k, v in got.items() if k not in exact} == {
+            k: v for k, v in want.items() if k not in exact}
+        if not (equal and same and card.records == cpu.records
+                and card.events_seen == cpu.events_seen):
+            raise AssertionError(f"hier_engine {name}: the card's run left the CPU's "
+                                 f"(replicas equal {equal}, counts equal {same})")
+        out = {k: v for k, v in got.items() if k != "history"}
+        out.update({"card_seconds": card_s, "cpu_seconds": cpu_s,
+                    "card_ms_per_round": card_s / rounds * 1e3,
+                    "cpu_ms_per_round": cpu_s / rounds * 1e3, "replicas_bit_equal": equal})
+        return card, out
+
+    legs = {"flat": leg("flat", None, HIER_ROUNDS, HIER_TARGET)[1]}
+    for size in HIER_SIZES:
+        name = f"{HIER_PEERS // size}x{size}"
+        legs[name] = leg(name, Topology.uniform(HIER_PEERS // size, size), HIER_ROUNDS,
+                         HIER_TARGET)[1]
+        legs[name]["wide_multiplier"] = legs["flat"]["wide_frames"] / legs[name]["wide_frames"]
+    wide = [v["wide_frames"] for v in legs.values()]
+    mults = [v["wide_multiplier"] for v in list(legs.values())[1:]]
+    if wide != [4096, 1024, 512, 256] or mults != [4.0, 8.0, 16.0]:
+        raise AssertionError(f"hier_engine: wide frames {wide}, multipliers {mults}")
+    eng, kill = leg("leader_kill", Topology.uniform(2, 4), HIER_KILL_ROUNDS, kill=HIER_KILL_AT)
+    if (eng.board.term_of(1) != 1 or kill["incidents_opened"] != 1
+            or kill["alerts"] != {"leader_failover": 1}):
+        raise AssertionError(f"hier_engine: the leader kill gave term {eng.board.term_of(1)}, "
+                             f"{kill['incidents_opened']} incidents, alerts {kill['alerts']}")
+    kill.update({"leaders": eng.board.leaders(), "terms": [eng.board.term_of(g) for g in (0, 1)],
+                 "events": eng.events_seen})
+    return {"peers": HIER_PEERS, "dim": MNIST_D, "rounds": HIER_ROUNDS, "target": HIER_TARGET,
+            "legs": legs, "wide_frames": wide, "wide_multipliers": mults,
+            "rounds_to_target": {k: v["rounds_to_target"] for k, v in legs.items()},
+            "leader_kill": kill}
 
 
 def obs_exchange(torch, merge, device, flush) -> dict:
@@ -3524,6 +3662,22 @@ def main(argv=None) -> int:
               "nvidia_smi": name_limit, **res})
         torch.cuda.empty_cache()
 
+    if "hier_tcp" in phases:
+        # The launches are counted in each process (fresh counts there).
+        t0 = time.perf_counter()
+        res = hier_tcp(kind)
+        main_launches["hier_tcp"] = {
+            "pair_merge_": 0, "gather_merge": sum(res["b2_launches"])}
+        emit({"phase": "hier_tcp", "seconds": time.perf_counter() - t0, "nvidia_smi": name_limit,
+              "steps": MNIST_STEPS, "train_tcp_steps_per_sec": train_tcp_rate, **res})
+
+    if "hier_engine" in phases:
+        t0 = time.perf_counter()
+        res = hier_engine(torch, device)
+        emit({"phase": "hier_engine", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": name_limit, **res})
+        torch.cuda.empty_cache()
+
     if "wire_exchange" in phases:
         t0 = time.perf_counter()
         res = wire_exchange(torch, merge, device)
@@ -3922,6 +4076,8 @@ def main(argv=None) -> int:
                     # with it off and on in turns, and its prefetch leg.
                     "launches_obs_tcp": main_launches.get("obs_tcp", {}).get(name),
                     "launches_obs_exchange": main_launches.get("obs_exchange", {}).get(name),
+                    # The eight processes of the two-island ring.
+                    "launches_hier_tcp": main_launches.get("hier_tcp", {}).get(name),
                     "at_tcp": tcp_rows.get("resnet50"),
                 })
     if "codec_kernels" in results:

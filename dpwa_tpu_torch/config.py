@@ -12,11 +12,11 @@ its bounded partial view, ``view:``),
 ``trust:`` the content-trust screen, ``flowctl:`` the flow control plane
 (adaptive deadlines, hedged fetches, degrade shedding, serving admission),
 ``chaos:`` the seeded fault injection of the TCP path, ``shard:`` the
-TCP wire's k-way sharding and ``obs:`` the observability plane (round
+TCP wire's k-way sharding, ``obs:`` the observability plane (round
 traces, replica sketches, ``/metrics``, incidents and the flight
-recorder).  Every other
-top-level block raises :class:`NotImplementedError` naming it, rather than
-being dropped.
+recorder) and ``topology:`` the islands of hierarchical gossip.  The
+``run:`` and ``tune:`` blocks, and every other top-level block, raise
+:class:`NotImplementedError` naming it, rather than being dropped.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ DEFAULT_MIN_WIRE_MB_PER_S = 10.0
 # The top-level blocks the port reads.
 PORTED_BLOCKS = (
     "nodes", "protocol", "interpolation", "recovery", "health", "membership", "trust",
-    "flowctl", "chaos", "shard", "obs",
+    "flowctl", "chaos", "shard", "obs", "topology",
 )
 # The planes make_local_config's ``disabled_planes`` may switch off.
 DEFAULT_ON_PLANES = ("membership", "trust", "flowctl")
@@ -766,6 +766,107 @@ class ObsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class IslandSpec:
+    """One ``topology.islands`` entry: a named subset of ``nodes:``."""
+
+    name: str
+    nodes: tuple[str, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """``topology:`` block: two-level (island × wide-area) gossip, as
+    :class:`dpwa_tpu.config.TopologyConfig`.
+
+    No islands (the default, and an absent block) is the flat ring, every
+    frame and decision as without the block.  With islands, each island's
+    members pair among themselves for ``intra_rounds`` sweeps of the two
+    ring phases, then only the island leaders (elected by
+    :func:`~dpwa_tpu_torch.parallel.schedules.leader_draw` from
+    ``leader_seed``) pair across islands."""
+
+    islands: tuple[IslandSpec, ...] = ()
+    leader_seed: int = 0
+    intra_rounds: int = 1
+
+    def __post_init__(self) -> None:
+        if self.intra_rounds < 1:
+            raise ValueError(f"topology.intra_rounds must be >= 1, got {self.intra_rounds}")
+        names = [isl.name for isl in self.islands]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate island names in topology: {dupes}")
+        for isl in self.islands:
+            if not isl.nodes:
+                raise ValueError(f"topology island {isl.name!r} lists no nodes")
+            if len(set(isl.nodes)) != len(isl.nodes):
+                dupes = sorted({n for n in isl.nodes if isl.nodes.count(n) > 1})
+                raise ValueError(
+                    f"topology island {isl.name!r} lists node(s) {dupes} more than once"
+                )
+
+    @property
+    def enabled(self) -> bool:
+        """Hierarchical mode: at least one island is declared."""
+        return bool(self.islands)
+
+    def validate_nodes(self, node_names: Sequence[str]) -> None:
+        """The islands against ``nodes:``: only declared nodes, none in two
+        islands, and (with the block on) every node covered.  Each error
+        names the island and the node."""
+        if not self.enabled:
+            return
+        known = set(node_names)
+        owner: dict[str, str] = {}
+        for isl in self.islands:
+            for node in isl.nodes:
+                if node not in known:
+                    raise ValueError(
+                        f"topology island {isl.name!r} references unknown"
+                        f" node {node!r} (declared nodes: {sorted(known)})"
+                    )
+                if node in owner:
+                    raise ValueError(
+                        f"node {node!r} appears in both island {owner[node]!r} and"
+                        f" island {isl.name!r} — a node belongs to exactly one island"
+                    )
+                owner[node] = isl.name
+        uncovered = [n for n in node_names if n not in owner]
+        if uncovered:
+            raise ValueError(
+                f"topology islands do not cover node(s) {uncovered} — every"
+                " node must belong to exactly one island"
+            )
+
+
+def _build_islands(raw: Sequence[Any]) -> tuple[IslandSpec, ...]:
+    """``topology.islands``: mappings (``name``, ``nodes``) or bare member
+    lists, which get the positional name ``island{i}``."""
+    islands = []
+    for i, entry in enumerate(raw):
+        if isinstance(entry, Mapping):
+            islands.append(IslandSpec(name=str(entry.get("name", f"island{i}")),
+                                      nodes=tuple(str(n) for n in (entry.get("nodes") or ()))))
+        elif isinstance(entry, Sequence) and not isinstance(entry, (str, bytes)):
+            islands.append(IslandSpec(name=f"island{i}", nodes=tuple(str(n) for n in entry)))
+        else:
+            raise TypeError(f"bad topology.islands[{i}] entry: {entry!r}")
+    return tuple(islands)
+
+
+def _topology(raw: "TopologyConfig | Mapping[str, Any] | None") -> TopologyConfig:
+    """A ``topology:`` block (its YAML mapping, or a config object)."""
+    if raw is None:
+        return TopologyConfig()
+    if isinstance(raw, TopologyConfig):
+        return raw
+    block = dict(raw)
+    if block.get("islands") is not None:
+        block["islands"] = _build_islands(block["islands"])
+    return TopologyConfig(**block)
+
+
+@dataclasses.dataclass(frozen=True)
 class DpwaConfig:
     nodes: tuple[NodeSpec, ...]
     protocol: ProtocolConfig = ProtocolConfig()
@@ -778,6 +879,10 @@ class DpwaConfig:
     chaos: ChaosConfig = ChaosConfig()
     shard: ShardConfig = ShardConfig()
     obs: ObsConfig = ObsConfig()
+    topology: TopologyConfig = TopologyConfig()
+
+    def __post_init__(self) -> None:
+        self.topology.validate_nodes(self.node_names)
 
     @property
     def n_peers(self) -> int:
@@ -847,6 +952,7 @@ def config_from_dict(raw: Mapping[str, Any]) -> DpwaConfig:
         chaos=ChaosConfig(**chaos),
         shard=ShardConfig(**dict(raw.get("shard") or {})),
         obs=ObsConfig(**dict(raw.get("obs") or {})),
+        topology=_topology(raw.get("topology") or {}),
     )
 
 
@@ -876,6 +982,7 @@ def make_local_config(
     chaos: "ChaosConfig | Mapping[str, Any] | None" = None,
     shard: "ShardConfig | Mapping[str, Any] | None" = None,
     obs: "ObsConfig | Mapping[str, Any] | None" = None,
+    topology: "TopologyConfig | Mapping[str, Any] | None" = None,
     disabled_planes: tuple[str, ...] = (),
     **protocol_kwargs: Any,
 ) -> DpwaConfig:
@@ -913,5 +1020,6 @@ def make_local_config(
             **protocol_kwargs,
         ),
         interpolation=InterpolationConfig(type=interpolation, factor=factor),
+        topology=_topology(topology),
         **built,
     )

@@ -275,6 +275,16 @@ def main(argv=None) -> dict:
     }
 
 
+def _leaders(transport):
+    """Each island's leader and term on the node's board (None: a flat
+    ring, or membership off)."""
+    board = None if transport.membership is None else transport.membership.leader_board
+    if board is None:
+        return None
+    return {board.topology.island_name(g): [leader, board.term_of(g)]
+            for g, leader in board.leaders().items()}
+
+
 def run_tcp(args) -> dict:
     """One node of the TCP deployment (the reference's ``run_tcp``):
     train this node's replica and gossip it every step; returns the
@@ -284,8 +294,10 @@ def run_tcp(args) -> dict:
     rollbacks, remapped rounds, header and relay probes sent and each change of a
     peer's health state with the step it was seen at; and its membership
     and trust planes: the trust verdicts, the merged rounds and newest
-    merged publish clock per peer, the digest bytes a frame and the
-    membership, trust and heal events with their steps."""
+    merged publish clock per peer, the rounds that fetched each peer, the
+    digest bytes a frame, the fetched digests' versions and the
+    membership, trust and heal events with their steps; and under a
+    ``topology:`` block each island's leader and term."""
     import zlib
 
     from dpwa_tpu_torch.adapters.tcp_adapter import DpwaTcpAdapter
@@ -334,6 +346,7 @@ def run_tcp(args) -> dict:
     sb = adapter.transport.scoreboard
     peer_state = {p: "healthy" for p in range(cfg.n_peers) if p != me}
     health_events, remapped, shed, hedged, round_ms = [], 0, 0, 0, []
+    fetched_from: dict = {}  # peer -> rounds that fetched it
     opt = adam(args.lr)
     opt_state = opt.init(flat.flat)
 
@@ -378,6 +391,8 @@ def run_tcp(args) -> dict:
             round_ms.append((time.perf_counter() - t_round) * 1e3)
             losses.append(loss)
             rec = adapter.last_record
+            if rec.get("outcome") is not None and rec.get("partner") not in (None, me):
+                fetched_from[rec["partner"]] = fetched_from.get(rec["partner"], 0) + 1
             remapped += bool(rec.get("remapped"))
             hedged += bool(rec.get("hedged"))
             # The scheduled partner's state as the round began.
@@ -455,7 +470,13 @@ def run_tcp(args) -> dict:
             "health_events": health_events,
             "verdicts": dict(stats["verdicts"]),
             "merged_from": {str(p): v for p, v in stats["merged_from"].items()},
+            "fetched_from": {str(p): v for p, v in sorted(fetched_from.items())},
             "digest_bytes": adapter.transport.last_digest_nbytes,
+            # digest version -> fetched frames that carried one (2: the
+            # hierarchical digest of a topology: block)
+            "digest_versions": {str(v): n for v, n in sorted(stats["digest_versions"].items())},
+            # The leader board of a topology: block, island -> [leader, term]
+            "leaders": _leaders(adapter.transport),
             "events": list(adapter.events),
             "hedged_rounds": hedged,
             "shed_rounds": shed,

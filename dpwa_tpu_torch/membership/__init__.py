@@ -9,7 +9,8 @@ the TCP transport (the port of :mod:`dpwa_tpu.membership`):
   adapter acts on;
 - :mod:`~dpwa_tpu_torch.membership.partial_view`: the bounded partial
   view (``membership.view``): the active and passive views, the digest
-  sample and the LRU cap's victims, on the flat ring.
+  sample and the LRU cap's victims, seeded island-first under the
+  hierarchical topology.
 
 The transport's wiring (the trailer, the RELAY verb, indirect probes, the
 view's candidates) is in :mod:`dpwa_tpu_torch.parallel.tcp`; the heal's

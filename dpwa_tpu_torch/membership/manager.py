@@ -24,11 +24,16 @@ same evict listeners as dead ones, cause-tagged apart, and never count
 against quorum), quorum runs over the tracked horizon, and a dead active
 peer's slot is refilled from the passive view.
 
+Under the hierarchical topology (a ``topology:`` block) the digest is
+encoded at version 2, each entry stamped with its peer's island, the
+island's leadership term and a leader flag, and :meth:`MembershipManager.
+merge` folds remote leader claims into the node's
+:class:`~dpwa_tpu_torch.hier.leader.LeaderBoard`; a flat ring stays on
+version 1, byte for byte.
+
 Every decision counts gossip rounds; there is no wall clock, so equal
-outcome sequences give equal event streams, in either package.  Not
-ported: the hierarchical digest's leader board (a ``topology:`` block is
-refused by the config).  :func:`register_metrics` exposes the view on
-``/metrics``.
+outcome sequences give equal event streams, in either package.
+:func:`register_metrics` exposes the view on ``/metrics``.
 
 Thread safety: state changes take the internal lock.  Scoreboard calls are
 made outside it (the scoreboard's snapshot calls back into
@@ -38,14 +43,18 @@ deadlock).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Set
 
 from dpwa_tpu_torch.config import MembershipConfig
 from dpwa_tpu_torch.health.scoreboard import PeerState, Scoreboard
 from dpwa_tpu_torch.membership.digest import (
     ALIVE,
     DEAD,
+    DIGEST_VERSION,
+    DIGEST_VERSION_HIER,
+    NO_ISLAND,
     QUARANTINED,
     STATE_NAMES,
     SUSPECT,
@@ -73,12 +82,22 @@ class MembershipManager:
         scoreboard: Scoreboard,
         config: Optional[MembershipConfig] = None,
         seed: int = 0,
+        topology: Optional[Any] = None,
+        leader_board: Optional[Any] = None,
     ):
         self.config = config if config is not None else MembershipConfig()
         self.n_peers = n_peers
         self.me = me
         self.seed = seed
         self.scoreboard = scoreboard
+        # The hier Topology (None on a flat ring): v2 digests, and remote
+        # leader claims folded into the board.
+        self.topology = topology
+        if topology is not None and leader_board is None:
+            from dpwa_tpu_torch.hier.leader import LeaderBoard
+
+            leader_board = LeaderBoard(topology, seed=seed)
+        self.leader_board = leader_board
         self._lock = threading.Lock()
         self.incarnation = 0
         self._view: Dict[int, MemberEntry] = {}
@@ -99,7 +118,8 @@ class MembershipManager:
         # _capped: tombstoned and pruned like dead ones, but untracked, not
         # dead, so they stay out of the quorum's arithmetic.
         self.partial: Optional[PartialView] = (
-            PartialView(n_peers, me, self.config.view, seed=seed)
+            PartialView(n_peers, me, self.config.view, seed=seed, topology=topology,
+                        leader_board=leader_board)
             if self.config.view.enabled else None
         )
         self._capped: Set[int] = set()
@@ -201,7 +221,20 @@ class MembershipManager:
                 entries = combined
             self._digest_entries_last = len(entries) + 1
             entries[self.me] = MemberEntry(state=ALIVE, incarnation=self.incarnation, suspicion=0.0)
-            return encode_digest(Digest(origin=self.me, round=int(round), entries=entries))
+            version = DIGEST_VERSION
+            if self.topology is not None:
+                # Each entry carries its island and the island's current
+                # claim (term and leader flag), read under the lock merge()
+                # changes the board under.
+                version = DIGEST_VERSION_HIER
+                topo, board = self.topology, self.leader_board
+                for peer, e in sorted(entries.items()):
+                    g = topo.island_of(peer)
+                    entries[peer] = dataclasses.replace(
+                        e, island=g, leader_term=board.term_of(g),
+                        is_leader=board.leader_of(g) == peer)
+            return encode_digest(Digest(origin=self.me, round=int(round), entries=entries,
+                                        version=version))
 
     def merge(self, blob: Optional[bytes], round: Optional[int] = None) -> None:
         """Fold a received digest into the view (None, or bytes that are
@@ -259,6 +292,17 @@ class MembershipManager:
                     adopts.append(peer)  # the ring agrees the peer is down
                 elif fresher and merged.state == ALIVE:
                     readmits.append(peer)  # the peer refuted a suspicion
+            if self.leader_board is not None and digest.version == DIGEST_VERSION_HIER:
+                # A leader-flagged claim at a higher term moves the board to
+                # the successor (LeaderBoard.adopt drops stale and same-term
+                # claims).
+                topo = self.topology
+                for peer, claim in sorted(digest.entries.items()):
+                    if (not claim.is_leader or claim.island == NO_ISLAND
+                            or claim.island >= topo.n_islands or peer >= self.n_peers
+                            or topo.island_of(peer) != claim.island):
+                        continue
+                    events.extend(self.leader_board.adopt(claim.island, claim.leader_term, peer))
             self._events.extend(events)
         for peer in uncapped:
             # Clears the cap tombstone: a clean record, rebuilt from the

@@ -1,5 +1,5 @@
 """Bounded partial views: a node's horizon over a large ring (the port of
-:mod:`dpwa_tpu.membership.partial_view`, on the flat ring).
+:mod:`dpwa_tpu.membership.partial_view`).
 
 A HyParView-style split view:
 
@@ -24,8 +24,10 @@ rounds and threefry draws, never wall time.  Instances belong to a
 :class:`~dpwa_tpu_torch.membership.manager.MembershipManager`, which calls
 them under its lock; there is no lock here.
 
-Only the flat ring is ported: the bootstrap of the hierarchical topology
-(an island's members, then the leaders) waits for the ``topology:`` block.
+The views are seeded from a deterministic order of the ring: on the flat
+ring the successors ``me+1, me+2, …``; under the hierarchical topology the
+node's own island first, then the other islands' leaders, then the ring
+successors not yet named.
 """
 
 from __future__ import annotations
@@ -40,16 +42,14 @@ class PartialView:
     """Active and passive partial views and the digest-sample rule."""
 
     def __init__(self, n_peers: int, me: int, config: Optional[ViewConfig] = None,
-                 seed: int = 0, topology: Optional[Any] = None):
-        if topology is not None:
-            raise NotImplementedError(
-                "a partial view over the hierarchical topology (its island-first "
-                "bootstrap) is not ported to dpwa_tpu_torch yet (ROADMAP Queue A item 4)"
-            )
+                 seed: int = 0, topology: Optional[Any] = None,
+                 leader_board: Optional[Any] = None):
         self.config = config if config is not None else ViewConfig()
         self.n_peers = int(n_peers)
         self.me = int(me)
         self.seed = seed
+        self.topology = topology
+        self.leader_board = leader_board
         # Sets, sorted when read (the views hold active_size / passive_size
         # entries).
         self.active: Set[int] = set()
@@ -59,10 +59,27 @@ class PartialView:
         self._last_touch: Dict[int, int] = {}
         self.promotions = 0
         self.shuffles = 0
-        ordered = [(self.me + i) % self.n_peers for i in range(1, self.n_peers)]
+        ordered = self._initial_candidates()
         a = self.config.active_size
         self.active = set(ordered[:a])
         self.passive = set(ordered[a:a + self.config.passive_size])
+
+    def _initial_candidates(self) -> List[int]:
+        """The bootstrap order of the ring: the successors of ``me`` on a
+        flat ring; under a topology the island's other members, then the
+        other leaders, then the successors not yet named."""
+        successors = [(self.me + i) % self.n_peers for i in range(1, self.n_peers)]
+        if self.topology is None:
+            return successors
+        ordered = [p for p in self.topology.members_of(self.topology.island_of(self.me))
+                   if p != self.me]
+        if self.leader_board is not None:
+            for island in range(self.topology.n_islands):
+                leader = self.leader_board.leader_of(island)
+                if leader is not None and leader != self.me and leader not in ordered:
+                    ordered.append(leader)
+        seen = set(ordered)
+        return ordered + [p for p in successors if p not in seen]
 
     # -- recency (the LRU cap's order) ----------------------------------
     def touch(self, peer: int, round_: int) -> None:

@@ -28,8 +28,10 @@ and ``staleness_storm`` (the async loop's bounded-staleness drops).  All but
 the last two wall-clock and float detectors are keyed on round counters and
 outcomes, so replays of a seed fire alike.
 
-The hierarchical topology's island-scoped classes (``island_partition``,
-which needs the topology) are not ported: a ``topology`` raises.
+Given the hierarchical topology, a partition whose cut is exactly a union
+of whole islands is classified ``island_partition`` instead of the generic
+``partition``; ``leader_failover`` (a leader board's succession) names the
+old leader and carries the new term.
 """
 
 from __future__ import annotations
@@ -95,14 +97,11 @@ class IncidentPlane:
     so the correlator's outputs are under a lock."""
 
     def __init__(self, me: int, n_peers: int, cfg, path: Optional[str] = None, topology=None):
-        if topology is not None:
-            raise NotImplementedError(
-                "the incident plane's island-scoped classes over the hierarchical "
-                "topology are not ported to dpwa_tpu_torch yet (ROADMAP Queue A item 4)"
-            )
         self.me = int(me)
         self.n_peers = int(n_peers)
         self.cfg = cfg
+        # The hier Topology (None on a flat ring) arms island_partition.
+        self.topology = topology
         if path is None:
             path = cfg.incident_path
         self._logger = MetricsLogger(path=_format_me(path, self.me)) if path else None
@@ -271,11 +270,20 @@ class IncidentPlane:
                 comp = ev.get("component")
                 cut = {p for p in range(self.n_peers)
                        if p != self.me and comp is not None and p not in comp}
-                _fire("partition", cut or others, len(comp) if comp is not None else 0,
-                      float(ev.get("quorum_fraction", 0.0)))
+                cut_islands = self._island_aligned_cut(cut)
+                if cut_islands is not None:
+                    # The cut is whole islands: the island-scoped class, in
+                    # place of the generic one on the same evidence.
+                    _fire("island_partition", cut, len(cut_islands),
+                          float(ev.get("quorum_fraction", 0.0)))
+                else:
+                    _fire("partition", cut or others, len(comp) if comp is not None else 0,
+                          float(ev.get("quorum_fraction", 0.0)))
             elif kind == "partition_healed":
                 self._partition_live = False
             elif kind == "leader_failover":
+                # The old leader is the implicated peer; the value is the new
+                # term (the digest's leader_term column).
                 peers = set()
                 if ev.get("old_leader") is not None:
                     peers.add(int(ev["old_leader"]))
@@ -352,6 +360,30 @@ class IncidentPlane:
                     self._logger.log(step, _t=t, **alert)
             opened = self._fold(step, t, fired, active, sticky)
         return {"alerts": [a["kind"] for a in fired], "opened": opened}
+
+    def _island_aligned_cut(self, cut) -> Optional[list]:
+        """The islands a cut consists of when it is exactly a union of whole
+        islands; None otherwise (no topology, an empty cut, or a cut that
+        splits an island).  ``me``'s own island is never cut."""
+        topo = self.topology
+        if topo is None or not cut:
+            return None
+        cut_islands = []
+        covered: Set[int] = set()
+        for g in range(topo.n_islands):
+            members = set(topo.members_of(g))
+            if self.me in members:
+                continue
+            inside = members & cut
+            if not inside:
+                continue
+            if inside != members:
+                return None  # the island straddles the cut
+            cut_islands.append(g)
+            covered |= members
+        if covered != set(cut):
+            return None
+        return cut_islands
 
     # -- the correlator (self._lock held) --------------------------------
     @staticmethod

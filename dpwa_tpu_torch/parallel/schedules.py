@@ -22,8 +22,10 @@ backoff's jitter (:func:`backoff_jitter_draw`), the bootstrap donor
 the donor of a heal's reconciliation (:func:`heal_draw`), the shedding of
 a degraded partner's rounds (:func:`degrade_shed_draw`), the partial view's
 digest sample and passive promotions (:func:`view_sample_draw`,
-:func:`passive_shuffle_draw`) and the chaos harness's faults
-(:func:`chaos_draw`), are the reference's threefry draws too.
+:func:`passive_shuffle_draw`), the island leaders and island churn of
+hierarchical gossip (:func:`leader_draw`, :func:`island_churn_draw`) and
+the chaos harness's faults (:func:`chaos_draw`), are the reference's
+threefry draws too.
 """
 
 from __future__ import annotations
@@ -146,6 +148,20 @@ def passive_shuffle_draw(seed: int, round_: int, me: int, n_candidates: int) -> 
     failure replacement or a shuffle (tag 35, apart from the sample
     stream), keyed on ``(seed, round, me)``."""
     return prng.randint(_pair_key(seed, round_, me, _tags.TAG_PASSIVE_SHUFFLE), 0, n_candidates)
+
+
+def leader_draw(seed: int, term: int, island: int, n_candidates: int) -> int:
+    """Index into an island's sorted live members of its leader at
+    ``term`` (tag 14), keyed on ``(seed, term, island)``: every node that
+    agrees on who is alive elects the same leader with no message, and a
+    succession is a term bump and a re-draw over the survivors."""
+    return prng.randint(_pair_key(seed, term, island, _tags.TAG_LEADER), 0, n_candidates)
+
+
+def island_churn_draw(seed: int, round_: int, island: int) -> float:
+    """Uniform [0, 1) deciding whether ``island`` churns as a unit at
+    ``round_`` (tag 15, apart from the per-peer churn streams)."""
+    return float(prng.uniform_scalar(_pair_key(seed, round_, island, _tags.TAG_ISLAND_CHURN)))
 
 
 # The chaos fault kinds' tags are CHAOS_TAG_BASE + kind (utils/tags.py).

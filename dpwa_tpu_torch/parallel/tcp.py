@@ -314,6 +314,10 @@ class PeerServer:
             raise
         self.port = self._sock.getsockname()[1]  # port 0 resolved
         self._stop = threading.Event()
+        # Traced serves whose span is not yet handed to the hook: close()
+        # waits for them, so the tracer closed after it holds every span.
+        self._hooked = 0
+        self._hooked_done = threading.Condition(self._lock)
         self._thread = threading.Thread(
             target=self._serve, name=f"dpwa-torch-rx:{self.port}", daemon=True
         )
@@ -443,18 +447,24 @@ class PeerServer:
             except OSError:
                 pass
             return
-        hook = self.obs_serve_hook
+        hook = self.obs_serve_hook if trace_id is not None else None
         t0 = time.monotonic() if hook is not None else 0.0
+        if hook is not None:
+            with self._lock:
+                self._hooked += 1
         try:
             ingest.sendall_segments(conn, segments)
         finally:
             if adm is not None:
                 adm.release_bytes(nbytes)
-            if hook is not None and trace_id is not None:
+            if hook is not None:
                 try:
                     hook(trace_id, nbytes, time.monotonic() - t0)
                 except Exception:  # observability never breaks a serve
                     pass
+                with self._lock:
+                    self._hooked -= 1
+                    self._hooked_done.notify_all()
 
     def _handle_relay(self, conn: socket.socket) -> None:
         """Serve one relayed header probe: probe the requested target and
@@ -500,6 +510,8 @@ class PeerServer:
         except OSError:
             pass
         self._thread.join(timeout=2.0)
+        with self._lock:
+            self._hooked_done.wait_for(lambda: self._hooked == 0, timeout=2.0)
 
 
 def make_peer_server(host: str, port: int, flowctl: Optional[FlowctlConfig] = None) -> PeerServer:
@@ -1261,7 +1273,18 @@ class TcpTransport:
         self.config = config
         self.me = config.node_index(name)
         self.device = resolve_device(device)
-        self.schedule: Schedule = build_schedule(config)
+        # Hierarchical gossip: a topology: block swaps in the two-level pool
+        # (intra-island slots for everyone, wide-area slots for the island
+        # leaders only; a self-pair does not fetch).  No block: the flat pool.
+        self.topology = None
+        if config.topology.enabled:
+            from dpwa_tpu_torch.hier.schedule import build_hier_schedule
+            from dpwa_tpu_torch.hier.topology import Topology
+
+            self.topology = Topology.from_config(config)
+            self.schedule: Schedule = build_hier_schedule(config)
+        else:
+            self.schedule = build_schedule(config)
         n = len(config.nodes)
         # The content-trust plane screens every fetched payload; the current
         # exchange's damping reaches the interpolation through
@@ -1340,8 +1363,16 @@ class TcpTransport:
         # trust records are pruned with its scoreboard records.
         self.membership: Optional[MembershipManager] = None
         if self.scoreboard is not None and config.membership.enabled:
+            leader_board = None
+            if self.topology is not None:
+                # Seeded by leader_seed, the draw the hier pool's term-0
+                # wide-area slots were built from.
+                from dpwa_tpu_torch.hier.leader import LeaderBoard
+
+                leader_board = LeaderBoard(self.topology, seed=config.topology.leader_seed)
             self.membership = MembershipManager(
-                n, self.me, self.scoreboard, config.membership, seed=self.schedule.seed
+                n, self.me, self.scoreboard, config.membership, seed=self.schedule.seed,
+                topology=self.topology, leader_board=leader_board,
             )
             if self.trust is not None:
                 self.membership.add_evict_listener(self.trust.evict_peer)
@@ -1365,6 +1396,8 @@ class TcpTransport:
             "frames_published": 0, "wire_bytes_published": 0,
             "rounds": 0, "merged": 0, "wire_bytes_fetched": 0,
             "outcomes": {}, "verdicts": {}, "probes": 0, "relay_probes": 0,
+            # digest version -> fetched frames that carried one
+            "digest_versions": {},
             # peer -> [merged rounds, the newest publish clock merged]
             "merged_from": {},
         }
@@ -1442,7 +1475,8 @@ class TcpTransport:
         if obs.incidents:
             from dpwa_tpu_torch.obs.incidents import IncidentPlane
 
-            self.incidents = IncidentPlane(self.me, len(config.nodes), obs)
+            self.incidents = IncidentPlane(self.me, len(config.nodes), obs,
+                                           topology=self.topology)
         self.flight = None
         if obs.recorder:
             from dpwa_tpu_torch.obs.recorder import FlightRecorder
@@ -1801,6 +1835,9 @@ class TcpTransport:
             self.stats["wire_bytes_fetched"] += nbytes
             counts = self.stats["outcomes"]
             counts[outcome] = counts.get(outcome, 0) + 1
+            if digest:
+                versions = self.stats["digest_versions"]
+                versions[digest[4]] = versions.get(digest[4], 0) + 1
         if self.membership is not None and digest is not None:
             self.membership.merge(digest, round=step)
         sb = self.scoreboard
@@ -2821,6 +2858,8 @@ class TcpTransport:
             self.incidents.close()
         if self.healthz is not None:
             self.healthz.close()
+        # The server first: its last serve spans reach the tracer before the
+        # tracer's file closes.
+        self.server.close()
         if self.tracer is not None:
             self.tracer.close()
-        self.server.close()

@@ -2,10 +2,10 @@
 
 The same YAML files load to equal fields in ``dpwa_tpu.config`` and
 ``dpwa_tpu_torch.config`` (the ``health:`` block too, and its validation);
-the ``membership:``, ``trust:``, ``flowctl:`` and ``chaos:`` blocks load
-what the reference loads and refuse what it refuses, and a block of a
-plane the port does not have raises :class:`NotImplementedError` naming
-it; α from ``dpwa_tpu_torch.interpolation`` equals
+the ``membership:``, ``trust:``, ``flowctl:``, ``chaos:`` and
+``topology:`` blocks load what the reference loads and refuse what it
+refuses, and a block of a plane the port does not have raises
+:class:`NotImplementedError` naming it; α from ``dpwa_tpu_torch.interpolation`` equals
 ``dpwa_tpu.interpolation``'s bit for bit on a grid of (clock, loss) that
 includes NaN, inf and losses beyond the rescue bound.
 """
@@ -50,7 +50,7 @@ def test_example_yaml_loads_to_equal_core_fields(path):
     assert port.recovery.rescue_bound() == ref.recovery.rescue_bound()
 
 
-@pytest.mark.parametrize("block", ["topology", "run", "tune"])
+@pytest.mark.parametrize("block", ["run", "tune"])
 def test_unported_block_raises_naming_it(block):
     raw = {"nodes": ["a", "b"], block: {}}
     ref_config.config_from_dict(raw)  # the reference accepts every block
@@ -58,14 +58,20 @@ def test_unported_block_raises_naming_it(block):
         config.config_from_dict(raw)
 
 
-@pytest.mark.parametrize("block", ["chaos", "flowctl", "shard", "obs"])
+@pytest.mark.parametrize("block", ["chaos", "flowctl", "shard", "obs", "topology"])
 def test_flowctl_and_chaos_blocks_load_like_the_reference(block):
     """An empty block loads the reference's defaults: flowctl on, chaos
-    off, shard off (k 1), obs off."""
+    off, shard off (k 1), obs off, topology flat (no islands); a topology
+    with islands loads the reference's islands, seed and intra rounds."""
     raw = {"nodes": ["a", "b"], block: {}}
     assert _fields(getattr(config.config_from_dict(raw), block)) == _fields(
         getattr(ref_config.config_from_dict(raw), block))
     assert getattr(config.config_from_dict(raw), block).enabled == (block == "flowctl")
+    if block == "topology":
+        raw[block] = {"islands": [["a"], {"name": "pod", "nodes": ["b"]}], "leader_seed": 2,
+                      "intra_rounds": 3}
+        mine, ref = config.config_from_dict(raw).topology, ref_config.config_from_dict(raw).topology
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref) and mine.enabled
 
 
 @pytest.mark.parametrize("block", ["membership", "trust", "flowctl"])

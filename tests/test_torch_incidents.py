@@ -159,7 +159,21 @@ def test_incident_register_metrics_renders_reference_families():
 
 
 def test_tables_match_the_reference_and_a_topology_raises():
+    """The tables match, and a topology (once refused) arms
+    ``island_partition``: the same cut is the generic ``partition``
+    without one."""
+    from dpwa_tpu.hier import Topology as RefTopology
+    from dpwa_tpu_torch.hier import Topology
+
     assert incidents.ALERT_KINDS == ref_incidents.ALERT_KINDS
     assert incidents.KIND_PRIORITY == ref_incidents.KIND_PRIORITY
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        incidents.IncidentPlane(0, 4, ObsConfig(incidents=True), topology=object())
+    cut = dict(events=[{"event": "partition_entered", "component": [0, 1], "quorum_fraction": 0.5}],
+               partition_state="degraded", component=[0, 1])
+    mine = incidents.IncidentPlane(0, 4, ObsConfig(incidents=True), topology=Topology.uniform(2, 2))
+    ref = ref_incidents.IncidentPlane(0, 4, RefObsConfig(incidents=True),
+                                      topology=RefTopology.uniform(2, 2))
+    assert mine.observe_round(5, **cut) == ref.observe_round(5, **cut)
+    assert _snapshot(mine) == _snapshot(ref)
+    assert [a["kind"] for a in mine.snapshot()["recent_alerts"]] == ["island_partition"]
+    flat = incidents.IncidentPlane(0, 4, ObsConfig(incidents=True))
+    assert flat.observe_round(5, **cut)["alerts"] == ["partition"]

@@ -192,9 +192,11 @@ def test_membership_and_trust_import_neither_jax_nor_the_reference():
 def test_view_on_raises_naming_the_partial_view():
     """The partial view is ported: a view that is on loads as the
     reference's ``ViewConfig``, and a bad one raises a ``ValueError`` naming
-    its field; a ``topology:`` block still raises."""
+    its field; a ``topology:`` block loads (an ``enabled`` field is no
+    field of it, in either package)."""
     from dpwa_tpu.config import config_from_dict as ref_config_from_dict
-    from dpwa_tpu_torch.config import ViewConfig, config_from_dict, load_config
+    from dpwa_tpu_torch.config import (
+        IslandSpec, TopologyConfig, ViewConfig, config_from_dict, load_config)
 
     doc = {"nodes": ["a"], "membership": {"view": {"enabled": True, "state_cap": 12}}}
     view = config_from_dict(doc).membership.view
@@ -202,8 +204,13 @@ def test_view_on_raises_naming_the_partial_view():
     assert dataclasses.asdict(view) == dataclasses.asdict(ref_config_from_dict(doc).membership.view)
     with pytest.raises(ValueError, match="view.state_cap"):
         config_from_dict({"nodes": ["a"], "membership": {"view": {"state_cap": 2}}})
-    with pytest.raises(NotImplementedError, match="topology"):
+    with pytest.raises(TypeError, match="enabled"):
         config_from_dict({"nodes": ["a"], "topology": {"enabled": False}})
+    with pytest.raises(TypeError, match="enabled"):
+        ref_config_from_dict({"nodes": ["a"], "topology": {"enabled": False}})
+    hier_doc = {"nodes": ["a", "b"], "topology": {"islands": [["a"], ["b"]]}}
+    assert config_from_dict(hier_doc).topology == TopologyConfig(
+        islands=(IslandSpec("island0", ("a",)), IslandSpec("island1", ("b",))))
     cfg = load_config("examples/mnist/nodes.yaml")
     assert cfg.membership.enabled and cfg.trust.enabled and cfg.flowctl.enabled
     assert config_from_dict({"nodes": ["a"], "membership": {"view": {"enabled": False}}}).membership

@@ -63,9 +63,25 @@ def _close(nodes):
         t.close()
 
 
-def _drive(nodes, kinds, rounds, d=256, seed=1, vecs=None, sleep_s=0.0, loss=0.0):
+def _await_serve_spans(nodes, want, timeout_s=30.0):
+    """Wait until the nodes' tracers hold ``want`` serve spans (one a
+    successful fetch).  A server notes its span on its Rx thread after the
+    frame is sent, so the fetcher can finish first; a node closed before
+    its Rx thread runs would drop the span."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        held = sum(t.tracer.stage_summary().get("serve", {}).get("n", 0) for t in nodes)
+        if held >= want or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    assert held >= want, f"{held} serve spans for {want} successful fetches"
+
+
+def _drive(nodes, kinds, rounds, d=256, seed=1, vecs=None, sleep_s=0.0, loss=0.0,
+           outcomes=None):
     """Lock-step rounds (each node exchanges in turn at clock = step);
-    the final replicas as numpy arrays."""
+    the final replicas as numpy arrays.  ``outcomes`` (a list) gets each
+    exchange's fetch outcome."""
     rng = np.random.RandomState(seed)
     if vecs is None:
         vecs = [rng.standard_normal(d).astype(np.float32) for _ in nodes]
@@ -74,6 +90,8 @@ def _drive(nodes, kinds, rounds, d=256, seed=1, vecs=None, sleep_s=0.0, loss=0.0
             v = vecs[i] if kinds[i] == "ref" else torch.from_numpy(vecs[i].copy())
             merged, _alpha, _p = t.exchange(v, float(step), loss, step)
             vecs[i] = np.asarray(merged, np.float32).copy()
+            if outcomes is not None:
+                outcomes.append(t.last_round.get("outcome"))
         if sleep_s:
             time.sleep(sleep_s)
     return vecs
@@ -150,7 +168,9 @@ def test_mixed_ring_decodes_each_others_trailers_and_joins_its_traces(tmp_path):
     nodes = _group(kinds, port_kw={"rx_server": "reactor"}, schedule="ring", timeout_ms=2000,
                    obs=obs, **FLOWCTL_OFF)
     try:
-        _drive(nodes, kinds, 8)
+        outcomes = []
+        _drive(nodes, kinds, 8, outcomes=outcomes)
+        _await_serve_spans(nodes, outcomes.count("success"))
         for i, t in enumerate(nodes):
             snap = t.sketchboard.snapshot()
             assert snap["peers_seen"] >= 1 and snap["rms"] is not None, i

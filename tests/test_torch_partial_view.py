@@ -16,8 +16,8 @@ the driver's parallel runs, so their output is no ground truth):
   reference manager: the encoded digests byte for byte, the events, the
   evictions by cause, the quorum over the tracked horizon, the snapshot's
   ``view`` group;
-- trust's capped snapshot and residency against the reference's, and a
-  topology refused.
+- trust's capped snapshot and residency against the reference's, and the
+  hierarchical topology's island-first bootstrap.
 """
 
 import dataclasses
@@ -278,5 +278,18 @@ def test_capped_trust_and_estimator_snapshots_equal_reference():
 
 
 def test_topology_is_refused_naming_the_hierarchical_item():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        PartialView(16, 0, config.ViewConfig(enabled=True), topology=object())
+    """The hierarchical bootstrap, once refused, is accepted: the island's
+    members, the other leaders, then the ring successors, as the
+    reference's."""
+    from dpwa_tpu.hier import LeaderBoard as RefLeaderBoard
+    from dpwa_tpu.hier import Topology as RefTopology
+    from dpwa_tpu_torch.hier import LeaderBoard, Topology
+
+    topo, ref_topo = Topology.uniform(4, 4), RefTopology.uniform(4, 4)
+    mine = PartialView(16, 0, config.ViewConfig(enabled=True), topology=topo,
+                       leader_board=LeaderBoard(topo))
+    ref = RefPartialView(16, 0, ref_config.ViewConfig(enabled=True), topology=ref_topo,
+                         leader_board=RefLeaderBoard(ref_topo))
+    assert mine._initial_candidates() == ref._initial_candidates()
+    assert mine._initial_candidates()[:3] == [1, 2, 3]
+    assert (sorted(mine.active), sorted(mine.passive)) == (sorted(ref.active), sorted(ref.passive))
